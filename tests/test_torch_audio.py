@@ -62,3 +62,21 @@ def test_log_mel_matches_transformers_feature_extractor():
              return_tensors="np").input_features[0]
     got = log_mel_spectrogram(torch.from_numpy(audio), cfg)[0].numpy()
     assert np.abs(ref - got).max() < 1e-4
+
+
+def test_128_bin_frontend_matches_jax():
+    """large-v3 and turbo's 128-bin frontend: the constants exactly, and
+    the log-mel of 30 s at test_log_mel_matches_jax_30s's 1e-4."""
+    cfg = get_config("large-v3-turbo")
+    assert cfg.n_mels == 128
+    args = (cfg.n_fft, cfg.n_mels, cfg.sample_rate, cfg.hop_length)
+    for got, want in zip(_frontend_constants(*args), jax_constants(*args)):
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.RandomState(1)
+    t = np.arange(cfg.n_samples) / cfg.sample_rate
+    audio = (0.3 * np.sin(2 * np.pi * 440 * t)
+             + 0.05 * rng.randn(cfg.n_samples)).astype(np.float32)[None]
+    want = np.asarray(jax_log_mel(jnp.asarray(audio), cfg))
+    got = log_mel_spectrogram(torch.from_numpy(audio), cfg)
+    assert got.shape == (1, 128, cfg.n_frames) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)

@@ -175,3 +175,104 @@ def test_cli_rejects_flags_outside_the_slice_and_absent_cuda(tmp_path):
         with pytest.raises(SystemExit) as e:
             cli.main(["--random-weights", "--audio", str(wav)])
         assert e.value.code != 0
+
+
+# ---------------------------------------------------------------------------
+# large-v3 / turbo structure: 128 mel bins, the 51,866-token vocabulary, the
+# +1-shifted task tokens, asymmetric depth
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def v3_nano():
+    cfg = get_config("large-v3-turbo").replace(
+        name="v3-nano", d_model=128, n_heads=2, n_audio_layers=3,
+        n_text_layers=1)
+    assert cfg.n_mels == 128 and cfg.vocab_size == 51_866
+    assert cfg.transcribe_token == 50_360
+    np_tree = jax.tree.map(np.asarray,
+                           jax_init_params(cfg, jax.random.PRNGKey(3)))
+    return cfg, np_tree
+
+
+@pytest.fixture(scope="module")
+def v3_vocab(tmp_path_factory):
+    """A 51,866-entry table: the bundled one with <|yue|>, the 100th
+    language, at id 50358 (config.py:118, :150-180)."""
+    from whisper_tpu.tokenizer import _ASSET_VOCAB
+    with open(_ASSET_VOCAB, encoding="utf-8") as f:
+        tokens = f.read().split("\n")
+    if tokens[-1] == "":
+        tokens.pop()
+    tokens.insert(50_358, "<|yue|>")
+    path = tmp_path_factory.mktemp("vocab") / "vocab_v3.txt"
+    path.write_text("\n".join(tokens) + "\n", encoding="utf-8")
+    return str(path)
+
+
+@pytest.mark.parametrize("tail", ["tail", "off"])
+def test_v3_nano_greedy_matches_jax(v3_nano, v3_vocab, tail, monkeypatch):
+    """v3-nano greedy tokens through the port's pipeline on the CPU, with
+    the tail kernel's plain twin and with the tail-off branch, against JAX
+    greedy_decode on the same weights (max_new=9: a cap no other test
+    decodes with)."""
+    from whisper_tpu.audio import log_mel_spectrogram as jax_log_mel
+    from whisper_tpu.models.whisper import encoder_forward as jax_encoder
+    from whisper_tpu_torch.ops import encoder_layer
+    cfg, np_tree = v3_nano
+    if tail == "off":
+        monkeypatch.setattr(encoder_layer, "SM90_SMEM_OPTIN", 0)
+    rng = np.random.RandomState(6)
+    t = np.arange(cfg.n_samples) / cfg.sample_rate
+    audio = np.stack([0.3 * np.sin(2 * np.pi * 300 * t),
+                      0.1 * rng.randn(cfg.n_samples)]).astype(np.float32)
+    jparams = jax.tree.map(jnp.asarray, np_tree)
+    enc = jax_encoder(jparams, cfg, jax_log_mel(jnp.asarray(audio), cfg))
+    prompt = np.tile(build_prompt(cfg), (2, 1))
+    want = jax_greedy_decode(jparams, cfg, enc,
+                             jnp.asarray(prompt, jnp.int32), max_new=9)
+    pipe = WhisperPipeline.from_params(from_jax_params(np_tree), cfg,
+                                       device="cpu", vocab_path=v3_vocab)
+    got = pipe.transcribe_batch(audio, max_new=9)
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths.numpy(),
+                                  np.asarray(want.lengths))
+
+
+def test_pipeline_takes_vocab_path_as_jax_does(v3_nano, v3_vocab, tmp_path):
+    """Every constructor takes vocab_path; without it the bundled
+    51,865-entry table is too short for a v3 model and the constructor
+    raises, as the JAX pipeline does (whisper_tpu/tokenizer.py:80-86)."""
+    from whisper_tpu.weights import to_flat_bin
+    cfg, np_tree = v3_nano
+    blob = tmp_path / "w.bin"
+    blob.write_bytes(to_flat_bin(np_tree, cfg))
+    makers = {
+        "from_params": lambda **kw: WhisperPipeline.from_params(
+            from_jax_params(np_tree), cfg, device="cpu", **kw),
+        "from_random": lambda **kw: WhisperPipeline.from_random(
+            cfg, device="cpu", **kw),
+        "from_flat_bin": lambda **kw: WhisperPipeline.from_flat_bin(
+            str(blob), cfg, device="cpu", **kw),
+    }
+    for name, make in makers.items():
+        with pytest.raises(ValueError, match="vocab_path"):
+            make()
+        pipe = make(vocab_path=v3_vocab)
+        assert pipe.tokenizer.vocab_size == cfg.vocab_size, name
+        assert pipe.tokenizer.decode([50_358]) == "", name     # <|yue|>
+
+
+def test_cli_vocab_flag(v3_nano, v3_vocab, tmp_path, capsys, monkeypatch):
+    """--vocab reaches the tokenizer; a v3 model without it fails as the
+    JAX CLI does. The model is registered under a test name."""
+    from whisper_tpu.config import CONFIGS
+    cfg, _ = v3_nano
+    monkeypatch.setitem(CONFIGS, "v3-nano", cfg)
+    wav = tmp_path / "clip.wav"
+    _write_wav(wav)
+    args = ["--model", "v3-nano", "--random-weights", "--audio", str(wav),
+            "--max-new", "3", "--device", "cpu"]
+    with pytest.raises(ValueError, match="vocab_path"):
+        cli.main(args)
+    assert cli.main(args + ["--vocab", v3_vocab]) == 0
+    assert "tokens: [50258, 50259, 50360, 50364," in capsys.readouterr().out

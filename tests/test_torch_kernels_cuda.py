@@ -8,6 +8,8 @@ marker and skip when CUDA is absent. Run them on a GPU machine with
 import pytest
 import torch
 
+from whisper_tpu.config import CONFIGS
+from whisper_tpu_torch.ops.attention import multi_head_attention
 from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows,
     cache_append_rows_plain,
@@ -15,6 +17,11 @@ from whisper_tpu_torch.ops.cache_append import (
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     encoder_block_tail_plain,
+    tail_fits_smem,
+)
+from whisper_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -102,3 +109,102 @@ def test_cache_append_kernel_refuses_pos_past_end(dev):
     kn = torch.zeros((1, 1, 1, 64), device=dev)
     with pytest.raises(IndexError):
         cache_append_rows(ck, ck.clone(), kn, kn, 8)
+
+
+def test_tail_gate_is_the_kernels_answer(dev):
+    """For every width of the family, tail_fits_smem answers as the kernel
+    does: it runs a width that fits and refuses one that does not."""
+    for d in sorted({c.d_model for c in CONFIGS.values()}):
+        args = _tail_args(1, 64, d // 64, 4 * d, torch.bfloat16, dev)
+        if tail_fits_smem(d, 4 * d, dev):
+            encoder_block_tail(*args)
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(RuntimeError, match="encoder_block_tail"):
+                encoder_block_tail(*args)
+
+
+def _flash_args(B, T, S, H, dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dev, dtype)
+            for s in ((B, T, H, 64), (B, H, S, 64), (B, H, S, 64))]
+
+
+# fp32 2e-5 / 1e-5: the kernel's online softmax and fp32 FMAs against the
+# plain two-pass softmax and cuBLAS fp32, summed in other orders. bf16
+# atol 2e-3 / rtol 1e-2: about one bf16 ulp of the output, where the kernel
+# rounds p at a running max and the plain version at the final one.
+_FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-3, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal", [
+    (2, 300, 300, 3, None, 0, False),   # encoder-like, ragged tiles
+    (1, 1500, 1500, 20, None, 0, False),  # one turbo encoder clip
+    (4, 4, 1500, 20, None, 0, False),   # cross prefill
+    (3, 4, 128, 2, 4, 0, True),         # prefill from position 0
+    (2, 40, 448, 2, 140, 100, True),    # causal, q_offset 100
+    (1, 130, 200, 2, 150, 20, True),    # several q tiles under causal
+    (2, 5, 64, 2, 0, 0, False),         # kv_len 0: zeros
+])
+def test_flash_kernel_matches_plain(dev, dtype, B, T, S, H, kv_len,
+                                    q_offset, causal):
+    q, k, v = _flash_args(B, T, S, H, dtype, dev)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, kv_len, q_offset, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, kv_len, q_offset, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if kv_len == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len,q_offset,causal,poison_from", [
+    (100, 0, False, 100), (140, 100, True, 140), (448, 100, True, 140)])
+def test_flash_kernel_never_reads_poisoned_keys(dev, dtype, kv_len, q_offset,
+                                                causal, poison_from):
+    q, k, v = _flash_args(2, 40, 448, 2, dtype, dev, seed=1)
+    clean = flash_attention(q, k, v, kv_len, q_offset, causal=causal)
+    k[:, :, poison_from:] = float("nan")
+    v[:, :, poison_from:] = float("nan")
+    got = flash_attention(q, k, v, kv_len, q_offset, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, clean)
+
+
+def test_flash_kernel_reads_strided_views(dev):
+    """q, k, v as the encoder hands them over: views of one fused QKV
+    projection, read in place."""
+    B, T, H = 2, 100, 4
+    d = 64 * H
+    g = torch.Generator(device="cpu").manual_seed(2)
+    qkv = torch.randn(B, T, 3 * d, generator=g).to(dev)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = q.reshape(B, T, H, 64)
+    k = k.reshape(B, T, H, 64).permute(0, 2, 1, 3)
+    v = v.reshape(B, T, H, 64).permute(0, 2, 1, 3)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_refuses_head_dim_32(dev):
+    q = torch.zeros((1, 4, 2, 32), device=dev)
+    k = torch.zeros((1, 2, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, k)
+
+
+def test_long_cache_decode_raises_on_cuda(dev):
+    q = torch.zeros((1, 1, 2, 64), device=dev)
+    k = torch.zeros((1, 2, 4096, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="decode_attention_bh"):
+        multi_head_attention(q, k, k, 10)

@@ -7,9 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+from whisper_tpu.config import CONFIGS
 from whisper_tpu.models import whisper as jm
 from whisper_tpu.tokenizer import build_prompt
 from whisper_tpu_torch.models import whisper as tm
+from whisper_tpu_torch.ops import attention, encoder_layer
 from whisper_tpu_torch.weights import from_jax_params, to_device
 
 torch.set_num_threads(2)
@@ -185,3 +187,52 @@ def test_to_device_fuses_self_attention_qkv_once(nano):
     assert torch.equal(again["decoder"]["layers"]["attn"]["qkv"]["w"],
                        tparams["decoder"]["layers"]["attn"]["qkv"]["w"])
     assert "cross_attn" in again["decoder"]["layers"]
+
+
+# Shared memory of the tail kernel's MLP tile, 16 * (2d + ff) * 4 bytes,
+# against the 232,448 B that one sm_90 block may opt into.
+_TAIL_SMEM = {"tiny": 147_456, "tiny.en": 147_456, "base": 196_608,
+              "base.en": 196_608, "small": 294_912, "small.en": 294_912,
+              "medium": 393_216, "medium.en": 393_216,
+              "large-v2": 491_520, "large-v3": 491_520,
+              "large-v3-turbo": 491_520}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_encoder_tail_gate_table(name):
+    """Tiny and base take the tail kernel; small and up the tail-off
+    branch. The CPU answers with the sm_90 limit, as the H100 would."""
+    cfg = CONFIGS[name]
+    assert encoder_layer.tail_smem_bytes(cfg.d_model, cfg.d_ff) \
+        == _TAIL_SMEM[name]
+    want = "tail" if name.split(".")[0] in ("tiny", "base") else "off"
+    assert tm._encoder_tail_mode(cfg, torch.device("cpu")) == want
+
+
+@pytest.mark.parametrize("backend", ["reference", "pallas_interpret"])
+def test_encoder_tail_off_matches_jax(nano, backend, monkeypatch):
+    """The tail-off branch (attention through the flash route, the
+    o-projection, LN2, the MLP), reached at nano width by lowering the
+    shared-memory limit, against the JAX tail-off encoder: with its plain
+    attention, and with its flash kernel in interpret mode (the JAX
+    package's own WHISPER_TPU_FUSED_ENCODER=0 switch). Tolerance as
+    test_encoder_forward_matches_jax."""
+    cfg, jparams, tparams = nano
+    monkeypatch.setattr(encoder_layer, "SM90_SMEM_OPTIN", 0)
+    monkeypatch.setenv("WHISPER_TPU_FUSED_ENCODER", "0")
+    assert tm._encoder_tail_mode(cfg, torch.device("cpu")) == "off"
+    calls = []
+    real_flash = attention.flash_attention
+
+    def counting_flash(*args, **kw):
+        calls.append(1)
+        return real_flash(*args, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention", counting_flash)
+    mel = (np.random.RandomState(3).randn(1, cfg.n_mels, cfg.n_frames)
+           * 0.5).astype(np.float32)
+    want = np.asarray(jm.encoder_forward(
+        jparams, cfg.replace(attn_backend=backend), jnp.asarray(mel)))
+    got = tm.encoder_forward(tparams, cfg, torch.from_numpy(mel))
+    assert len(calls) == cfg.n_audio_layers      # 18 MB of scores: flash
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=1e-4)

@@ -92,3 +92,33 @@ def test_to_device_casts_rank2_leaves_only(small_cfg, jax_tree):
     for name, t in out.items():
         want = torch.bfloat16 if t.ndim >= 2 else torch.float32
         assert t.dtype == want, name
+
+
+def test_v3_turbo_structure_matches_jax():
+    """large-v3-turbo's structure at nano width (128-channel conv1, the
+    51,866-token vocabulary, 3 encoder and 1 decoder layers): the seeded
+    init's shapes, the flat-bin reader and from_jax_params against the JAX
+    trees."""
+    from whisper_tpu.config import get_config
+    cfg = get_config("large-v3-turbo").replace(
+        name="v3-nano", d_model=64, n_heads=2, n_audio_layers=3,
+        n_text_layers=1)
+    tree = jax.tree.map(np.asarray,
+                        jax_init_params(cfg, jax.random.PRNGKey(0)))
+    want = _leaves(tree)
+    init = _leaves(weights.init_params(cfg, seed=0))
+    assert {k: tuple(v.shape) for k, v in init.items()} == \
+        {k: v.shape for k, v in want.items()}
+    assert init["/encoder/conv1/w"].shape == (64, 128, 3)
+    assert init["/decoder/tok_emb"].shape == (51_866, 64)
+    assert init["/encoder/layers/fc1/w"].shape[0] == 3
+    assert init["/decoder/layers/fc1/w"].shape[0] == 1
+    blob = to_flat_bin(tree, cfg)
+    from_bin = _leaves(jax_from_flat_bin(blob, cfg))
+    for got_tree, ref in ((weights.from_flat_bin(blob, cfg), from_bin),
+                          (weights.from_jax_params(tree), want)):
+        got = _leaves(got_tree)
+        assert got.keys() == ref.keys()
+        for name, w in ref.items():
+            np.testing.assert_array_equal(got[name].numpy(), np.asarray(w),
+                                          err_msg=name)

@@ -6,16 +6,20 @@ its counterpart's name, public function names and tensor layouts (q is
 (B, T, H, D); K/V and the caches are head-major (L, B, H, S, D); linear
 weights are stored (in, out)), so a reader can put the two side by side.
 
-Slice covered so far: tiny-width greedy transcription, unquantized, in fp32
-(token-parity mode) and bf16 —
-  - audio.py         <- whisper_tpu/audio.py (log-mel frontend)
+Covered so far: greedy transcription with every model of the family
+(tiny to large-v3-turbo), unquantized, in fp32 (token-parity mode) and
+bf16 —
+  - audio.py         <- whisper_tpu/audio.py (log-mel frontend, 80 or 128
+                        bins)
   - weights.py       <- whisper_tpu/weights.py + models/whisper.py init
-  - models/whisper.py<- whisper_tpu/models/whisper.py (encoder, prefill,
-                        the in-place T==1 decode step)
-  - ops/             <- whisper_tpu/ops: the two Pallas kernels on this path
-                        (encoder_block_tail, cache_append_rows) as
-                        hand-written CUDA C++ kernels for sm_90a, each with
-                        a plain PyTorch twin
+  - models/whisper.py<- whisper_tpu/models/whisper.py (encoder with the
+                        fused tail or the tail-off branch, prefill, the
+                        in-place T==1 decode step)
+  - ops/             <- whisper_tpu/ops: the three Pallas kernels on these
+                        paths (encoder_block_tail, flash_attention,
+                        cache_append_rows) as hand-written CUDA C++ kernels
+                        for sm_90a, each with a plain PyTorch twin, and the
+                        attention size dispatch
   - decode.py        <- whisper_tpu/decode.py (greedy only)
   - pipeline.py, cli.py
 

@@ -5,6 +5,8 @@ Usage:
     python -m whisper_tpu_torch.cli --random-weights --audio clip.wav
     python -m whisper_tpu_torch.cli --flat-bin whisper_tiny_weights.bin \
         --audio clip.wav --dtype bfloat16 --max-new 32
+    python -m whisper_tpu_torch.cli --model large-v3-turbo --random-weights \
+        --vocab vocab_v3.txt --audio clip.wav --dtype bfloat16
 
 One <= 30 s window, greedy, unquantized. The device defaults to cuda and
 the command fails when CUDA is absent; --device cpu runs the plain CPU
@@ -25,6 +27,8 @@ def main(argv=None) -> int:
     src.add_argument("--flat-bin", help="reference-format flat fp32 weight blob")
     src.add_argument("--random-weights", action="store_true",
                      help="seeded random weights (no checkpoint needed)")
+    p.add_argument("--vocab", help="vocab.txt path (default: bundled asset; "
+                                   "large-v3 and turbo need their own)")
     p.add_argument("--audio", required=True, help="input WAV file (<= 30 s)")
     p.add_argument("--language", default="en")
     p.add_argument("--max-new", type=int, default=None,
@@ -55,10 +59,11 @@ def main(argv=None) -> int:
                 f"transcribes one window of {cfg.chunk_length_s} s")
     if args.flat_bin:
         pipe = WhisperPipeline.from_flat_bin(args.flat_bin, cfg, args.dtype,
-                                             args.device)
+                                             args.device, args.vocab)
     else:
         pipe = WhisperPipeline.from_random(cfg, dtype=args.dtype,
-                                           device=args.device)
+                                           device=args.device,
+                                           vocab_path=args.vocab)
     r = pipe.transcribe_window(wav, args.language, max_new=args.max_new)
     print(f"timings: {r.timings}")
     print("tokens:", r.tokens)

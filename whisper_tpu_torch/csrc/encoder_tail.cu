@@ -21,11 +21,12 @@
 // are the later work.
 //
 // Design. Two launches, one C entry point:
-//   1. attention_kernel: one block per (64-query tile, head, batch row).
-//      K/V stream through shared memory in 64-key tiles with an online
-//      softmax, so the (T, S) score matrix never exists; the head's output
-//      lands in a (B, T, H*D) buffer in the compute dtype (exact: the JAX
-//      kernel rounds it there too).
+//   1. the flash-attention kernel (flash_attention.cu) with kv_len = S and
+//      no causal mask: one block per (64-query tile, head, batch row), K/V
+//      streamed through shared memory with an online softmax, so the
+//      (T, S) score matrix never exists; the head's output lands in a
+//      (B, T, H*D) buffer in the compute dtype (exact: the JAX kernel
+//      rounds it there too).
 //   2. tail_mlp_kernel: one block per MLP_RM = 16 rows of the flattened
 //      (B*T, d) stream. The attention rows, h2 and the (16, ff) GeLU
 //      intermediate stay in shared memory; the weights are read from
@@ -43,165 +44,26 @@
 
 #include "common.cuh"
 
+// csrc/flash_attention.cu
+extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
+                                  void* out, int B, int T_len, int S, int H,
+                                  int D, int kv_len, int q_offset, int causal,
+                                  long long sq_b, long long sq_t,
+                                  long long sq_h, long long sk_b,
+                                  long long sk_h, long long sk_s,
+                                  long long sv_b, long long sv_h,
+                                  long long sv_s, int is_bf16, void* stream);
+
 namespace {
+
+constexpr int HEAD_DIM = 64;            // every Whisper size has D = 64
 
 using wt::from_f32;
 using wt::rnd;
 using wt::to_f32;
 
 // ---------------------------------------------------------------------------
-// 1. attention
-// ---------------------------------------------------------------------------
-
-constexpr int HEAD_DIM = 64;            // every Whisper size has D = 64
-constexpr int ATT_BQ = 64;              // query rows per block
-constexpr int ATT_BK = 64;              // keys per shared-memory tile
-constexpr int ATT_THREADS = 256;        // 16 x 16: each thread 4 rows x 4 cols
-constexpr int PAD = HEAD_DIM + 1;       // row stride that spreads banks
-constexpr size_t ATT_SMEM =
-    (size_t)(2 * ATT_BQ * PAD + ATT_BK * PAD + ATT_BK * HEAD_DIM) *
-    sizeof(float);
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int t_len,
-                 int s_len, int n_heads, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                         // [ATT_BQ][PAD], pre-scaled
-  float* Ks = Qs + ATT_BQ * PAD;            // [ATT_BK][PAD]
-  float* Vs = Ks + ATT_BK * PAD;            // [ATT_BK][HEAD_DIM]
-  float* Ps = Vs + ATT_BK * HEAD_DIM;       // [ATT_BQ][PAD] probabilities
-
-  const int q0 = blockIdx.x * ATT_BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;                  // key / head-dim column group
-  const int ty = tid >> 4;                  // query row group
-
-  // q is (B, T, H, D); the JAX kernel scales q in fp32 before the dot.
-  for (int i = tid; i < ATT_BQ * HEAD_DIM; i += ATT_THREADS) {
-    const int r = i / HEAD_DIM, c = i % HEAD_DIM;
-    const int t = q0 + r;
-    float val = 0.f;
-    if (t < t_len)
-      val = to_f32(q[(((size_t)b * t_len + t) * n_heads + h) * HEAD_DIM + c]) *
-            scale;
-    Qs[r * PAD + c] = val;
-  }
-  // k, v are head-major (B, H, S, D).
-  const size_t kv_base = ((size_t)b * n_heads + h) * (size_t)s_len * HEAD_DIM;
-
-  float m[4], l[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < s_len; s0 += ATT_BK) {
-    __syncthreads();  // Q is written (first pass) / the last tile is consumed
-    for (int i = tid; i < ATT_BK * HEAD_DIM; i += ATT_THREADS) {
-      const int r = i / HEAD_DIM, c = i % HEAD_DIM;
-      const int s = s0 + r;
-      float kval = 0.f, vval = 0.f;
-      if (s < s_len) {
-        kval = to_f32(k[kv_base + (size_t)s * HEAD_DIM + c]);
-        vval = to_f32(v[kv_base + (size_t)s * HEAD_DIM + c]);
-      }
-      Ks[r * PAD + c] = kval;
-      Vs[r * HEAD_DIM + c] = vval;
-    }
-    __syncthreads();
-
-    // scores for rows ty + 16i, keys tx + 16j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < HEAD_DIM; ++kk) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * PAD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * PAD + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-    // online softmax: a row's 64 keys live in the 16 lanes that share ty
-    // (one half-warp), so xor-shuffles over 8, 4, 2, 1 reduce a row.
-    // Every tile holds key s0 < S, so the row max is finite and the first
-    // tile's alpha = exp(-inf) = 0.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (s0 + tx + 16 * j >= s_len) sc[i][j] = -INFINITY;
-        rmax = fmaxf(rmax, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        rsum += p;
-        // the JAX kernel feeds p to the p.v product in v's dtype, while
-        // the denominator sums the fp32 p
-        Ps[(ty + 16 * i) * PAD + tx + 16 * j] = rnd<T>(p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc[rows ty + 16i][dims tx + 16j] += P . V
-#pragma unroll 8
-    for (int kk = 0; kk < ATT_BK; ++kk) {
-      float pv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PAD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * HEAD_DIM + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  // out is (B, T, H*D): head h's columns of the merged-head row
-  const int d_model = n_heads * HEAD_DIM;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= t_len) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* row = out + ((size_t)b * t_len + t) * d_model + h * HEAD_DIM;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = from_f32<T>(acc[i][j] / denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2. o-projection + residual + LN2 + MLP + residual
+// o-projection + residual + LN2 + MLP + residual
 // ---------------------------------------------------------------------------
 
 constexpr int MLP_RM = 16;                     // rows per block
@@ -349,29 +211,29 @@ cudaError_t launch_tail(const void* q, const void* k, const void* v,
                         const void* fc2, const float* misc, void* attn,
                         void* out, int B, int T_len, int S, int H, int d,
                         int ff, float eps, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ATT_SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T_len + ATT_BQ - 1) / ATT_BQ, H, B);
-  attention_kernel<T><<<grid, ATT_THREADS, ATT_SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(attn), T_len, S, H,
-      1.0f / sqrtf((float)HEAD_DIM));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
   // the MLP working set of MLP_RM rows must fit the opt-in shared memory
-  // (tiny: 16 * (2*384 + 1536) * 4 = 147 KB of 227 KB); wider models need
-  // a smaller row tile, which no model of this slice runs
+  // (tiny: 16 * (2*384 + 1536) * 4 = 147 KB of 227 KB; from small up it
+  // does not, and the encoder takes its tail-off branch): checked before
+  // anything is launched, so a refused shape launches nothing.
+  // ops/encoder_layer.py:tail_smem_bytes is the same formula.
   int dev = 0, max_smem = 0;
-  e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess) return e;
   const size_t smem = (size_t)MLP_RM * (2 * d + ff) * sizeof(float);
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
+
+  // 1. attention into the (B, T, H*D) scratch: contiguous q and k/v
+  const long long D = HEAD_DIM;
+  e = (cudaError_t)wt_flash_attention(
+      q, k, v, attn, B, T_len, S, H, HEAD_DIM, S, 0, 0, T_len * H * D, H * D,
+      D, H * S * D, S * D, D, H * S * D, S * D, D,
+      sizeof(T) == 2, stream);
+  if (e != cudaSuccess) return e;
+
+  // 2. o-projection + LN2 + MLP
   e = cudaFuncSetAttribute(tail_mlp_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

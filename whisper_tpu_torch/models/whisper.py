@@ -18,6 +18,10 @@ Differences from the JAX module, all deliberate:
     (`full_fp32`): JAX runs HIGHEST precision at every fp32 product.
   * Self-attention reads one fused (d, 3d) `qkv` linear, which
     weights.to_device builds once; JAX concatenates q/k/v under jit.
+  * The encoder takes the fused tail kernel where its MLP tile fits a
+    Hopper block's shared memory (tiny, base) and the JAX tail-off
+    branch elsewhere (`_encoder_tail_mode`); the JAX gate weighs TPU VMEM
+    budgets instead.
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from whisper_tpu.config import WhisperConfig
-from whisper_tpu_torch.ops.attention import mha_reference
+from whisper_tpu_torch.ops.attention import multi_head_attention
 from whisper_tpu_torch.ops.cache_append import cache_append_rows
-from whisper_tpu_torch.ops.encoder_layer import encoder_block_tail
+from whisper_tpu_torch.ops.encoder_layer import (
+    encoder_block_tail,
+    tail_fits_smem,
+)
 
 Params = Any    # nested dict of torch tensors
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -152,26 +159,47 @@ def conv_stem(enc: Params, cfg: WhisperConfig, mel: torch.Tensor
     return x.transpose(1, 2)
 
 
+def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device) -> str:
+    """'tail' when the fused tail kernel takes the model's width on this
+    device (its MLP tile fits the opt-in shared memory: tiny, base),
+    'off' otherwise (small and up). The port's rule in place of the JAX
+    gate (:416-451), whose VMEM budgets are TPU calibration. The CPU
+    answers as an H100 would, so both devices run the same branch."""
+    return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device)
+            else "off")
+
+
 def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
                     ) -> torch.Tensor:
     """(B, n_mels, n_frames) -> (B, n_audio_ctx, d_model) (:484).
 
-    Per block: LN1 and the fused QKV projection in torch, then the fused
-    block tail (attention, o-projection, LN2, MLP) — the CUDA kernel for
-    CUDA tensors, its plain twin on the CPU. Then the final LayerNorm."""
+    Per block: LN1 and the fused QKV projection in torch, then either the
+    fused block tail (attention, o-projection, LN2, MLP; the CUDA kernel
+    for CUDA tensors, its plain twin on the CPU) or, when the tail is off
+    (`_encoder_tail_mode`), the JAX tail-off branch (:572-578): attention
+    through multi_head_attention (the flash kernel at every encoder
+    size), the o-projection, LN2 in fp32 and the MLP in the compute dtype.
+    Then the final LayerNorm."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
     x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(dtype)
+    tail = _encoder_tail_mode(cfg, x.device)
     for i in range(cfg.n_audio_layers):
         lp = layer_index(enc["layers"], i)
         y = layer_norm(x, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         q, k, v = qkv_fused(y, lp["attn"], cfg.n_heads)
-        x = encoder_block_tail(
-            q.contiguous(), k.contiguous(), v.contiguous(), x.contiguous(),
-            lp["attn"]["o"]["w"].to(dtype), lp["fc1"]["w"].to(dtype),
-            lp["fc2"]["w"].to(dtype), lp["attn"]["o"]["b"], lp["fc1"]["b"],
-            lp["fc2"]["b"], lp["mlp_ln"]["g"], lp["mlp_ln"]["b"],
-            eps=cfg.ln_eps)
+        if tail == "tail":
+            x = encoder_block_tail(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                x.contiguous(), lp["attn"]["o"]["w"].to(dtype),
+                lp["fc1"]["w"].to(dtype), lp["fc2"]["w"].to(dtype),
+                lp["attn"]["o"]["b"], lp["fc1"]["b"], lp["fc2"]["b"],
+                lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], eps=cfg.ln_eps)
+            continue
+        x = x + linear(merge_heads(multi_head_attention(q, k, v)),
+                       lp["attn"]["o"])
+        y = layer_norm(x, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
+        x = x + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
     return layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"], cfg.ln_eps)
 
 
@@ -202,6 +230,15 @@ def precompute_cross_kv(params: Params, cfg: WhisperConfig,
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len, *, causal: bool, q_offset: int, dtype
+                     ) -> torch.Tensor:
+    """Attention over one layer's cache slice (:605-617, the unquantized
+    route): K/V in the compute dtype, through the size dispatch."""
+    return multi_head_attention(q, k.to(dtype), v.to(dtype), kv_len,
+                                causal=causal, q_offset=q_offset)
+
+
 def tok_embed(dec: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return dec["tok_emb"][tokens].to(dtype)
 
@@ -229,7 +266,7 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     """One decoder pass over T tokens at positions [pos_offset,
     pos_offset + T) (:676) — the prompt prefill. Writes the new K/V rows
     into kv_cache in place, then attends with the (kv_len, causal,
-    q_offset) mask through the plain attention, as XLA does at this size.
+    q_offset) mask through `_cache_attention`, as JAX does (:731-741).
     Returns (logits (B, T, vocab) fp32, kv_cache)."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
@@ -243,15 +280,14 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
         kv_cache["k"][i, :, :, pos_offset:kv_len] = k_new
         kv_cache["v"][i, :, :, pos_offset:kv_len] = v_new
-        a = mha_reference(q, kv_cache["k"][i].to(dtype),
-                          kv_cache["v"][i].to(dtype), kv_len,
-                          causal=True, q_offset=pos_offset)
+        a = _cache_attention(q, kv_cache["k"][i], kv_cache["v"][i], kv_len,
+                             causal=True, q_offset=pos_offset, dtype=dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
-        a = mha_reference(q, cross_kv["k"][i].to(dtype),
-                          cross_kv["v"][i].to(dtype))
+        a = _cache_attention(q, cross_kv["k"][i], cross_kv["v"][i], None,
+                             causal=False, q_offset=0, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])

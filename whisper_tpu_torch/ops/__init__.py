@@ -1,3 +1,4 @@
-"""The port's operators: plain attention, and the two hand-written CUDA
-kernels of the main path (encoder_block_tail, cache_append_rows), each
-with its plain PyTorch twin."""
+"""The port's operators: the attention size dispatch with its plain
+attention, and the three hand-written CUDA kernels of the main paths
+(encoder_block_tail, flash_attention, cache_append_rows), each with its
+plain PyTorch twin."""

@@ -98,6 +98,15 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_longlong,     # rows = L*B*H
         I, I, I, I, P]         # S, D, pos, is_bf16, stream
     lib.wt_cache_append.restype = I
+    L = ctypes.c_longlong
+    lib.wt_flash_attention.argtypes = [
+        P, P, P, P,            # q, k, v, out
+        I, I, I, I, I,         # B, T, S, H, D
+        I, I, I,               # kv_len, q_offset, causal
+        L, L, L,               # q strides (b, t, h)
+        L, L, L, L, L, L,      # k strides (b, h, s), v strides (b, h, s)
+        I, P]                  # is_bf16, stream
+    lib.wt_flash_attention.restype = I
     lib.wt_error_string.argtypes = [I]
     lib.wt_error_string.restype = ctypes.c_char_p
     return lib

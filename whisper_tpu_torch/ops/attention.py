@@ -1,10 +1,20 @@
-"""Plain multi-head attention (whisper_tpu/ops/attention.py:164
+"""Multi-head attention: the size dispatch and the plain attention
+(whisper_tpu/ops/attention.py:73-122 multi_head_attention, :164
 mha_reference).
 
-The port's main path uses it for the decoder's prompt prefill, as the JAX
-package does under its auto policy: the 4-token prefill's score matrix is
-far below the flash-attention size gate (ops/attention.py:69-79), so XLA
-runs the einsum form there.
+`multi_head_attention` is the JAX package's auto policy for T > 1: a call
+whose fp32 score matrix would take at least 16 MiB goes to the flash
+kernel (ops/flash_attention.py), anything smaller to `mha_reference`. Every
+encoder-sized call is above the gate (one clip at 2 heads already carries
+18 MB of scores); the decoder's 4-token prefills are below it (cross
+prefill at turbo b32: 15.36 MB; self prefill over 128 slots: 1.3 MB).
+
+A T==1 call over a cache of 4096 slots or more belongs to the JAX
+package's decode_attention_bh (:76-77, :112-119), which the port has not
+ported: on CUDA it raises rather than run the plain version quietly. No
+Whisper path reaches it (the self cache holds at most 448 slots, cross
+attention covers 1500 positions, and the decode step computes both reads
+itself).
 
 Layouts: q (B, T, H, D) token-major; k, v (B, H, S, D) head-major.
 Masking is (kv_len, causal, q_offset): key j is visible to query i iff
@@ -17,7 +27,43 @@ from typing import Optional
 
 import torch
 
+from whisper_tpu_torch.ops.flash_attention import flash_attention
+
 _NEG_INF = torch.finfo(torch.float32).min
+
+# The JAX package's gates (ops/attention.py:69-70), measured on a TPU v5e.
+# They stay until the port's own benchmark measures the crossover on the
+# H100.
+_DECODE_KERNEL_MIN_S = 4096            # T==1: decode_attention_bh from here
+_FLASH_MIN_SCORE_BYTES = 16 << 20      # T>1: B*H*T*S*4 (fp32 scores)
+
+
+def _route(q: torch.Tensor, k: torch.Tensor) -> str:
+    """'flash', 'decode' or 'reference': the JAX _auto_backend (:73-79),
+    with its 'pallas' split by T."""
+    B, T, H, _ = q.shape
+    S = k.shape[2]
+    if T == 1:
+        return "decode" if S >= _DECODE_KERNEL_MIN_S else "reference"
+    return ("flash" if B * H * T * S * 4 >= _FLASH_MIN_SCORE_BYTES
+            else "reference")
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: Optional[int] = None, *, causal: bool = False,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Scaled dot-product attention, dispatched by size (`_route`).
+    Returns (B, T, H, D) in q's dtype."""
+    route = _route(q, k)
+    if route == "flash":
+        return flash_attention(q, k, v, kv_len, q_offset, causal=causal)
+    if route == "decode" and q.device.type != "cpu":
+        raise NotImplementedError(
+            f"multi_head_attention: a T==1 read of a {k.shape[2]}-slot cache "
+            f"takes the decode_attention_bh kernel "
+            f"(whisper_tpu/ops/decode_attention.py:297), which the port has "
+            f"not ported")
+    return mha_reference(q, k, v, kv_len, causal=causal, q_offset=q_offset)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -22,6 +22,32 @@ from whisper_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# Shared memory one block may opt into on sm_90 (H100): the CPU takes this
+# figure, so that both devices pick the same encoder branch for a model.
+SM90_SMEM_OPTIN = 232_448
+TAIL_MLP_ROWS = 16          # csrc/encoder_tail.cu MLP_RM
+
+
+def tail_smem_bytes(d: int, ff: int) -> int:
+    """Shared memory of the kernel's MLP launch: TAIL_MLP_ROWS rows of the
+    attention output, h2 and the GeLU intermediate in fp32
+    (csrc/encoder_tail.cu launch_tail, the same formula)."""
+    return TAIL_MLP_ROWS * (2 * d + ff) * 4
+
+
+def tail_fits_smem(d: int, ff: int, device: torch.device) -> bool:
+    """Whether the tail kernel takes width (d, ff) on `device`: its MLP
+    tile within the card's opt-in shared memory per block (on CUDA read
+    from the card, elsewhere SM90_SMEM_OPTIN). The counterpart of the JAX
+    package's tail_fits_vmem (ops/encoder_layer.py:229), whose VMEM
+    budgets are TPU calibration and are not ported. Tiny and base fit;
+    small and every wider model do not."""
+    limit = SM90_SMEM_OPTIN
+    if device.type == "cuda":
+        limit = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+    return tail_smem_bytes(d, ff) <= limit
+
 
 def encoder_block_tail_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
                              fc2_b, ln2_g, ln2_b, eps: float = 1e-5
@@ -116,7 +142,8 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       o_b, fc2_b, ln2_g, ln2_b: (d,); fc1_b: (ff,); any float dtype.
     Returns:
       (B, T, d) in h_in's dtype. CPU tensors take the plain version; CUDA
-      tensors launch the kernel (head_dim 64, contiguous) or raise.
+      tensors launch the kernel (head_dim 64, contiguous, a width that
+      `tail_fits_smem`) or raise.
     """
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
     if h_in.device.type == "cpu":

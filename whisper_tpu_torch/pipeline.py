@@ -62,24 +62,33 @@ class WhisperPipeline:
 
     @classmethod
     def from_flat_bin(cls, path: str, model="tiny", dtype: str = "float32",
-                      device="cuda") -> "WhisperPipeline":
-        """Load a reference-format headerless fp32 weight blob."""
+                      device="cuda", vocab_path: Optional[str] = None
+                      ) -> "WhisperPipeline":
+        """Load a reference-format headerless fp32 weight blob. vocab_path:
+        the model's vocab.txt (default: the bundled 51,865-entry table,
+        which large-v3 and turbo outgrow)."""
         cfg = cls._config(model, dtype)
-        return cls(cfg, weights_lib.from_flat_bin_path(path, cfg), device)
+        tokenizer = Tokenizer(vocab_path, config=cfg)
+        return cls(cfg, weights_lib.from_flat_bin_path(path, cfg), device,
+                   tokenizer)
 
     @classmethod
     def from_random(cls, model="tiny", seed: int = 0, dtype: str = "float32",
-                    device="cuda") -> "WhisperPipeline":
+                    device="cuda", vocab_path: Optional[str] = None
+                    ) -> "WhisperPipeline":
         """Random weights from a numpy seed, for benchmarks and tests."""
         cfg = cls._config(model, dtype)
-        return cls(cfg, weights_lib.init_params(cfg, seed), device)
+        tokenizer = Tokenizer(vocab_path, config=cfg)
+        return cls(cfg, weights_lib.init_params(cfg, seed), device, tokenizer)
 
     @classmethod
     def from_params(cls, params, model="tiny", dtype: str = "float32",
-                    device="cuda") -> "WhisperPipeline":
+                    device="cuda", vocab_path: Optional[str] = None
+                    ) -> "WhisperPipeline":
         """A params tree of the port's tensors (weights.from_jax_params
         converts the JAX package's tree)."""
-        return cls(cls._config(model, dtype), params, device)
+        cfg = cls._config(model, dtype)
+        return cls(cfg, params, device, Tokenizer(vocab_path, config=cfg))
 
     # ---- inference ----
     def prompt(self, batch: int, language: str = "en",
