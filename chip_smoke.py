@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (whisper_tpu_torch) on one NVIDIA
-GPU: builds the kernels, holds each against its plain PyTorch version,
-drives two main paths through the user entry points (batch 32, bf16, 89
-greedy tokens: Whisper-tiny, whose encoder runs the fused tail kernel,
-and Whisper large-v3-turbo at full width and depth, whose encoder runs
-the tail-off branch through the flash-attention kernel), checks fp32
-token parity with the CPU for both, and runs the CLI once.
+GPU: builds the kernels, holds each against its plain PyTorch version
+(and times it beside its bound and, where one exists, the one PyTorch call
+for the same function), drives two greedy main paths through the user
+entry points (batch 32, bf16, 89 greedy tokens: Whisper-tiny, whose
+encoder runs the fused tail kernel, and Whisper large-v3-turbo at full
+width and depth, whose encoder runs the tail-off branch through the
+flash-attention kernel), checks fp32 token parity with the CPU for both,
+runs the CLI once, and drives the continuous-batching engine
+(ContinuousBatcher: tiny with 32 slots and 96 requests, turbo with 8
+slots and 16 requests, bf16, two requests arriving before every second
+step; every step ends in one ragged append) and holds its tokens to a
+solo run and to greedy decoding.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
-`--profile` adds, after each main path: the wall of five more main-path
-runs, the peak device memory, and one main-path run under torch.profiler
-(device time by kernel); for tiny also the fp32 tail against its plain
-version at b32 and the append's device time under CUDA-graph replay.
+`--profile` adds the kernels' build timed serial against parallel, and
+after each greedy main path: the wall of five more main-path runs, the
+peak device memory, and one main-path run under torch.profiler (device
+time by kernel); for tiny also the fp32 tail
+against its plain version at b32, the append's device time under
+CUDA-graph replay, and one more drive of the tiny engine's traffic under
+torch.profiler.
 
 Every line but the last is one JSON object per phase (plus the card's
 `nvidia-smi` name and power limit on a line of its own). The line before
@@ -28,6 +37,7 @@ imports jax.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -47,6 +57,15 @@ TURBO = "large-v3-turbo"
 # bf16: about one bf16 ulp of the output, where the kernel rounds p at a
 # running max and the plain version at the final one.
 FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
+# the ragged append at the engines' cache shapes (L, B, H, S, D): tiny with
+# 32 slots, turbo with 8, both over n_text_ctx = 448 positions
+RAGGED_SHAPES = {"tiny": (4, 32, 6, 448, 64), "turbo": (4, 8, 20, 448, 64)}
+ENGINE_REQUESTS, ENGINE_MAX_NEW = 96, 88               # tiny, 32 slots
+TURBO_ENGINE_REQUESTS, TURBO_ENGINE_MAX_NEW = 16, 24   # turbo, 8 slots
+ARRIVALS = 2          # engine requests arriving before every second step
+# published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
+H100_BYTES_PER_S = 3.35e12
+H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def emit(obj: dict) -> None:
@@ -177,11 +196,42 @@ def profile_kernels(cfg, card: str, append_args) -> None:
               "card": card})
 
 
+def profile_build(card: str) -> None:
+    """The kernels' build, in turns serial, parallel, parallel, serial,
+    each from nothing into a directory of its own: serial is one nvcc over
+    every source, parallel is _build.build (one nvcc per source, all at
+    once, then a link)."""
+    from pathlib import Path
+
+    from whisper_tpu_torch.ops import _build
+    sources = [str(p) for p in sorted(_build.CSRC.glob("*.cu"))]
+    times = {"serial_s": [], "parallel_s": []}
+    saved = _build.BUILD_DIR
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for kind in ("serial_s", "parallel_s", "parallel_s", "serial_s"):
+                out = Path(tmp, f"{kind}{len(times[kind])}")
+                out.mkdir()
+                t0 = time.perf_counter()
+                if kind == "serial_s":
+                    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                                    "-shared", "-o", str(out / "lib.so"),
+                                    *sources], capture_output=True,
+                                   check=True, timeout=600)
+                else:
+                    _build.BUILD_DIR = out
+                    _build.build()
+                times[kind].append(time.perf_counter() - t0)
+    finally:
+        _build.BUILD_DIR = saved
+    emit({"phase": "profile_build", "sources": len(sources), **times,
+          "cpus": os.cpu_count(), "card": card})
+
+
 def profile_path(model: str, cfg, card: str, run) -> None:
     """Five more main-path walls, the peak device memory, and one run
     under torch.profiler (device time by kernel)."""
     import torch
-    from torch.autograd import DeviceType
 
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -196,14 +246,7 @@ def profile_path(model: str, cfg, card: str, run) -> None:
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": card})
 
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels, device_ms = device_kernels(profiled(run))
     emit({"phase": "profile_device_time", "model": model,
           "device_ms": device_ms, "unprofiled_median_wall_ms": 1e3 * median,
           "device_busy_share": device_ms / (1e3 * median), "card": card})
@@ -384,33 +427,59 @@ def tail_gate(card: str) -> None:
 
 def flash_checks(card: str) -> dict:
     """The flash kernel against its plain version at the shapes the port
-    gives it (turbo: H=20, D=64), then one turbo b32 encoder layer timed
-    against the plain version. Returns the kernels-line numbers (bf16
-    b32)."""
+    gives it: turbo's (H=20, D=64) in the greedy path, and every read that
+    the engines' fills route to it (tiny's 32 slots at H=6, turbo's 8 at
+    H=20: the prefill's cross reads at p_pad 32 and 128, turbo's encoder
+    over 8 slots on views of the fused QKV). Then one turbo b32 encoder
+    layer timed against the plain version. Returns the kernels-line
+    numbers (bf16 b32)."""
     import torch
+    import torch.nn.functional as F
 
+    from whisper_tpu_torch.models.whisper import split_heads, split_heads_hm
+    from whisper_tpu_torch.ops.attention import _route
     from whisper_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
     H, D = 20, 64
-    cases = {     # B, T, S, kv_len, q_offset, causal
-        "a_encoder": (4, 1500, 1500, None, 0, False),
-        "b_cross_prefill": (32, 4, 1500, None, 0, False),
-        "c_causal_prefill": (32, 4, 128, 4, 0, True),
-        "d_causal_offset": (32, 40, 448, 140, 100, True),
-        "e_kv_len_0": (4, 4, 128, 0, 0, False),
+    # B, T, H, S, kv_len, q_offset, causal, and for the engines' fills the
+    # read (each one the gate sends to flash)
+    cases = {
+        "a_encoder": (4, 1500, H, 1500, None, 0, False, None),
+        "b_cross_prefill": (32, 4, H, 1500, None, 0, False, None),
+        "c_causal_prefill": (32, 4, H, 128, 4, 0, True, None),
+        "d_causal_offset": (32, 40, H, 448, 140, 100, True, None),
+        "e_kv_len_0": (4, 4, H, 128, 0, 0, False, None),
+        "f_tiny_fill_cross_p32": (BATCH, 32, 6, 1500, None, 0, False,
+                                  "cross"),
+        "g_tiny_fill_cross_p128": (BATCH, 128, 6, 1500, None, 0, False,
+                                   "cross"),
+        "h_turbo_fill_cross_p32": (8, 32, H, 1500, None, 0, False, "cross"),
+        "i_turbo_fill_cross_p128": (8, 128, H, 1500, None, 0, False,
+                                    "cross"),
+        "j_turbo_fill_encoder": (8, 1500, H, 1500, None, 0, False,
+                                 "encoder"),
     }
     g = torch.Generator(device="cpu").manual_seed(5)
 
-    def inputs(B, T, S, dtype):
+    def inputs(B, T, H, S, dtype, fused=False):
+        if fused:       # the encoder's q, k, v: views of one QKV product
+            qkv = torch.randn((B, T, 3 * H * D), generator=g).to("cuda",
+                                                                 dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+            return split_heads(q, H), split_heads_hm(k, H), \
+                split_heads_hm(v, H)
         return [torch.randn(s, generator=g).to("cuda", dtype)
                 for s in ((B, T, H, D), (B, H, S, D), (B, H, S, D))]
 
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = FLASH_TOL[str(dtype).split(".")[1]]
-        for name, (B, T, S, kv_len, q_offset, causal) in cases.items():
-            q, k, v = inputs(B, T, S, dtype)
+        for name, (B, T, Hc, S, kv_len, q_offset, causal, fill
+                   ) in cases.items():
+            q, k, v = inputs(B, T, Hc, S, dtype, fused=fill == "encoder")
+            require(fill is None or _route(q, k) == "flash",
+                    f"flash case {name}: the gate does not send it to flash")
             got = flash_attention(q, k, v, kv_len, q_offset, causal=causal)
             want = flash_attention_plain(q, k, v, kv_len, q_offset,
                                          causal=causal)
@@ -420,10 +489,10 @@ def flash_checks(card: str) -> dict:
             if kv_len == 0:
                 ok = ok and not bool(got.any())
             line = {"phase": "flash_vs_plain", "case": name,
-                    "dtype": str(dtype), "shape": [B, T, H, D], "S": S,
+                    "dtype": str(dtype), "shape": [B, T, Hc, D], "S": S,
                     "kv_len": kv_len, "q_offset": q_offset, "causal": causal,
-                    "max_abs_err": float(err.max()), "atol": atol,
-                    "rtol": rtol, "ok": ok}
+                    "fill": fill, "max_abs_err": float(err.max()),
+                    "atol": atol, "rtol": rtol, "ok": ok}
             if causal:                  # (f): NaN past kv_len never read
                 k[:, :, kv_len:] = float("nan")
                 v[:, :, kv_len:] = float("nan")
@@ -444,7 +513,7 @@ def flash_checks(card: str) -> dict:
     # materialises 32*20*1500^2*4 B = 5.8 GB of scores
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol = FLASH_TOL[str(dtype).split(".")[1]]
-        q, k, v = inputs(BATCH, 1500, 1500, dtype)
+        q, k, v = inputs(BATCH, 1500, H, 1500, dtype)
         got = flash_attention(q, k, v).float()
         want = flash_attention_plain(q, k, v).float()
         err = (got - want).abs()
@@ -455,16 +524,404 @@ def flash_checks(card: str) -> dict:
         ms, plain_ms = alternate_ms(lambda: flash_attention_plain(q, k, v),
                                     lambda: flash_attention(q, k, v),
                                     iters=5)
+        # library_time: the one PyTorch call for the same function, on the
+        # same q, k, v, with q's transpose to (B, H, T, D) in the timed
+        # call. A yardstick only: the port never calls it.
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, v), iters=5)
+        flops = 4 * BATCH * H * 1500 * 1500 * D
         emit({"phase": "flash_time", "shape": [BATCH, 1500, H, D],
               "dtype": str(dtype), "max_abs_err": max_err, "ms": ms,
-              "plain_ms": plain_ms,
-              "tflops": 4 * BATCH * H * 1500 * 1500 * D / (ms * 1e9),
-              "card": card})
+              "plain_ms": plain_ms, "library_ms": library_ms,
+              "tf32": torch.backends.cuda.matmul.allow_tf32,
+              "tflops": flops / (ms * 1e9), "card": card})
         if dtype == torch.bfloat16:     # the main path's dtype
-            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   **bound(4 * q.numel() * q.element_size(), flops,
+                           "bfloat16")}
         del q, k, v
         torch.cuda.empty_cache()
     return out
+
+
+def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the memory
+    rate and its operations over the peak rate of their type. Published
+    NVIDIA H100 SXM peaks at 700 W, dense: 3.35 TB/s; 989 TFLOP/s bf16 on
+    the tensor cores, 67 TFLOP/s fp32 outside them."""
+    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ragged_positions(B: int, S: int, seed: int, outside=None) -> np.ndarray:
+    """A (B,) position vector from a seed with 0, S-1 and a repeated value;
+    with `outside`, the last row's position lies outside [0, S)."""
+    pos = np.random.RandomState(seed).randint(0, S, size=B)
+    pos[0], pos[1] = 0, S - 1
+    pos[3] = pos[4] = pos[2]
+    if outside is not None:
+        pos[-1] = outside
+    return pos
+
+
+def ragged_checks(card: str) -> dict:
+    """ragged_vs_plain: the ragged append against its plain version, exact
+    and in place, at tiny's and turbo's engine shapes in fp32 and bf16,
+    with one row outside [0, S) that must stay untouched; then ragged_time
+    at tiny's engine shape in bf16. Returns the kernels-line numbers."""
+    import torch
+
+    from whisper_tpu_torch.ops.cache_append import (
+        cache_append_rows_ragged,
+        cache_append_rows_ragged_plain,
+    )
+    g = torch.Generator(device="cpu").manual_seed(6)
+    err = 0.0
+    for name, shape in RAGGED_SHAPES.items():
+        L, B, H, S, D = shape
+        for dtype, outside in ((torch.float32, S), (torch.bfloat16, -1)):
+            ck, cv = (torch.randn(shape, generator=g).to("cuda", dtype)
+                      for _ in range(2))
+            kn, vn = (torch.randn((L, B, H, D), generator=g).to("cuda", dtype)
+                      for _ in range(2))
+            pos = torch.from_numpy(ragged_positions(B, S, B, outside)).cuda()
+            before = (ck[:, -1].clone(), cv[:, -1].clone())
+            want_k, want_v = cache_append_rows_ragged_plain(
+                ck.clone(), cv.clone(), kn, vn, pos)
+            ptrs = (ck.data_ptr(), cv.data_ptr())
+            got_k, got_v = cache_append_rows_ragged(ck, cv, kn, vn, pos)
+            torch.cuda.synchronize()
+            in_place = (got_k.data_ptr(), got_v.data_ptr()) == ptrs
+            exact = bool(torch.equal(got_k, want_k)
+                         and torch.equal(got_v, want_v))
+            untouched = bool(torch.equal(got_k[:, -1], before[0])
+                             and torch.equal(got_v[:, -1], before[1]))
+            err = max(err, float((got_k.float() - want_k.float()).abs().max()),
+                      float((got_v.float() - want_v.float()).abs().max()))
+            emit({"phase": "ragged_vs_plain", "engine": name,
+                  "dtype": str(dtype),
+                  "shape": list(shape), "pos": pos.tolist(), "exact": exact,
+                  "in_place": in_place, "outside_row_untouched": untouched})
+            require(exact and in_place and untouched,
+                    f"cache_append_rows_ragged {name} {dtype}: exact={exact} "
+                    f"in_place={in_place} untouched={untouched}")
+            del ck, cv, kn, vn, want_k, want_v, before
+
+    # ragged_time at tiny's engine shape, bf16, every position in range
+    # (the library call's indices must be)
+    L, B, H, S, D = shape = RAGGED_SHAPES["tiny"]
+    ck, cv = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+              for _ in range(2))
+    kn, vn = (torch.randn((L, B, H, D), generator=g).to("cuda", torch.bfloat16)
+              for _ in range(2))
+    pos = torch.from_numpy(ragged_positions(B, S, 7)).cuda()
+    rows = torch.arange(B, device="cuda")
+
+    def kernel():
+        cache_append_rows_ragged(ck, cv, kn, vn, pos)
+
+    def plain():
+        cache_append_rows_ragged_plain(ck, cv, kn, vn, pos)
+
+    def library():      # the JAX fallback's indexed assignment, per cache
+        ck[:, rows, :, pos, :] = kn.transpose(0, 1)
+        cv[:, rows, :, pos, :] = vn.transpose(0, 1)
+
+    ms, plain_ms = alternate_ms(plain, kernel, iters=200)
+    library_ms = cuda_ms(library, iters=200)
+    graphs = {name: graph_ms(fn) for name, fn in
+              (("ms", kernel), ("plain_ms", plain), ("library_ms", library))}
+    # every row in range: k_new, v_new and pos read once, 2 x L*B*H*D
+    # values written
+    moved = 2 * 2 * kn.numel() * kn.element_size() + pos.numel() * 8
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **bound(moved, 0, "bfloat16")}
+    emit({"phase": "ragged_time", "shape": list(shape), "dtype": "bfloat16",
+          **out, "graph": graphs, "card": card})
+    return out
+
+
+def flash_per_fill(cfg, slots: int, p_pad: int) -> int:
+    """Flash launches of one batched prefill of p_pad positions over the
+    slot batch, as multi_head_attention's gate routes them: per decoder
+    layer, the self read (p_pad keys) and the cross read (n_audio_ctx
+    keys)."""
+    import torch
+
+    from whisper_tpu_torch.ops.attention import _route
+    q = torch.empty((slots, p_pad, cfg.n_heads, cfg.head_dim), device="meta")
+    n = sum(_route(q, torch.empty((slots, cfg.n_heads, s, cfg.head_dim),
+                                  device="meta")) == "flash"
+            for s in (p_pad, cfg.n_audio_ctx))
+    return cfg.n_text_layers * n
+
+
+def engine_traffic(cfg, n: int, seed: int) -> list:
+    """n requests: the bench's synthetic clips cut to 5, 10, 20 and 30 s in
+    turn; every fourth carries prev_tokens of 20 or 120 ids in turn (the 32
+    and 128 prompt buckets beside the plain prompt's 8); two take
+    language="auto"."""
+    clips = bench_audio(cfg, n)
+    rng = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        kw = {}
+        if i % 4 == 3:
+            kw["prev_tokens"] = rng.randint(
+                220, 50_000, size=(20, 120)[(i // 4) % 2]).tolist()
+        if i in (1, n // 2 + 1):
+            kw["language"] = "auto"
+        reqs.append((clips[i][:cfg.sample_rate * (5, 10, 20, 30)[i % 4]], kw))
+    return reqs
+
+
+def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
+                   ) -> tuple:
+    """One drive of the engine through submit, step and run_until_idle,
+    every launch count set to 0 just before it and read just after it.
+    Requests arrive ARRIVALS at a time before every ARRIVALS-th step, so
+    they join beside live slots, slots free up raggedly, and the fills
+    reach the 8, 32 and 128 prompt buckets. The host clock times each fill
+    between two synchronisations. Fails unless every request is delivered
+    with its SOT prompt and ids inside the vocab, and the fills reach
+    those three buckets, all but the first beside a live slot. Returns
+    (the phase line, a function that drives the same traffic again)."""
+    import torch
+
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = engine.cfg
+    fill_s, steps, beside_live = [0.0], [0], [0]
+    fill, step_device = engine._fill_free_slots, engine.step_device
+
+    def timed_fill():
+        live = any(s is not None for s in engine._slots)
+        fills = sum(engine.fill_buckets.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fill()
+        torch.cuda.synchronize()
+        fill_s[0] += time.perf_counter() - t
+        if live and sum(engine.fill_buckets.values()) > fills:
+            beside_live[0] += 1
+
+    def counted_step(k: int = 1):
+        steps[0] += k
+        step_device(k)
+
+    engine._fill_free_slots, engine.step_device = timed_fill, counted_step
+
+    def run():
+        rids = []
+        for i, (audio, kw) in enumerate(reqs):
+            rids.append(engine.submit(audio, **kw))
+            if i % ARRIVALS == ARRIVALS - 1:
+                for _ in range(ARRIVALS):
+                    engine.step()
+        out = engine.run_until_idle()
+        torch.cuda.synchronize()
+        return rids, out
+
+    engine.warmup()
+    fill_s[0], steps[0], beside_live[0] = 0.0, 0, 0
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rids, out = run()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    fills = sum(engine.fill_buckets.values())
+    generated = 0
+    for rid, (_, kw) in zip(rids, reqs):
+        require(rid in out, f"{label}: request {rid} not delivered")
+        ids = out[rid]
+        want = build_prompt(cfg, "en", prev_tokens=kw.get("prev_tokens", ()))
+        P = len(want)
+        if kw.get("language") == "auto":   # any language token at its place
+            want[P - 3] = ids[P - 3]
+            require(cfg.first_language_token <= ids[P - 3]
+                    < cfg.first_language_token + cfg.n_languages,
+                    f"{label}: request {rid} has no language token")
+        require(ids[:P] == want, f"{label}: request {rid} does not start "
+                                 f"with its SOT prompt")
+        require(all(0 <= t < cfg.vocab_size for t in ids),
+                f"{label}: request {rid} has ids outside the vocab")
+        generated += len(ids) - P
+    line = {"phase": label, "model": cfg.name, "dtype": cfg.compute_dtype,
+            "slots": engine.B, "requests": len(reqs), "max_new": engine.max_new,
+            "sync_every": engine.sync_every, "arrivals": ARRIVALS,
+            "wall_s": wall, "engine_steps": steps[0], "fills": fills,
+            "fills_beside_live": beside_live[0],
+            "fill_buckets": dict(engine.fill_buckets), "fill_s": fill_s[0],
+            "generated_tokens": generated, "tokens_per_s": generated / wall,
+            "mean_step_ms": 1e3 * (wall - fill_s[0]) / steps[0],
+            "queue_stats": engine.queue_stats(), "launches": launches,
+            "card": card}
+    require({8, 32, 128} <= set(engine.fill_buckets),
+            f"{label}: fills reached the buckets {dict(engine.fill_buckets)}, "
+            f"not 8, 32 and 128")
+    require(beside_live[0] == fills - 1,
+            f"{label}: {beside_live[0]} of {fills} fills beside a live slot")
+    return line, lambda: run()[1]
+
+
+def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
+                          ) -> dict:
+    """Emit the engine's phase line and hold its launch counts to the path:
+    one ragged append per engine step and no scalar append; per fill, the
+    encoder's tail launches (tiny, base) or its flash launches (small and
+    up, `flash_per_encode`) and the prefill's flash launches by the gate.
+    Returns the counts."""
+    n = line["launches"]
+    fills = line["fills"]
+    tail = cfg.n_audio_layers * fills if flash_per_encode == 0 else 0
+    flash = flash_per_encode * fills + sum(
+        count * flash_per_fill(cfg, engine.B, p_pad)
+        for p_pad, count in engine.fill_buckets.items())
+    line["expected"] = {"cache_append_rows_ragged": line["engine_steps"],
+                        "cache_append_rows": 0, "encoder_block_tail": tail,
+                        "flash_attention": flash}
+    emit(line)
+    for name, want in line["expected"].items():
+        require(n[name] == want, f"{line['phase']}: {name} launches "
+                                 f"{n[name]} != {want}")
+    return n
+
+
+def continuous_identity(params, card: str) -> None:
+    """Whisper-tiny through the engine on the card. (a) fp32 and bf16: one
+    request alone and the same request in a crowd of 8 slots, arriving
+    third while two others are mid-decode, give identical tokens. (b) fp32:
+    4 requests through the engine give greedy_decode's tokens on the same
+    4 clips, without rules and with suppression rules. Any difference
+    fails, after a line with the first differing position and the logit
+    margin there."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.decode_rules import DecodeOptions
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+    clips = bench_audio(get_config("tiny"), 8)
+    max_new = 24
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("tiny").replace(compute_dtype=dtype)
+        solo = ContinuousBatcher(params, cfg, max_slots=8, max_new=max_new)
+        r = solo.submit(clips[5])
+        ref = solo.run_until_idle()[r]
+        crowd = ContinuousBatcher(params, cfg, max_slots=8, max_new=max_new)
+        for i in (0, 1):
+            crowd.submit(clips[i])
+        for _ in range(6):
+            crowd.step()
+        mine = crowd.submit(clips[5])
+        for i in (2, 3, 4, 6, 7):
+            crowd.submit(clips[i])
+        got = crowd.run_until_idle()[mine]
+        identity_line("solo_vs_crowd", dtype, got, ref, params, cfg, clips[5])
+        del solo, crowd
+
+    cfg = get_config("tiny").replace(compute_dtype="float32")
+    pipe = WhisperPipeline.from_params(params, cfg, device="cuda")
+    for name, opts in (("no_rules", None),
+                       ("suppress", DecodeOptions(suppress_blank=True,
+                                                  suppress_tokens=(100, 200)))):
+        eng = ContinuousBatcher(params, cfg, max_slots=4, max_new=max_new,
+                                opts=opts)
+        rids = [eng.submit(c) for c in clips[:4]]
+        out = eng.run_until_idle()
+        res = pipe.transcribe_batch(clips[:4], max_new=max_new, opts=opts)
+        toks, lens = res.tokens.cpu(), res.lengths.cpu()
+        for b, rid in enumerate(rids):
+            identity_line(f"engine_vs_greedy_{name}_{b}", "float32", out[rid],
+                          toks[b, :int(lens[b])].tolist(), params, cfg,
+                          clips[b])
+        del eng
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def identity_line(case: str, dtype: str, got: list, want: list, params, cfg,
+                  clip) -> None:
+    """Emit one continuous_identity line; on a difference, also the first
+    differing position and the logit margin there (the model's logit of
+    `got`'s token minus that of `want`'s, teacher-forced on the common
+    prefix), then fail."""
+    same = got == want
+    line = {"phase": "continuous_identity", "case": case, "dtype": dtype,
+            "identical": same, "tokens": len(got)}
+    if not same:
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        line["first_diff"] = i
+        if i < min(len(got), len(want)):
+            lg = prefix_logits(params, cfg, clip, want[:i])
+            line["logit_margin"] = float(lg[got[i]] - lg[want[i]])
+    emit(line)
+    require(same, f"continuous_identity {case} {dtype}: tokens differ")
+
+
+def prefix_logits(params, cfg, clip, prefix: list):
+    """The last position's logits of one teacher-forced decoder pass over
+    `prefix`, on the card, in cfg's dtype."""
+    import torch
+
+    from whisper_tpu_torch import weights
+    from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decode import encode
+    from whisper_tpu_torch.models.whisper import (
+        compute_dtype,
+        decoder_forward,
+        full_fp32,
+        init_kv_cache,
+        precompute_cross_kv,
+    )
+    dtype = compute_dtype(cfg)
+    p = weights.to_device(params, "cuda",
+                          None if dtype == torch.float32 else dtype)
+    wav = torch.from_numpy(pad_or_trim(clip, cfg.n_samples)[None]).cuda()
+    enc = encode(p, cfg, log_mel_spectrogram(wav, cfg))
+    with torch.inference_mode(), full_fp32(dtype == torch.float32):
+        cross = precompute_cross_kv(p, cfg, enc)
+        cache = init_kv_cache(cfg, 1, dtype, cfg.n_text_ctx, "cuda")
+        logits, _ = decoder_forward(p, cfg, torch.tensor([prefix]).cuda(), 0,
+                                    cache, cross)
+    return logits[0, -1].float().cpu()
+
+
+def profile_engine(run, wall_s: float, label: str, card: str) -> None:
+    """One more drive of the engine's traffic under torch.profiler: device
+    time by kernel and the busy share of the unprofiled wall."""
+    prof = profiled(run)
+    kernels, device_ms = device_kernels(prof)
+    emit({"phase": "profile_engine_device_time", "engine": label,
+          "device_ms": device_ms, "unprofiled_wall_ms": 1e3 * wall_s,
+          "device_busy_share": device_ms / (1e3 * wall_s), "card": card})
+    for e in kernels[:20]:
+        emit({"phase": "profile_engine_kernel", "engine": label,
+              "kernel": e.key[:120], "device_ms": e.self_device_time_total / 1e3,
+              "count": e.count})
+
+
+def profiled(run):
+    import torch
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+    return prof
+
+
+def device_kernels(prof) -> tuple[list, float]:
+    """(device events by self time, descending; their total ms)."""
+    from torch.autograd import DeviceType
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return kernels, sum(e.self_device_time_total for e in kernels) / 1e3
 
 
 def _leaves(tree):
@@ -502,6 +959,7 @@ def main() -> int:
     from whisper_tpu_torch.ops.cache_append import (
         cache_append_rows,
         cache_append_rows_plain,
+        cache_append_rows_ragged,
     )
     from whisper_tpu_torch.ops.encoder_layer import (
         encoder_block_tail,
@@ -509,6 +967,7 @@ def main() -> int:
     )
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
 
     # the plain fp32 oracles run in full fp32 (TF32 off)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,7 +975,8 @@ def main() -> int:
     cfg = get_config("tiny")
     kernels = {"encoder_block_tail": encoder_block_tail,
                "cache_append_rows": cache_append_rows,
-               "flash_attention": flash_attention}
+               "flash_attention": flash_attention,
+               "cache_append_rows_ragged": cache_append_rows_ragged}
 
     # 1. card
     card = card_line()
@@ -533,6 +993,8 @@ def main() -> int:
           "library": os.path.relpath(so),
           "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]})
+    if opts.profile:
+        profile_build(card)
 
     # 3. kernels against their plain versions at the main paths' shapes
     tail_tol = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.06, 2e-2)}
@@ -564,6 +1026,14 @@ def main() -> int:
                                           cfg.n_heads, cfg.head_dim],
           "dtype": "bfloat16", "max_abs_err": main_tail_err,
           "ms": tail_ms, "plain_ms": tail_plain_ms, "card": card})
+    B, T, H, D = args[0].shape
+    d, ff = cfg.d_model, cfg.d_ff
+    # attention, o-projection and MLP products; q, k, v, h in and h out,
+    # the three matrices in bf16, the five vectors in fp32
+    tail_bound = bound(5 * B * T * d * 2 + (d * d + 2 * d * ff) * 2
+                       + (4 * d + ff) * 4,
+                       4 * B * H * T * T * D + 2 * B * T * d * d
+                       + 4 * B * T * d * ff, "bfloat16")
     del args
     torch.cuda.empty_cache()
     tail_gate(card)
@@ -599,7 +1069,13 @@ def main() -> int:
         lambda: cache_append_rows(ck, cv, kn, vn, 63), iters=200)
     emit({"phase": "append_time", "shape": list(shape), "dtype": "bfloat16",
           "ms": append_ms, "plain_ms": append_plain_ms, "card": card})
+    # k_new and v_new read once, as many values written; the plain version
+    # is the one PyTorch call per cache (an indexed assignment), so it is
+    # the library call too
+    append_bound = bound(2 * 2 * kn.numel() * kn.element_size(), 0,
+                         "bfloat16")
 
+    ragged = ragged_checks(card)
     flash = flash_checks(card)
 
     # 4. tiny main path: the bench workload through the pipeline
@@ -609,7 +1085,8 @@ def main() -> int:
     run, audio, bias, tiny_launches = main_path(
         pipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
                         "cache_append_rows": GEN_TOKENS - 1,
-                        "flash_attention": 0}, card)
+                        "flash_attention": 0,
+                        "cache_append_rows_ragged": 0}, card)
     main_path_stages(pipe, audio, bias, card)
     if opts.profile:
         profile_kernels(cfg, card, append_args)
@@ -617,6 +1094,23 @@ def main() -> int:
     bundled_vocab = pipe.tokenizer.tokens
     del pipe, run, append_args
     torch.cuda.empty_cache()
+
+    # 4b. tiny continuous engine: 96 requests through 32 slots
+    engine = ContinuousBatcher(params, cfg.replace(compute_dtype="bfloat16"),
+                               max_slots=BATCH, max_new=ENGINE_MAX_NEW,
+                               sync_every=1)
+    line, rerun = continuous_run(
+        engine, engine_traffic(cfg, ENGINE_REQUESTS, seed=0), kernels,
+        "continuous_tiny", card)
+    engine_launches = check_engine_launches(line, engine, cfg, 0)
+    if opts.profile:
+        profile_engine(rerun, line["wall_s"], "tiny", card)
+    del engine, rerun
+    gc.collect()        # continuous_run's wrappers hold the engine in a cycle
+    torch.cuda.empty_cache()
+
+    # 4c. the engine's tokens: schedule independence and greedy's tokens
+    continuous_identity(params, card)
 
     # 5. tiny fp32 parity: the card against the CPU's plain versions
     clips = bench_audio(cfg, 2)
@@ -660,13 +1154,29 @@ def main() -> int:
         run, audio, bias, turbo_launches = main_path(
             pipe, kernels, {"flash_attention": tcfg.n_audio_layers,
                             "encoder_block_tail": 0,
-                            "cache_append_rows": GEN_TOKENS - 1}, card)
+                            "cache_append_rows": GEN_TOKENS - 1,
+                            "cache_append_rows_ragged": 0}, card)
         main_path_stages(pipe, audio, bias, card)
         if opts.profile:
             profile_path(TURBO, tcfg, card, run)
         clip = bench_audio(tcfg, 1)
         tok16 = pipe.transcribe_batch(clip, max_new=8).tokens.cpu()
-        del pipe, run, audio, bias
+        del run, audio, bias
+
+        # 7b. turbo continuous engine, full width and depth, on the
+        # pipeline's device params and v3 table
+        engine = ContinuousBatcher(pipe.params, pipe.cfg, max_slots=8,
+                                   max_new=TURBO_ENGINE_MAX_NEW,
+                                   tokenizer=pipe.tokenizer)
+        line, _ = continuous_run(
+            engine, engine_traffic(tcfg, TURBO_ENGINE_REQUESTS, seed=1),
+            kernels, "continuous_turbo", card)
+        check_engine_launches(line, engine, tcfg, tcfg.n_audio_layers)
+        require(line["launches"]["flash_attention"]
+                >= tcfg.n_audio_layers * line["fills"],
+                "continuous_turbo: fewer flash launches than encoder layers")
+        del pipe, engine
+        gc.collect()
         torch.cuda.empty_cache()
 
         # 8. turbo fp32 parity, full depth on both sides
@@ -680,19 +1190,28 @@ def main() -> int:
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
          "launches": tiny_launches["encoder_block_tail"],
          "max_abs_err": main_tail_err, "ms": tail_ms,
-         "plain_ms": tail_plain_ms},
+         "plain_ms": tail_plain_ms, **tail_bound, "library_ms": None},
         {"name": "cache_append_rows", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",
          "launches": tiny_launches["cache_append_rows"],
          "max_abs_err": append_err,
-         "ms": append_ms, "plain_ms": append_plain_ms},
+         "ms": append_ms, "plain_ms": append_plain_ms, **append_bound,
+         "library_ms": append_plain_ms},
         {"name": "flash_attention", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/flash_attention.cu",
          "replaces": "whisper_tpu/ops/flash_attention.py:112",
          "launches": turbo_launches["flash_attention"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
-         "plain_ms": flash["plain_ms"]},
+         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+        {"name": "cache_append_rows_ragged", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/cache_append.cu",
+         "replaces": "whisper_tpu/ops/cache_append.py:133",
+         "launches": engine_launches["cache_append_rows_ragged"],
+         "max_abs_err": ragged["max_abs_err"], "ms": ragged["ms"],
+         "plain_ms": ragged["plain_ms"], "bound_ms": ragged["bound_ms"],
+         "bound_by": ragged["bound_by"], "library_ms": ragged["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

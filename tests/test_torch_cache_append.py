@@ -1,7 +1,8 @@
-"""Port in-place cache append (whisper_tpu_torch/ops/cache_append.py): the
-plain version against the JAX Pallas kernel in interpret mode (exact),
-in-place storage, and the wrapper's checks. The CUDA kernel itself is
-tested on the card (tests/test_torch_kernels_cuda.py)."""
+"""Port in-place cache appends (whisper_tpu_torch/ops/cache_append.py), the
+scalar and the ragged form: the plain versions against the JAX Pallas
+kernels in interpret mode (exact), in-place storage, and the wrappers'
+checks. The CUDA kernels themselves are tested on the card
+(tests/test_torch_kernels_cuda.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +10,14 @@ import pytest
 import torch
 
 from whisper_tpu.ops.cache_append import cache_append_rows as jax_append
-from whisper_tpu_torch.ops.cache_append import cache_append_rows
+from whisper_tpu.ops.cache_append import (
+    cache_append_rows_ragged as jax_append_ragged,
+)
+from whisper_tpu_torch.ops.cache_append import (
+    cache_append_rows,
+    cache_append_rows_ragged,
+    cache_append_rows_ragged_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -75,3 +83,89 @@ def test_append_rejects_mismatched_rows():
         cache_append_rows(ck, cv, kn.to(torch.bfloat16), vn, 0)
     with pytest.raises(ValueError, match="no kernel for device"):
         cache_append_rows(*(t.to("meta") for t in (ck, cv, kn, vn)), 0)
+
+
+# ---------------------------------------------------------------------------
+# cache_append_rows_ragged: row b lands at its own position pos[b]
+# ---------------------------------------------------------------------------
+
+def _mk_ragged(seed, L=3, B=6, H=4, S=32, D=64):
+    return _mk(seed, L=L, B=B, H=H, S=S, D=D)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [
+    (0, 31, 5, 5, 17, 0),        # edges and repeated positions
+    (3, 3, 3, 3, 3, 3),          # every row at one position
+    (31, 30, 1, 0, 8, 16),
+])
+def test_ragged_plain_matches_jax_kernel(pos, dtype):
+    """The plain version against the JAX Pallas kernel in interpret mode:
+    exact in both dtypes, in place."""
+    ck, cv, kn, vn = _mk_ragged(sum(pos))
+    jdt = jnp.dtype(dtype)
+    jk, jv = jax_append_ragged(
+        *(jnp.asarray(a, jdt) for a in (ck, cv, kn, vn)),
+        jnp.asarray(pos, jnp.int32), interpret=True)
+    tdt = getattr(torch, dtype)
+    tk, tv, tkn, tvn = (torch.from_numpy(a).to(tdt) for a in (ck, cv, kn, vn))
+    ptr_k, ptr_v = tk.data_ptr(), tv.data_ptr()
+    ok, ov = cache_append_rows_ragged_plain(tk, tv, tkn, tvn,
+                                            torch.tensor(pos))
+    assert ok.data_ptr() == ptr_k and ov.data_ptr() == ptr_v
+    np.testing.assert_array_equal(ok.float().numpy(),
+                                  np.asarray(jk.astype(jnp.float32)))
+    np.testing.assert_array_equal(ov.float().numpy(),
+                                  np.asarray(jv.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bad", [-1, 32, 1000])
+def test_ragged_leaves_rows_outside_the_cache_untouched(dtype, bad):
+    """A row whose pos[b] lies outside [0, S) keeps its cache exactly; the
+    other rows land at their positions (the CUDA kernel skips such rows
+    the same way)."""
+    ck, cv, kn, vn = (torch.from_numpy(a).to(dtype) for a in _mk_ragged(4))
+    pos = torch.tensor([2, bad, 31, 0, 7, 7])
+    k0, v0 = ck.clone(), cv.clone()
+    cache_append_rows_ragged(ck, cv, kn, vn, pos)
+    assert torch.equal(ck[:, 1], k0[:, 1]) and torch.equal(cv[:, 1], v0[:, 1])
+    for b in (0, 2, 3, 4, 5):
+        p = int(pos[b])
+        assert torch.equal(ck[:, b, :, p], kn[:, b])
+        assert torch.equal(cv[:, b, :, p], vn[:, b])
+        keep = torch.arange(ck.shape[3]) != p
+        assert torch.equal(ck[:, b][:, :, keep], k0[:, b][:, :, keep])
+
+
+def test_ragged_counts_no_launch_on_cpu_and_refuses_int32_pos():
+    """The CPU call takes the plain version and counts no launch; positions
+    are int64 only (the engine's dtype), so an int32 vector raises."""
+    ck, cv, kn, vn = (torch.from_numpy(a) for a in _mk_ragged(5))
+    before = cache_append_rows_ragged.launches
+    want_k, want_v = cache_append_rows_ragged_plain(
+        ck.clone(), cv.clone(), kn, vn, torch.arange(6))
+    got_k, got_v = cache_append_rows_ragged(ck, cv, kn, vn, torch.arange(6))
+    assert cache_append_rows_ragged.launches == before
+    assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+    with pytest.raises(ValueError, match="int64"):
+        cache_append_rows_ragged(ck, cv, kn, vn,
+                                 torch.arange(6, dtype=torch.int32))
+
+
+def test_ragged_rejects_bad_arguments():
+    ck, cv, kn, vn = (torch.from_numpy(a) for a in _mk_ragged(6))
+    pos = torch.zeros(6, dtype=torch.long)
+    with pytest.raises(ValueError, match="expected"):
+        cache_append_rows_ragged(ck, cv, kn[:, :1], vn, pos)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cache_append_rows_ragged(ck, cv, kn.to(torch.bfloat16), vn, pos)
+    with pytest.raises(ValueError, match="pos must be"):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos[:5])
+    with pytest.raises(ValueError, match="pos must be"):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos.float())
+    with pytest.raises(ValueError, match="pos must be"):
+        cache_append_rows_ragged(ck, cv, kn, vn, [0] * 6)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        cache_append_rows_ragged(*(t.to("meta") for t in (ck, cv, kn, vn)),
+                                 pos.to("meta"))

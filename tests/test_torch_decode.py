@@ -264,8 +264,9 @@ def test_pipeline_takes_vocab_path_as_jax_does(v3_nano, v3_vocab, tmp_path):
 
 def test_cli_vocab_flag(v3_nano, v3_vocab, tmp_path, capsys, monkeypatch):
     """--vocab reaches the tokenizer; a v3 model without it fails as the
-    JAX CLI does. The model is registered under a test name."""
-    from whisper_tpu.config import CONFIGS
+    JAX CLI does. The model is registered under a test name in the port's
+    own table, which the port's CLI reads."""
+    from whisper_tpu_torch.config import CONFIGS
     cfg, _ = v3_nano
     monkeypatch.setitem(CONFIGS, "v3-nano", cfg)
     wav = tmp_path / "clip.wav"

@@ -8,11 +8,13 @@ marker and skip when CUDA is absent. Run them on a GPU machine with
 import pytest
 import torch
 
-from whisper_tpu.config import CONFIGS
+from whisper_tpu_torch.config import CONFIGS
 from whisper_tpu_torch.ops.attention import multi_head_attention
 from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows,
     cache_append_rows_plain,
+    cache_append_rows_ragged,
+    cache_append_rows_ragged_plain,
 )
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
@@ -109,6 +111,109 @@ def test_cache_append_kernel_refuses_pos_past_end(dev):
     kn = torch.zeros((1, 1, 1, 64), device=dev)
     with pytest.raises(IndexError):
         cache_append_rows(ck, ck.clone(), kn, kn, 8)
+
+
+def _ragged_args(shape, dtype, dev, pos, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    L, B, H, S, D = shape
+    ck, cv = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
+    kn, vn = (torch.randn((L, B, H, D), generator=g).to(dev, dtype)
+              for _ in range(2))
+    return ck, cv, kn, vn, pos.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pos", [
+    # tiny's engine: 0, S-1, a repeated value, one row past the end
+    ((4, 32, 6, 448, 64), [0, 447] + [5, 5, 5] + list(range(100, 126))
+     + [448]),
+    ((4, 8, 20, 448, 64), [0, 447, 9, 9, 300, 17, 2, -1]),   # turbo's
+    ((2, 3, 5, 16, 64), [15, -7, 3]),   # L*B*H = 30: a ragged last block
+])
+def test_cache_append_ragged_kernel_matches_plain(dev, dtype, shape, pos):
+    """Exact and in place; a row whose position lies outside [0, S) keeps
+    its cache."""
+    ck, cv, kn, vn, pos = _ragged_args(shape, dtype, dev, torch.tensor(pos))
+    want_k, want_v = cache_append_rows_ragged_plain(ck.clone(), cv.clone(),
+                                                    kn, vn, pos)
+    outside = (pos < 0) | (pos >= shape[3])
+    before = ck[:, outside].clone()
+    ptr_k, ptr_v = ck.data_ptr(), cv.data_ptr()
+    before_n = cache_append_rows_ragged.launches
+    ok, ov = cache_append_rows_ragged(ck, cv, kn, vn, pos)
+    torch.cuda.synchronize()
+    assert cache_append_rows_ragged.launches == before_n + 1
+    assert ok.data_ptr() == ptr_k and ov.data_ptr() == ptr_v
+    assert torch.equal(ok, want_k) and torch.equal(ov, want_v)
+    assert outside.any() and torch.equal(ok[:, outside], before)
+
+
+def test_cache_append_ragged_reads_no_position_on_the_host(dev):
+    """The wrapper captures into a CUDA graph, where a host read of `pos`
+    would raise; replays with new positions write the new rows."""
+    shape = (2, 4, 3, 32, 64)
+    pos = torch.tensor([0, 5, 5, 31])
+    ck, cv, kn, vn, pos = _ragged_args(shape, torch.bfloat16, dev, pos)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos)       # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos)
+    pos.copy_(torch.tensor([7, 8, 9, 10]))
+    want_k, want_v = cache_append_rows_ragged_plain(ck.clone(), cv.clone(),
+                                                    kn, vn, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(ck, want_k) and torch.equal(cv, want_v)
+
+
+def test_cache_append_ragged_refuses_what_the_kernel_does_not_take(dev):
+    ck, cv, kn, vn, pos = _ragged_args((1, 2, 1, 8, 64), torch.float32, dev,
+                                       torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="pos"):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos.cpu())
+    with pytest.raises(ValueError, match="pos"):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos.float())
+    with pytest.raises(ValueError, match="int64"):
+        cache_append_rows_ragged(ck, cv, kn, vn, pos.int())
+    with pytest.raises(TypeError):
+        cache_append_rows_ragged(ck.half(), cv.half(), kn.half(), vn.half(),
+                                 pos)
+    with pytest.raises(ValueError, match="not contiguous"):
+        cache_append_rows_ragged(ck, cv, kn, vn,
+                                 torch.arange(4, device=dev)[::2])
+
+
+def test_continuous_engine_on_the_card_matches_the_cpu(dev):
+    """The engine at nano width in fp32: the card's tokens (ragged kernel,
+    cuBLAS with TF32 off) equal the CPU's plain path for a schedule with
+    more requests than slots and a <|startofprev|> prompt."""
+    import numpy as np
+
+    from whisper_tpu_torch import get_config, weights
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+    cfg = get_config("tiny").replace(name="cuda-cont-nano", d_model=64,
+                                     n_heads=1, n_audio_layers=2,
+                                     n_text_layers=2)
+    params = weights.init_params(cfg, seed=3)
+    rng = np.random.RandomState(0)
+    clips = [(rng.randn(16_000 * s) * 0.1).astype(np.float32)
+             for s in (2, 3, 4, 5)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        eng = ContinuousBatcher(params, cfg, max_slots=3, max_new=6,
+                                device=device)
+        rids = [eng.submit(c) for c in clips[:3]]
+        rids.append(eng.submit(clips[3], prev_tokens=list(range(700, 730))))
+        before = cache_append_rows_ragged.launches
+        out = eng.run_until_idle()
+        outs[device] = [out[r] for r in rids]
+        if device == "cuda":
+            assert cache_append_rows_ragged.launches > before
+    assert outs["cuda"] == outs["cpu"]
 
 
 def test_tail_gate_is_the_kernels_answer(dev):

@@ -236,3 +236,72 @@ def test_encoder_tail_off_matches_jax(nano, backend, monkeypatch):
     got = tm.encoder_forward(tparams, cfg, torch.from_numpy(mel))
     assert len(calls) == cfg.n_audio_layers      # 18 MB of scores: flash
     np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# decoder_step_ragged: the continuous engine's step, every row at its own
+# position
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", [None, "pallas_interpret"])
+@pytest.mark.parametrize("pos", [(4, 17), (0, 63), (9, 9)])
+def test_decoder_step_ragged_matches_jax(prefilled, backend, pos):
+    """One T==1 step with a per-row position, after the prefill: logits
+    within fp32 tolerance (atol 1e-4, as the ip step) and the updated
+    caches: the new rows to the same tolerance, every other row bit for
+    bit, written in place. Against the JAX step's plain scatter and its
+    interpret-mode ragged append kernel."""
+    p = prefilled
+    cfg = p["cfg"]
+    last = np.argmax(np.asarray(p["jlogits"])[:, -1:], axis=-1)
+    pos_np = np.asarray(pos, np.int32)
+    jl, jc = jm.decoder_step_ragged(
+        p["jparams"], cfg.replace(attn_backend=backend),
+        jnp.asarray(last, jnp.int32), jnp.asarray(pos_np), p["jcache"],
+        p["jcross"])
+    tcache = {k: v.clone() for k, v in p["tcache"].items()}
+    before = {k: v.clone() for k, v in tcache.items()}
+    ptr = tcache["k"].data_ptr()
+    tl, tc = tm.decoder_step_ragged(p["tparams"], cfg, torch.from_numpy(last),
+                                    torch.from_numpy(pos_np).long(), tcache,
+                                    p["tcross"])
+    assert tc["k"].data_ptr() == ptr
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    assert (tl[:, -1].argmax(-1).numpy()
+            == np.asarray(jl[:, -1]).argmax(-1)).all()
+    S = tc["k"].shape[3]
+    for name in ("k", "v"):
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   atol=1e-4)
+        for b, pb in enumerate(pos):
+            keep = torch.arange(S) != pb
+            assert torch.equal(tc[name][:, b][:, :, keep],
+                               before[name][:, b][:, :, keep])
+
+
+def test_decoder_step_ragged_equal_positions_is_the_ip_step(prefilled):
+    """With every row at the same position the ragged step is the scalar
+    step: the same caches bit for bit, and logits to 1e-5 (the ragged
+    step's cross-attention goes through mha_reference, the scalar step's
+    through its own einsum, as in JAX)."""
+    p = prefilled
+    cfg, P = p["cfg"], p["P"]
+    last = torch.from_numpy(np.argmax(np.asarray(p["jlogits"])[:, -1:], -1))
+    ca = {k: v.clone() for k, v in p["tcache"].items()}
+    cb = {k: v.clone() for k, v in p["tcache"].items()}
+    la, _ = tm.decoder_step_ip(p["tparams"], cfg, last, P, ca, p["tcross"])
+    lb, _ = tm.decoder_step_ragged(p["tparams"], cfg, last,
+                                   torch.full((2,), P), cb, p["tcross"])
+    torch.testing.assert_close(lb, la, atol=1e-5, rtol=0)
+    for name in ("k", "v"):
+        assert torch.equal(ca[name], cb[name])
+
+
+def test_decoder_step_ragged_refuses_int8_caches(prefilled):
+    p = prefilled
+    cache = dict(p["tcache"], k_s=torch.ones(1))
+    with pytest.raises(NotImplementedError, match="int8"):
+        tm.decoder_step_ragged(p["tparams"], p["cfg"],
+                               torch.zeros((2, 1), dtype=torch.long),
+                               torch.zeros(2, dtype=torch.long), cache,
+                               p["tcross"])

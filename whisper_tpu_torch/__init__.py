@@ -6,34 +6,51 @@ its counterpart's name, public function names and tensor layouts (q is
 (B, T, H, D); K/V and the caches are head-major (L, B, H, S, D); linear
 weights are stored (in, out)), so a reader can put the two side by side.
 
-Covered so far: greedy transcription with every model of the family
-(tiny to large-v3-turbo), unquantized, in fp32 (token-parity mode) and
-bf16 —
+Covered so far, for every model of the family (tiny to large-v3-turbo),
+unquantized, in fp32 (token-parity mode) and bf16:
+  - config.py        <- whisper_tpu/config.py (WhisperConfig, CONFIGS)
+  - tokenizer.py     <- whisper_tpu/tokenizer.py, with its own copy of the
+                        bundled table (assets/vocab.txt)
   - audio.py         <- whisper_tpu/audio.py (log-mel frontend, 80 or 128
                         bins)
   - weights.py       <- whisper_tpu/weights.py + models/whisper.py init
   - models/whisper.py<- whisper_tpu/models/whisper.py (encoder with the
                         fused tail or the tail-off branch, prefill, the
-                        in-place T==1 decode step)
-  - ops/             <- whisper_tpu/ops: the three Pallas kernels on these
+                        in-place T==1 decode step, the ragged step)
+  - ops/             <- whisper_tpu/ops: the four Pallas kernels on these
                         paths (encoder_block_tail, flash_attention,
-                        cache_append_rows) as hand-written CUDA C++ kernels
-                        for sm_90a, each with a plain PyTorch twin, and the
-                        attention size dispatch
-  - decode.py        <- whisper_tpu/decode.py (greedy only)
+                        cache_append_rows, cache_append_rows_ragged) as
+                        hand-written CUDA C++ kernels for sm_90a, each with
+                        a plain PyTorch twin, and the attention size
+                        dispatch
+  - decode_rules.py  <- whisper_tpu/decode_rules.py (suppression and
+                        timestamp rules)
+  - decode.py        <- whisper_tpu/decode.py (greedy with the rules,
+                        detect_language)
+  - serving_continuous.py <- whisper_tpu/serving_continuous.py (the
+                        continuous-batching engine)
   - pipeline.py, cli.py
 
-The package imports torch and never jax. It reuses the jax-free modules of
-whisper_tpu: config, tokenizer.
+The package imports torch, and neither jax nor anything of whisper_tpu.
 """
 
-from whisper_tpu.config import CONFIGS, WhisperConfig, get_config
+from whisper_tpu_torch.config import CONFIGS, WhisperConfig, get_config
 
-__all__ = ["WhisperConfig", "CONFIGS", "get_config", "WhisperPipeline"]
+__all__ = ["WhisperConfig", "CONFIGS", "get_config", "WhisperPipeline",
+           "ContinuousBatcher", "QueueFull", "DecodeOptions"]
+
+# name -> module, imported on first access (whisper_tpu/__init__.py:31-53)
+_LAZY = {
+    "WhisperPipeline": "whisper_tpu_torch.pipeline",
+    "ContinuousBatcher": "whisper_tpu_torch.serving_continuous",
+    "QueueFull": "whisper_tpu_torch.serving_continuous",
+    "DecodeOptions": "whisper_tpu_torch.decode_rules",
+}
 
 
 def __getattr__(name):
-    if name == "WhisperPipeline":
-        from whisper_tpu_torch.pipeline import WhisperPipeline
-        return WhisperPipeline
-    raise AttributeError(name)
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'whisper_tpu_torch' has no attribute "
+                         f"{name!r}")

@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from whisper_tpu.config import WhisperConfig
+from whisper_tpu_torch.config import WhisperConfig
 from whisper_tpu_torch.models.whisper import full_fp32
 
 

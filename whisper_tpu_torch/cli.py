@@ -41,7 +41,7 @@ def main(argv=None) -> int:
                         "versions of the kernels)")
     args = p.parse_args(argv)
 
-    from whisper_tpu.config import get_config
+    from whisper_tpu_torch.config import get_config
     from whisper_tpu_torch.pipeline import (
         WhisperPipeline,
         load_wav,

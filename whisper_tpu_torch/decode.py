@@ -1,5 +1,6 @@
-"""Greedy decoding (whisper_tpu/decode.py, the greedy strategy without
-decode rules).
+"""Greedy decoding with the decode rules, and language detection
+(whisper_tpu/decode.py: greedy_decode, transcribe_tokens,
+detect_language).
 
 The JAX package runs the loop on the device inside one jitted
 while_loop. The port drives a Python loop of T==1 steps (decoder_step_ip)
@@ -9,6 +10,10 @@ equal the step-wise loop's: finished rows keep re-emitting EOT (the
 buffer's padding) and their sum_logprobs stays frozen
 (whisper_tpu/decode.py:297-316), so the steps after the last finish
 change nothing.
+
+`opts` (decode_rules.DecodeOptions) runs the JAX package's rule stack on
+every pick, the first included (:229-232). Temperature sampling and beam
+search are not ported yet (ROADMAP Queue 1 item 9) and raise.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from whisper_tpu.config import WhisperConfig
+from whisper_tpu_torch.config import WhisperConfig
+from whisper_tpu_torch.decode_rules import DecodeOptions, apply_rules
 from whisper_tpu_torch.models.whisper import (
     compute_dtype,
     decoder_forward,
@@ -74,25 +80,32 @@ def _greedy_prefill(params, cfg: WhisperConfig, enc_out: torch.Tensor,
     return cross_kv, cache, tokens, logits
 
 
-def _pick(logits: torch.Tensor, logit_bias: Optional[torch.Tensor]):
-    """Greedy pick from the last position: (next token (B,), its logprob
-    (B,)). torch.argmax, like jnp.argmax, returns the first maximum."""
+def _pick(logits: torch.Tensor, logit_bias: Optional[torch.Tensor],
+          opts: Optional[DecodeOptions], cfg: WhisperConfig,
+          tokens: torch.Tensor, pos: int, prompt_len: int):
+    """Greedy pick from the last position (:226-240): the logit bias, then
+    the rules for a next token at `pos`, then argmax. Returns (next token
+    (B,), its logprob (B,)). torch.argmax, like jnp.argmax, returns the
+    first maximum."""
     lg = logits[:, -1, :]
     if logit_bias is not None:
         lg = lg + logit_bias[None, :]
+    if opts is not None:
+        lg = apply_rules(lg, tokens, pos, prompt_len, cfg, opts)
     nxt = lg.argmax(dim=-1)
     logp = torch.log_softmax(lg.float(), dim=-1)
     return nxt, logp.gather(-1, nxt[:, None])[:, 0]
 
 
 def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
-                 prefill_logits, prompt, logit_bias, max_new: int
-                 ) -> DecodeResult:
+                 prefill_logits, prompt, logit_bias, max_new: int,
+                 opts: Optional[DecodeOptions] = None) -> DecodeResult:
     """First pick, no-speech probability, then up to max_new T==1 steps
     (:216), each ending in one in-place append."""
     B, P = prompt.shape
     eot = cfg.eot_token
-    first, sum_lp = _pick(prefill_logits, logit_bias)
+    first, sum_lp = _pick(prefill_logits, logit_bias, opts, cfg, tokens, P,
+                          P)
     tokens[:, P] = first
     finished = first == eot
 
@@ -108,7 +121,8 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
         last = tokens[:, P + i:P + i + 1]
         logits, cache = decoder_step_ip(params, cfg, last, P + i, cache,
                                         cross_kv)
-        picked, lp = _pick(logits, logit_bias)
+        picked, lp = _pick(logits, logit_bias, opts, cfg, tokens, P + i + 1,
+                           P)
         live = ~finished
         nxt = torch.where(live, picked, torch.full_like(picked, eot))
         sum_lp = sum_lp + torch.where(live, lp, torch.zeros_like(lp))
@@ -121,8 +135,8 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
 @torch.inference_mode()
 def greedy_decode(params, cfg: WhisperConfig, enc_out: torch.Tensor,
                   prompt: torch.Tensor, max_new: Optional[int] = None,
-                  logit_bias: Optional[torch.Tensor] = None
-                  ) -> DecodeResult:
+                  logit_bias: Optional[torch.Tensor] = None,
+                  opts: Optional[DecodeOptions] = None) -> DecodeResult:
     """Greedy decode against an encoder output (:364).
 
     Args:
@@ -131,7 +145,14 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out: torch.Tensor,
       max_new: cap on loop tokens after the prefill pick (default 195).
       logit_bias: optional (vocab,) fp32 additive bias before the argmax
         (the bench bans EOT with -1e9).
+      opts: the rule stack (suppression, timestamps); greedy only.
     """
+    if opts is not None and opts.temperature > 0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet (ROADMAP Queue 1 item 9)")
+    if opts is not None and opts.beam_size > 1:
+        raise NotImplementedError(
+            "beam search is not ported yet (ROADMAP Queue 1 item 9)")
     if max_new is None:
         max_new = cfg.max_new_tokens
     total = prompt.shape[1] + 1 + max_new
@@ -139,7 +160,7 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out: torch.Tensor,
         cross_kv, cache, tokens, logits = _greedy_prefill(
             params, cfg, enc_out, prompt, total)
         return _greedy_loop(params, cfg, cross_kv, cache, tokens, logits,
-                            prompt, logit_bias, max_new)
+                            prompt, logit_bias, max_new, opts)
 
 
 @torch.inference_mode()
@@ -150,10 +171,30 @@ def encode(params, cfg: WhisperConfig, mel: torch.Tensor) -> torch.Tensor:
         return encoder_forward(params, cfg, mel)
 
 
+@torch.inference_mode()
+def detect_language(params, cfg: WhisperConfig, enc_out: torch.Tensor
+                    ) -> torch.Tensor:
+    """Language identification (:701): one decoder pass on a bare
+    <|startoftranscript|> prompt, softmax in fp32 over the language-token
+    slice of the logits. Returns (B, n_languages) probabilities on
+    enc_out's device, index i = tokenizer.LANGUAGES[i]."""
+    B = enc_out.shape[0]
+    with full_fp32(compute_dtype(cfg) == torch.float32):
+        cross_kv = precompute_cross_kv(params, cfg, enc_out)
+        cache = init_kv_cache(cfg, B, compute_dtype(cfg),
+                              _cache_slots(cfg, 1), enc_out.device)
+        sot = torch.full((B, 1), cfg.sot_token, dtype=torch.long,
+                         device=enc_out.device)
+        logits, _ = decoder_forward(params, cfg, sot, 0, cache, cross_kv)
+    first = cfg.first_language_token
+    lang = logits[:, -1, first:first + cfg.n_languages]
+    return torch.softmax(lang.float(), dim=-1)
+
+
 def transcribe_tokens(params, cfg: WhisperConfig, mel: torch.Tensor,
                       prompt: torch.Tensor, max_new: Optional[int] = None,
-                      logit_bias: Optional[torch.Tensor] = None
-                      ) -> DecodeResult:
+                      logit_bias: Optional[torch.Tensor] = None,
+                      opts: Optional[DecodeOptions] = None) -> DecodeResult:
     """(B, n_mels, n_frames) mel + (B, P) prompt -> tokens (:724)."""
     return greedy_decode(params, cfg, encode(params, cfg, mel), prompt,
-                         max_new=max_new, logit_bias=logit_bias)
+                         max_new=max_new, logit_bias=logit_bias, opts=opts)

@@ -33,9 +33,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu.config import WhisperConfig
+from whisper_tpu_torch.config import WhisperConfig
 from whisper_tpu_torch.ops.attention import multi_head_attention
-from whisper_tpu_torch.ops.cache_append import cache_append_rows
+from whisper_tpu_torch.ops.cache_append import (
+    cache_append_rows,
+    cache_append_rows_ragged,
+)
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     tail_fits_smem,
@@ -268,6 +271,17 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     into kv_cache in place, then attends with the (kv_len, causal,
     q_offset) mask through `_cache_attention`, as JAX does (:731-741).
     Returns (logits (B, T, vocab) fp32, kv_cache)."""
+    h = decoder_hidden(params, cfg, tokens, pos_offset, kv_cache, cross_kv)
+    return final_logits(params, cfg, h), kv_cache
+
+
+def decoder_hidden(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                   pos_offset: int, kv_cache: dict[str, torch.Tensor],
+                   cross_kv: dict[str, torch.Tensor]) -> torch.Tensor:
+    """decoder_forward's layers without the final LayerNorm and logits:
+    fills kv_cache in place and returns h (B, T, d). The engine's batched
+    prefill calls it alone, where JAX leaves the unused logits to XLA's
+    dead-code elimination (serving_continuous.py:56-58)."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     B, T = tokens.shape
@@ -291,7 +305,7 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
-    return final_logits(params, cfg, h), kv_cache
+    return h
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, D: int, fp32_mode: bool
@@ -314,20 +328,24 @@ def _weighted(p: torch.Tensor, v: torch.Tensor, dtype, fp32_mode: bool
     return torch.einsum("bhts,bhsd->bthd", p.float(), v.float())
 
 
-def _self_attention_extra(q, k_cache, v_cache, k_new, v_new, pos: int,
-                          D: int, dtype) -> torch.Tensor:
+def _self_attention_extra(q, k_cache, v_cache, k_new, v_new,
+                          pos: int | torch.Tensor, D: int, dtype
+                          ) -> torch.Tensor:
     """T==1 self-attention over a READ-ONLY cache plus the current token
     (:939): softmax over [cache rows < pos] and {self}, computed as a
     two-part softmax with a shared max and summed denominators. Identical
     products to appending k_new/v_new at row pos first.
 
-    q: (B,1,H,D); k_cache/v_cache: (B,H,S,D); k_new/v_new: (B,H,1,D).
-    Returns (B,1,H,D) in dtype."""
+    q: (B,1,H,D); k_cache/v_cache: (B,H,S,D); k_new/v_new: (B,H,1,D);
+    pos: an int shared by every row (decoder_step_ip) or a (B,) tensor of
+    per-row positions (decoder_step_ragged), which masks row b's cache at
+    `< pos[b]` (:1401-1402). Returns (B,1,H,D) in dtype."""
     fp32_mode = dtype == torch.float32
     S = k_cache.shape[2]
     s_c = _scores(q, k_cache, D, fp32_mode)                   # (B,H,1,S)
     s_s = _scores(q, k_new, D, fp32_mode)                     # (B,H,1,1)
-    strict = torch.arange(S, device=q.device) < pos
+    strict = torch.arange(S, device=q.device) < (
+        pos[:, None, None, None] if isinstance(pos, torch.Tensor) else pos)
     s_c = s_c.masked_fill(~strict, torch.finfo(torch.float32).min)
     m = torch.maximum(s_c.amax(dim=-1, keepdim=True), s_s)
     e_c = torch.exp(s_c - m)
@@ -380,4 +398,54 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
     cache_append_rows(kv_cache["k"], kv_cache["v"],
                       torch.stack(k_news).to(kv_cache["k"].dtype),
                       torch.stack(v_news).to(kv_cache["v"].dtype), pos)
+    return final_logits(params, cfg, h), kv_cache
+
+
+def decoder_step_ragged(params: Params, cfg: WhisperConfig,
+                        tokens1: torch.Tensor, pos: torch.Tensor,
+                        kv_cache: dict[str, torch.Tensor],
+                        cross_kv: dict[str, torch.Tensor]
+                        ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One T==1 decode step where every batch row sits at its OWN
+    position: the continuous-batching engine's step (:1355, the
+    unquantized in-place branch).
+
+    tokens1: (B, 1) each row's last token; pos: (B,) integer tensor on the
+    device, each row's position and cache write index. Per-row positional
+    embedding; self-attention over the read-only cache masked at
+    `< pos[b]` plus the current token (`_self_attention_extra`);
+    cross-attention through `_cache_attention`; after the layer loop ONE
+    cache_append_rows_ragged call writes every layer's new K/V row b at
+    pos[b], in place. Nothing here reads the device from the host.
+    Returns (logits (B, 1, vocab) fp32, kv_cache)."""
+    if "k_s" in kv_cache or "k_s" in cross_kv:
+        raise NotImplementedError(
+            "decoder_step_ragged: int8 caches (k_s/v_s scales) come with the "
+            "int8 serving slice (ROADMAP Queue 1 item 8)")
+    dec = params["decoder"]
+    dtype = compute_dtype(cfg)
+    D = cfg.head_dim
+    h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos][:, None].to(dtype)
+    k_news, v_news = [], []
+    for i in range(cfg.n_text_layers):
+        lp = layer_index(dec["layers"], i)
+        y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
+        q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
+        a = _self_attention_extra(q, kv_cache["k"][i].to(dtype),
+                                  kv_cache["v"][i].to(dtype), k_new, v_new,
+                                  pos, D, dtype)
+        h = h + linear(merge_heads(a), lp["attn"]["o"])
+        y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
+                       cfg.ln_eps)
+        q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
+        a = _cache_attention(q, cross_kv["k"][i], cross_kv["v"][i], None,
+                             causal=False, q_offset=0, dtype=dtype)
+        h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
+        y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
+        h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
+        k_news.append(k_new[:, :, 0, :])
+        v_news.append(v_new[:, :, 0, :])
+    cache_append_rows_ragged(kv_cache["k"], kv_cache["v"],
+                             torch.stack(k_news).to(kv_cache["k"].dtype),
+                             torch.stack(v_news).to(kv_cache["v"].dtype), pos)
     return final_logits(params, cfg, h), kv_cache

@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-Route: nvcc compiles every `csrc/*.cu` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes), which ctypes loads. The library lands in `_build/` beside the
+Route: one nvcc per `csrc/*.cu`, all started together, compiles each
+source to an object with a plain C interface (no PyTorch headers, so the
+build takes seconds, not minutes); one more nvcc links them into a shared
+library, which ctypes loads. The library lands in `_build/` beside the
 package (listed in .gitignore), named by a hash of the sources and the
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
 
@@ -14,12 +15,14 @@ missing nvcc or a failed build raises.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _BUILD_TIMEOUT_S = 600
 
 
@@ -63,19 +66,30 @@ def build() -> tuple[Path, float, str]:
         return so, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objs, \
+            concurrent.futures.ThreadPoolExecutor() as pool:
+        steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", f"{objs}/{src.stem}.o",
+                  str(src)] for src in sorted(CSRC.glob("*.cu"))]
+        runs = list(pool.map(_run, steps))
+        runs.append(_run([nvcc, "-shared", "-o", str(tmp),
+                          *[cmd[-2] for cmd in steps]]))
+    seconds = time.perf_counter() - t0
+    text = "".join(r.stdout + r.stderr for r in runs)
+    log.write_text(text)
+    os.replace(tmp, so)          # atomic: a concurrent loader sees all or none
+    return so, seconds, text
+
+
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    """One nvcc step; raises with the end of its output when it fails."""
     r = subprocess.run(cmd, capture_output=True, text=True,
                        timeout=_BUILD_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
     if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {r.returncode}:\n"
-                           f"{r.stderr[-6000:]}")
-    log.write_text(r.stdout + r.stderr)
-    os.replace(tmp, so)          # atomic: a concurrent loader sees all or none
-    return so, seconds, r.stdout + r.stderr
+        raise RuntimeError(f"nvcc failed with code {r.returncode} on "
+                           f"{cmd[-1]}:\n{(r.stdout + r.stderr)[-6000:]}")
+    return r
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +112,13 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_longlong,     # rows = L*B*H
         I, I, I, I, P]         # S, D, pos, is_bf16, stream
     lib.wt_cache_append.restype = I
+    lib.wt_cache_append_ragged.argtypes = [
+        P, P, P, P,            # cache_k, cache_v, k_new, v_new
+        P,                     # pos (B,) int64, on the device
+        ctypes.c_longlong,     # rows = L*B*H
+        I, I, I, I,            # B, H, S, D
+        I, P]                  # is_bf16, stream
+    lib.wt_cache_append_ragged.restype = I
     L = ctypes.c_longlong
     lib.wt_flash_attention.argtypes = [
         P, P, P, P,            # q, k, v, out

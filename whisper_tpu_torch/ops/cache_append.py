@@ -1,17 +1,20 @@
-"""In-place KV-cache row append (whisper_tpu/ops/cache_append.py:62
-cache_append_rows).
+"""In-place KV-cache row appends (whisper_tpu/ops/cache_append.py:62
+cache_append_rows, :133 cache_append_rows_ragged).
 
 All L layers' new K/V rows (L, B, H, D) land at row `pos` of the
-(L, B, H, S, D) caches, in place. The decode step (models/whisper.py
-decoder_step_ip) calls it once, after its layer loop: the step's
-self-attention reads the cache strictly below `pos` and adds the current
-token as an explicit softmax term, so no layer needs its own row written
-first.
+(L, B, H, S, D) caches, in place: one shared `pos` for the greedy step
+(models/whisper.py decoder_step_ip), one position per batch row, a (B,)
+tensor on the device, for the continuous-batching engine's step
+(decoder_step_ragged). Each step calls its append once, after its layer
+loop: the step's self-attention reads the cache strictly below `pos` and
+adds the current token as an explicit softmax term, so no layer needs its
+own row written first.
 
-`cache_append_rows` launches the hand-written CUDA kernel
-(csrc/cache_append.cu, which carries the design note) for CUDA tensors and
-runs `cache_append_rows_plain` (indexed assignment) for CPU tensors. Both
-write into the given tensors and return them; neither makes a copy.
+Each wrapper launches its hand-written CUDA kernel (csrc/cache_append.cu,
+which carries the design note) for CUDA tensors and runs its plain version
+(indexed assignment) for CPU tensors. Both write into the given tensors
+and return them; neither makes a copy. The ragged wrapper never reads
+`pos` on the host: the kernel reads it from device memory.
 """
 
 from __future__ import annotations
@@ -81,3 +84,82 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
 
 
 cache_append_rows.launches = 0      # kernel launches (CPU calls not counted)
+
+
+def cache_append_rows_ragged_plain(cache_k, cache_v, k_new, v_new,
+                                   pos: torch.Tensor):
+    """Indexed assignment, the JAX fallback of decoder_step_ragged
+    (whisper_tpu/models/whisper.py:1484-1489): the separated advanced
+    indices (rows, pos) move to the front, so the value is (B, L, H, D).
+    A row whose pos[b] lies outside [0, S) keeps its cache as it was: it
+    is written at a clamped position with the value already there."""
+    S = cache_k.shape[3]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    keep = ((pos >= 0) & (pos < S))[:, None, None, None]
+    at = pos.clamp(0, S - 1)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[:, rows, :, at, :] = torch.where(
+            keep, new.transpose(0, 1), cache[:, rows, :, at, :])
+    return cache_k, cache_v
+
+
+def _check_ragged(cache_k, cache_v, k_new, v_new, pos) -> None:
+    L, B, H, S, D = cache_k.shape
+    for name, t, shape in (("cache_v", cache_v, (L, B, H, S, D)),
+                           ("k_new", k_new, (L, B, H, D)),
+                           ("v_new", v_new, (L, B, H, D))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"cache_append_rows_ragged: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.dtype != cache_k.dtype:
+            raise TypeError(f"cache_append_rows_ragged: {name} is {t.dtype}, "
+                            f"cache_k is {cache_k.dtype}")
+        if t.device != cache_k.device:
+            raise ValueError(f"cache_append_rows_ragged: {name} is on "
+                             f"{t.device}, cache_k on {cache_k.device}")
+    if not isinstance(pos, torch.Tensor) or tuple(pos.shape) != (B,) \
+            or pos.dtype != torch.int64:
+        raise ValueError(f"cache_append_rows_ragged: pos must be a ({B},) "
+                         f"int64 tensor")
+    if pos.device != cache_k.device:
+        raise ValueError(f"cache_append_rows_ragged: pos is on {pos.device}, "
+                         f"cache_k on {cache_k.device}")
+
+
+def cache_append_rows_ragged(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                             k_new: torch.Tensor, v_new: torch.Tensor,
+                             pos: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write row b of k_new/v_new (L, B, H, D) at position pos[b] of the
+    (L, B, H, S, D) caches, for every layer, in place; a row whose pos[b]
+    lies outside [0, S) is left untouched. pos: (B,) int64 on the caches'
+    device. Returns the same two tensors. CPU tensors take the
+    plain version; CUDA tensors (fp32 or bf16, contiguous) launch the
+    kernel or raise."""
+    _check_ragged(cache_k, cache_v, k_new, v_new, pos)
+    if cache_k.device.type == "cpu":
+        return cache_append_rows_ragged_plain(cache_k, cache_v, k_new, v_new,
+                                              pos)
+    if cache_k.device.type != "cuda":
+        raise ValueError(f"cache_append_rows_ragged: no kernel for device "
+                         f"{cache_k.device}")
+    if cache_k.dtype not in _DTYPES:
+        raise TypeError(f"cache_append_rows_ragged: no kernel for "
+                        f"{cache_k.dtype}")
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v),
+                    ("k_new", k_new), ("v_new", v_new), ("pos", pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"cache_append_rows_ragged: {name} is not "
+                             f"contiguous")
+    L, B, H, S, D = cache_k.shape
+    lib = _build.load_library()
+    err = lib.wt_cache_append_ragged(
+        cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), pos.data_ptr(), L * B * H, B, H, S, D,
+        int(cache_k.dtype == torch.bfloat16), torch.cuda.current_stream(cache_k.device).cuda_stream)
+    _build.check(lib, err, "cache_append_rows_ragged")
+    cache_append_rows_ragged.launches += 1
+    return cache_k, cache_v
+
+
+cache_append_rows_ragged.launches = 0   # kernel launches (CPU calls not counted)

@@ -1,5 +1,5 @@
 """End-to-end transcription on one device (whisper_tpu/pipeline.py:64
-WhisperPipeline, the single-window greedy part).
+WhisperPipeline, the single-window greedy part, with the decode rules).
 
 The pipeline owns the params on its device in the compute dtype and runs
 mel -> encoder -> prefill -> greedy loop. It defaults to `cuda` and
@@ -16,11 +16,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from whisper_tpu.config import WhisperConfig, get_config
-from whisper_tpu.tokenizer import Tokenizer, build_prompt
+from whisper_tpu_torch.config import WhisperConfig, get_config
+from whisper_tpu_torch.tokenizer import Tokenizer, build_prompt
 from whisper_tpu_torch import weights as weights_lib
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
 from whisper_tpu_torch.decode import DecodeResult, encode, greedy_decode
+from whisper_tpu_torch.decode_rules import DecodeOptions, non_speech_tokens
 from whisper_tpu_torch.models.whisper import compute_dtype
 
 
@@ -90,19 +91,33 @@ class WhisperPipeline:
         cfg = cls._config(model, dtype)
         return cls(cfg, params, device, Tokenizer(vocab_path, config=cfg))
 
+    # ---- decode options ----
+    def make_options(self, timestamps: bool = False,
+                     suppress_nonspeech: bool = False) -> DecodeOptions:
+        """The standard rule stack for greedy decoding (:142); sampling and
+        beam options come with their strategies (ROADMAP Queue 1 item 9)."""
+        suppress = (non_speech_tokens(self.cfg, self.tokenizer)
+                    if suppress_nonspeech else ())
+        return DecodeOptions(suppress_tokens=suppress,
+                             suppress_blank=suppress_nonspeech,
+                             timestamps=timestamps)
+
     # ---- inference ----
     def prompt(self, batch: int, language: str = "en",
-               task: str = "transcribe") -> torch.Tensor:
-        ids = build_prompt(self.cfg, language, task)
+               task: str = "transcribe", timestamps: bool = False
+               ) -> torch.Tensor:
+        ids = build_prompt(self.cfg, language, task, timestamps=timestamps)
         return torch.tensor([ids] * batch, dtype=torch.long,
                             device=self.device)
 
     def transcribe_batch(self, audio: np.ndarray, language: str = "en",
                          max_new: Optional[int] = None,
-                         logit_bias: Optional[torch.Tensor] = None
+                         logit_bias: Optional[torch.Tensor] = None,
+                         opts: Optional[DecodeOptions] = None
                          ) -> DecodeResult:
         """audio: (B, n_samples) fp32, one 30 s window per row (pad_or_trim
-        first). Returns the DecodeResult on the pipeline's device."""
+        first); opts: the rule stack (make_options). Returns the
+        DecodeResult on the pipeline's device."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.ndim != 2 or audio.shape[1] != self.cfg.n_samples:
             raise ValueError(f"transcribe_batch takes (B, {self.cfg.n_samples})"
@@ -110,9 +125,12 @@ class WhisperPipeline:
         wav = torch.from_numpy(audio).to(self.device)
         mel = log_mel_spectrogram(wav, self.cfg)
         enc_out = encode(self.params, self.cfg, mel)
+        timestamps = bool(opts and opts.timestamps)
         return greedy_decode(self.params, self.cfg, enc_out,
-                             self.prompt(audio.shape[0], language),
-                             max_new=max_new, logit_bias=logit_bias)
+                             self.prompt(audio.shape[0], language,
+                                         timestamps=timestamps),
+                             max_new=max_new, logit_bias=logit_bias,
+                             opts=opts)
 
     def transcribe_window(self, audio: np.ndarray, language: str = "en",
                           max_new: Optional[int] = None) -> Transcription:

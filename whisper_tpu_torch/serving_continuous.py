@@ -1,0 +1,497 @@
+"""Continuous batching: sequences join and leave a shared decode batch at
+token granularity (whisper_tpu/serving_continuous.py).
+
+One lockstep T==1 step (models/whisper.py decoder_step_ragged) runs over
+B slots; each slot carries its own position, cache region, cross-attention
+state and prompt length. New requests claim a free slot between steps:
+their prompts fill the cache in one batched prefill, and the first engine
+step recomputes the last prompt position and emits the first token.
+Finished slots are harvested and refilled at the next fill.
+
+As in the JAX engine, every per-step shape is fixed at B slots, whatever
+the occupancy: rows without a live request flow through the math at a
+clamped position and their results are masked out afterwards. So a
+request's tokens do not depend on its slot, its companions or when it
+arrives, and each step ends in exactly one cache_append_rows_ragged
+launch. Nothing in a step reads the device from the host: the host reads
+the state once per sync (`_snapshot`).
+
+Differences from the JAX engine, all deliberate:
+  * The state's tensors are updated in place (JAX donates and rebuilds
+    them); `reset_state` builds them anew.
+  * `step_device(k)` runs k single steps; the JAX `lax.scan` form exists
+    for XLA.
+  * The batched prefill writes into a scratch cache of p_pad slots for the
+    full slot batch and copies only the joining rows into the state's
+    cache: the port's decoder_forward writes the cache it is given in
+    place, where JAX computes a new cache and merges it.
+  * Not ported yet: temperature sampling (per-slot random streams, ROADMAP
+    Queue 1 item 9) and the int8 caches; both raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from whisper_tpu_torch import weights as weights_lib
+from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+from whisper_tpu_torch.config import WhisperConfig, get_config
+from whisper_tpu_torch.decode import detect_language, encode
+from whisper_tpu_torch.decode_rules import DecodeOptions, apply_rules
+from whisper_tpu_torch.models.whisper import (
+    compute_dtype,
+    decoder_hidden,
+    decoder_step_ragged,
+    full_fp32,
+    init_kv_cache,
+    precompute_cross_kv,
+)
+from whisper_tpu_torch.pipeline import resolve_device
+from whisper_tpu_torch.tokenizer import LANGUAGES, Tokenizer, build_prompt
+
+
+def _prefill_join(params, cfg: WhisperConfig, cache: dict, cross: dict,
+                  prompts: torch.Tensor, slots: torch.Tensor) -> None:
+    """Batched prefill for joining slots (:43): ONE decoder pass over the
+    full slot batch at positions [0, p_pad), into a scratch cache of p_pad
+    slots; then the joining rows' columns [0, p_pad) are copied into the
+    state's cache, in place. Live rows' cache is never written. Rows whose
+    own prompt is shorter than p_pad get junk K/V in columns [P_r, p_pad),
+    which is sound: the engine writes each column at pos == col before any
+    read reaches it.
+
+    prompts: (B, p_pad) EOT-padded, row b = slot b; slots: (n,) the
+    joining slots' indices on the device."""
+    B, p_pad = prompts.shape
+    scratch = init_kv_cache(cfg, B, cache["k"].dtype, p_pad, prompts.device)
+    decoder_hidden(params, cfg, prompts, 0, scratch, cross)
+    for name in ("k", "v"):
+        cache[name][:, :, :, :p_pad].index_copy_(
+            1, slots, scratch[name].index_select(1, slots))
+
+
+def _engine_step_impl(params, cfg: WhisperConfig, state: dict,
+                      opts: Optional[DecodeOptions] = None) -> dict:
+    """One lockstep token for every active slot (:72), in place.
+
+    state: dict with
+      tokens (B, total) int64  per-slot token buffer (prompt pre-written)
+      pos (B,) int64           tokens written so far (also cache length)
+      forced_len (B,) int64    prompt length (teacher-forced region)
+      cap (B,) int64           per-row stop position (prompt + 1 + max_new)
+      active (B,) bool         slot holds a live request
+      finished (B,) bool       slot hit EOT or its cap (awaiting harvest)
+      rows (B,) int64          0..B-1, kept for indexing
+      cache {k, v}             (L, B, H, n_text_ctx, D) self-attention cache
+      cross {k, v}             (L, B, H, n_audio_ctx, D) per-slot cross K/V
+
+    The same rule stack as greedy_decode runs on the logits when `opts` is
+    given, with per-row pos and prompt length."""
+    tokens, pos, rows = state["tokens"], state["pos"], state["rows"]
+    run = state["active"] & ~state["finished"]
+    # inactive rows still flow through the math (masked out below); clamp
+    # their positions for safe indexing
+    safe_pos = (pos - 1).clamp(0, cfg.n_text_ctx - 1)
+    last = tokens[rows, safe_pos][:, None]                    # (B, 1)
+
+    logits, _ = decoder_step_ragged(params, cfg, last, safe_pos,
+                                    state["cache"], state["cross"])
+    lg = logits[:, -1, :]
+    if opts is not None:
+        lg = apply_rules(lg, tokens, pos, state["forced_len"], cfg, opts)
+    nxt_model = lg.argmax(dim=-1)
+
+    in_prompt = pos < state["forced_len"]
+    at = pos.clamp(0, tokens.shape[1] - 1)
+    cur = tokens[rows, at]
+    nxt = torch.where(in_prompt, cur, nxt_model)
+
+    # write the generated token (the forced region already holds its own)
+    write = run & ~in_prompt
+    tokens[rows, at] = torch.where(write, nxt, cur)
+
+    hit_cap = pos + 1 >= state["cap"]
+    newly = run & ((write & (nxt == cfg.eot_token)) | hit_cap)
+    state["finished"] |= newly
+    pos.copy_(torch.where(run, pos + 1, pos))
+    return state
+
+
+class QueueFull(RuntimeError):
+    """Admission bound hit: the engine's wait queue is at max_queue.
+
+    Raised by submit() so callers get backpressure at enqueue time instead
+    of unbounded latency."""
+
+
+@dataclasses.dataclass
+class _Slot:
+    request_id: int
+    callback: Optional[Callable]
+    on_token: Optional[Callable] = None
+    emitted: int = 0                 # tokens already streamed
+    cancelled: bool = False          # harvest frees the slot silently
+
+
+class ContinuousBatcher:
+    """Slot-based continuous transcription engine (driven from one thread:
+    call submit() / run_until_idle(); results are delivered to callbacks
+    or collected from run_until_idle's return).
+
+    Runs on `device` ("cuda" by default; raises when CUDA is absent, as
+    pipeline.resolve_device does); device="cpu" runs the kernels' plain
+    versions. `params`: a params tree of CPU or device tensors, cast and
+    moved as WhisperPipeline does (weights.to_device)."""
+
+    # prompt-length buckets of the batched prefill (:387)
+    _P_BUCKETS = (8, 16, 32, 64, 128, 256, 448)
+
+    def __init__(self, params, cfg: WhisperConfig | str, max_slots: int = 8,
+                 max_new: Optional[int] = None,
+                 tokenizer: Optional[Tokenizer] = None,
+                 opts: Optional[DecodeOptions] = None,
+                 sync_every: int = 1,
+                 max_queue: Optional[int] = None,
+                 device="cuda"):
+        self.cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+        cfg = self.cfg
+        if opts is not None and opts.temperature > 0:
+            raise NotImplementedError(
+                "temperature sampling in the continuous engine is not ported "
+                "yet (ROADMAP Queue 1 item 9)")
+        self.device = resolve_device(device)
+        dtype = compute_dtype(cfg)
+        self.params = weights_lib.to_device(
+            params, self.device, None if dtype == torch.float32 else dtype)
+        self.tokenizer = tokenizer or Tokenizer(config=cfg)
+        self.B = int(max_slots)
+        self.opts = opts
+        # Admission policy: FIFO; nothing running is displaced. max_queue
+        # bounds the wait line (submit raises QueueFull beyond it).
+        self.max_queue = max_queue
+        # device steps per host sync: 1 harvests and streams at token
+        # granularity; K > 1 enqueues K steps before reading the state, at
+        # the cost of up to K-1 idle steps for rows that finish mid-window
+        self.sync_every = max(1, int(sync_every))
+        self._timestamps = bool(opts and opts.timestamps)
+        self.base_p = len(build_prompt(cfg, timestamps=self._timestamps))
+        self.max_new = max_new or cfg.max_new_tokens
+        # total sized for the worst prompt (base + up to max_prev tokens of
+        # <|startofprev|> conditioning), clamped to the context window
+        self.max_prev = cfg.n_text_ctx // 2 - self.base_p - 1
+        self.total = cfg.n_text_ctx
+        self.state = self._fresh_state()
+        self._slots: list[Optional[_Slot]] = [None] * self.B
+        # queue entries: (rid, audio, (language, task), callback, on_token,
+        #                 prev, t_submit)
+        self._queue: list[tuple] = []
+        self._next_id = 0
+        self._results: dict[int, list[int]] = {}
+        # queue-wait telemetry (seconds from submit to slot entry) over a
+        # bounded window of recent waits
+        self._waits: list[float] = []
+        self._max_wait_s = 0.0
+        self._served = 0
+        # fills by prefill bucket: {p_pad: count}
+        self.fill_buckets: collections.Counter = collections.Counter()
+
+    def _fresh_state(self) -> dict:
+        """A zeroed device state (see _engine_step_impl)."""
+        cfg = self.cfg
+        if cfg.kv_cache_quant or cfg.cross_kv_quant or cfg.self_kv_quant:
+            raise NotImplementedError(
+                "int8 caches in the continuous engine come with the int8 "
+                "serving slice (ROADMAP Queue 1 item 8)")
+        dev, B = self.device, self.B
+        dtype = compute_dtype(cfg)
+        cache = init_kv_cache(cfg, B, dtype, cfg.n_text_ctx, dev)
+        L, _, H, _, D = cache["k"].shape
+        cross_shape = (L, B, H, cfg.n_audio_ctx, D)
+
+        def full(value, dt):
+            return torch.full((B,), value, dtype=dt, device=dev)
+
+        return {
+            "tokens": torch.full((B, self.total), cfg.eot_token,
+                                 dtype=torch.long, device=dev),
+            "pos": full(0, torch.long),
+            "forced_len": full(0, torch.long),
+            "cap": full(self.total, torch.long),
+            "active": full(False, torch.bool),
+            "finished": full(False, torch.bool),
+            "rows": torch.arange(B, device=dev),
+            "cache": cache,
+            "cross": {"k": torch.zeros(cross_shape, dtype=dtype, device=dev),
+                      "v": torch.zeros(cross_shape, dtype=dtype, device=dev)},
+        }
+
+    def reset_state(self) -> None:
+        """Discard all device state and clear every slot."""
+        self.state = self._fresh_state()
+        self._slots = [None] * self.B
+
+    def warmup(self, buckets: Optional[tuple] = None) -> None:
+        """Drive one throwaway request per prompt bucket through the normal
+        fill -> step -> harvest path (:275), then reset all state and
+        telemetry. Default buckets: the smallest and the largest. On the
+        card this builds the kernels and settles cuBLAS's and the caching
+        allocator's first-call work before traffic."""
+        if buckets is None:
+            buckets = (self._P_BUCKETS[0], self._P_BUCKETS[-1])
+        base = len(build_prompt(self.cfg, "en", "transcribe",
+                                timestamps=self._timestamps))
+        audio = np.zeros((self.cfg.n_samples,), np.float32)
+        saved_max_new = self.max_new
+        self.max_new = 1                    # shapes don't depend on it
+        try:
+            for pb in sorted(set(buckets)):
+                prev_len = pb - base - 1    # +1 for <|startofprev|>
+                prev = ([self.cfg.eot_token] * prev_len
+                        if prev_len > 0 else None)
+                self.submit(audio, prev_tokens=prev, admitted=True)
+            self.run_until_idle()
+        finally:
+            self.max_new = saved_max_new
+            self.reset_state()
+            self._queue.clear()
+            self._results.clear()
+            self._waits.clear()
+            self._max_wait_s = 0.0
+            self._served = 0
+            self.fill_buckets.clear()
+
+    # ---- client API ----
+    def submit(self, audio: np.ndarray, language: str = "en",
+               task: str = "transcribe",
+               callback: Optional[Callable] = None,
+               on_token: Optional[Callable] = None,
+               prev_tokens: Optional[list] = None,
+               admitted: bool = False) -> int:
+        """Queue a request; returns its id (:314). Final tokens go to
+        callback(request_id, token_ids) and run_until_idle()'s dict;
+        on_token(request_id, token_id) streams each generated token as it
+        is committed. `prev_tokens` prepends <|startofprev|> conditioning
+        (one batched prefill at slot fill, whatever its length). Raises
+        QueueFull when max_queue is set and the wait line is at the bound,
+        except for `admitted` submits (follow-up windows of a file already
+        in service). language="auto" resolves at slot fill."""
+        if (not admitted and self.max_queue is not None
+                and len(self._queue) >= self.max_queue):
+            raise QueueFull(
+                f"engine queue is at max_queue={self.max_queue} "
+                f"({self.B} slots all busy); retry later")
+        rid = self._next_id
+        self._next_id += 1
+        prev = list(prev_tokens or [])
+        if len(prev) > self.max_prev:
+            prev = prev[-self.max_prev:]
+        self._queue.append((rid, np.asarray(audio, np.float32),
+                            (language, task), callback, on_token, prev,
+                            time.monotonic()))
+        return rid
+
+    def cancel(self, rid: int) -> str:
+        """Best-effort cancel (:352): "queued" (removed before touching the
+        device), "active" (its slot is marked finished: the row idles from
+        the next step and the harvest frees it without delivering results),
+        or "done" (already finished or unknown: no-op)."""
+        for i, req in enumerate(self._queue):
+            if req[0] == rid:
+                del self._queue[i]
+                return "queued"
+        for b, slot in enumerate(self._slots):
+            if slot is not None and slot.request_id == rid:
+                slot.cancelled = True
+                slot.callback = None
+                slot.on_token = None
+                self.state["finished"][b] = True
+                return "active"
+        return "done"
+
+    def queue_stats(self) -> dict:
+        """Admission telemetry: queue depth, served count, and queue wait
+        (submit -> slot entry) max and median in seconds."""
+        waits = self._waits
+        return {
+            "depth": len(self._queue),
+            "served": self._served,
+            "max_wait_s": self._max_wait_s,
+            "p50_wait_s": float(np.median(waits)) if waits else 0.0,
+        }
+
+    # ---- engine ----
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy goes
+        through pinned memory, so it does not wait for the queued steps."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    @torch.inference_mode()
+    def _fill_free_slots(self) -> None:
+        """Claim free slots for queued requests (:389). All joining
+        requests share ONE padded (B, ...) mel + encoder pass and one
+        batched prefill (_prefill_join); only the joining rows' state, cross
+        K/V and cache columns are written, by their slot indices."""
+        cfg = self.cfg
+        free = [b for b in range(self.B) if self._slots[b] is None]
+        if not free or not self._queue:
+            return
+        take = self._queue[:len(free)]
+        del self._queue[:len(take)]
+        now = time.monotonic()
+        for req in take:
+            w = now - req[6]
+            self._waits.append(w)
+            self._max_wait_s = max(self._max_wait_s, w)
+        if len(self._waits) > 1024:          # bounded telemetry window
+            del self._waits[:-1024]
+
+        n = len(take)
+        slots = free[:n]
+        audio = np.zeros((self.B, cfg.n_samples), np.float32)
+        for i, req in enumerate(take):
+            audio[i] = pad_or_trim(req[1], cfg.n_samples)
+        with full_fp32(compute_dtype(cfg) == torch.float32):
+            enc = encode(self.params, cfg,
+                         log_mel_spectrogram(self._to_device(audio), cfg))
+            lang_probs = None
+            if any(req[2][0] == "auto" for req in take):
+                lang_probs = detect_language(self.params, cfg, enc).cpu()
+            cross = precompute_cross_kv(self.params, cfg, enc)
+
+            prompts = []
+            rows_np = np.full((n, self.total), cfg.eot_token, np.int64)
+            pos_v = np.zeros((n,), np.int64)
+            cap_v = np.zeros((n,), np.int64)
+            for i, (rid, _, (language, task), cb, on_tok, prev,
+                    _t) in enumerate(take):
+                if language == "auto":
+                    language = LANGUAGES[int(lang_probs[i].argmax())]
+                prompt = build_prompt(cfg, language, task,
+                                      timestamps=self._timestamps,
+                                      prev_tokens=prev)
+                P = len(prompt)
+                prompts.append(prompt)
+                rows_np[i, :P] = prompt
+                # the prefill fills cache cols [0, P); the first engine step
+                # recomputes position P-1 and emits the first token
+                pos_v[i] = P
+                cap_v[i] = min(self.total, P + 1 + self.max_new)
+                self._slots[slots[i]] = _Slot(rid, cb, on_tok, emitted=P)
+
+            s = self.state
+            idx = self._to_device(np.asarray(slots, np.int64))
+            s["tokens"].index_copy_(0, idx, self._to_device(rows_np))
+            pos_t = self._to_device(pos_v)
+            s["pos"].index_copy_(0, idx, pos_t)
+            s["forced_len"].index_copy_(0, idx, pos_t)
+            s["cap"].index_copy_(0, idx, self._to_device(cap_v))
+            s["active"].index_fill_(0, idx, True)
+            s["finished"].index_fill_(0, idx, False)
+            for name in ("k", "v"):
+                s["cross"][name].index_copy_(
+                    1, idx, cross[name][:, :n].to(s["cross"][name].dtype))
+
+            # one batched prefill for every joining row
+            p_max = max(len(p) for p in prompts)
+            p_pad = next(pb for pb in self._P_BUCKETS
+                         if pb >= min(p_max, self._P_BUCKETS[-1]))
+            tok_pad = np.full((self.B, p_pad), cfg.eot_token, np.int64)
+            for b, p in zip(slots, prompts):
+                tok_pad[b, :min(len(p), p_pad)] = p[:p_pad]
+            _prefill_join(self.params, cfg, s["cache"], s["cross"],
+                          self._to_device(tok_pad), idx)
+        self.fill_buckets[p_pad] += 1
+
+    def _snapshot(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(finished, pos, tokens) on the host, in ONE device read."""
+        s = self.state
+        packed = torch.cat([s["finished"].long()[:, None], s["pos"][:, None],
+                            s["tokens"]], dim=1).cpu().numpy()
+        return packed[:, 0].astype(bool), packed[:, 1], packed[:, 2:]
+
+    def _stream(self, snap=None) -> None:
+        """Emit newly committed tokens to per-request on_token callbacks."""
+        if not any(s is not None and s.on_token for s in self._slots):
+            return
+        _, pos, tokens = snap if snap is not None else self._snapshot()
+        for b in range(self.B):
+            slot = self._slots[b]
+            if slot is None or slot.on_token is None:
+                continue
+            while slot.emitted < pos[b]:
+                slot.on_token(slot.request_id, int(tokens[b, slot.emitted]))
+                slot.emitted += 1
+
+    def _harvest(self, snap=None) -> None:
+        """Deliver finished requests and free their slots."""
+        finished, pos, tokens = snap if snap is not None else self._snapshot()
+        if not finished.any():
+            return
+        for b in range(self.B):
+            slot = self._slots[b]
+            if slot is None or not finished[b]:
+                continue
+            if not slot.cancelled:
+                ids = tokens[b, :pos[b]].tolist()
+                self._results[slot.request_id] = ids
+                if slot.callback:
+                    slot.callback(slot.request_id, ids)
+                self._served += 1
+            self._slots[b] = None
+        # every finished row was just freed, and no step ran since the
+        # snapshot: clear them on the device, without a host copy
+        s = self.state
+        s["active"] &= ~s["finished"]
+        s["finished"].zero_()
+
+    def step_device(self, k: int = 1) -> None:
+        """Fill slots and enqueue k lockstep tokens; no host read (the
+        fill reads language probabilities only for language="auto")."""
+        self._fill_free_slots()
+        with torch.inference_mode(), \
+                full_fp32(compute_dtype(self.cfg) == torch.float32):
+            for _ in range(k):
+                self.state = _engine_step_impl(self.params, self.cfg,
+                                               self.state, self.opts)
+
+    def sync(self) -> None:
+        """Read back the device state once: stream new tokens, harvest
+        finished requests."""
+        if all(s is None for s in self._slots):
+            return
+        snap = self._snapshot()
+        self._stream(snap)
+        self._harvest(snap)
+
+    def step(self) -> None:
+        """Fill slots, run one lockstep token, stream, harvest."""
+        self.step_device()
+        self.sync()
+
+    def run_until_idle(self, max_steps: int = 100_000) -> dict[int, list[int]]:
+        """Drive until queue and slots are empty; returns {request_id: ids}.
+
+        With sync_every=K > 1, K device steps are enqueued per host read;
+        token results are identical (finished rows idle until the next
+        harvest)."""
+        steps = 0
+        k = self.sync_every
+        while (self._queue or any(s is not None for s in self._slots)) \
+                and steps < max_steps:
+            for _ in range(min(k, max_steps - steps)):
+                self.step_device()
+                steps += 1
+            self.sync()
+        return dict(self._results)
+
+    def decode_text(self, rid: int) -> str:
+        return self.tokenizer.decode(self._results[rid])

@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from whisper_tpu.config import WhisperConfig
+from whisper_tpu_torch.config import WhisperConfig
 
 Params = Any    # nested dict of torch tensors
 
