@@ -11,7 +11,13 @@ runs the CLI once, and drives the continuous-batching engine
 (ContinuousBatcher: tiny with 32 slots and 96 requests, turbo with 8
 slots and 16 requests, bf16, two requests arriving before every second
 step; every step ends in one ragged append) and holds its tokens to a
-solo run and to greedy decoding.
+solo run and to greedy decoding. Then the int8 serving stack: the
+int8-cache decode kernel (decode_attention_q8_bh / decode_attention_q8)
+and the int8 append against their plain versions, tiny b32 bf16 and turbo
+b32 bf16 with the serving policy (quant="auto", turbo also with the int8
+self cache), each timed against quant="off" in the same process, and
+tiny b32 fp32 with an int8 cross cache, whose every cross read launches
+the int8 decode kernel and whose tokens equal the CPU's.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
@@ -63,6 +69,15 @@ RAGGED_SHAPES = {"tiny": (4, 32, 6, 448, 64), "turbo": (4, 8, 20, 448, 64)}
 ENGINE_REQUESTS, ENGINE_MAX_NEW = 96, 88               # tiny, 32 slots
 TURBO_ENGINE_REQUESTS, TURBO_ENGINE_MAX_NEW = 16, 24   # turbo, 8 slots
 ARRIVALS = 2          # engine requests arriving before every second step
+# the int8 decode kernel against its plain version: fp32 an online
+# against a two-pass softmax, summed in other orders; bf16 about one bf16
+# ulp of the output
+Q8_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
+# bf16 prefill logits of the serving path on the card against the port on
+# the CPU: bf16 rounding in other places (cuBLAS, the tail kernel against
+# its plain version) through 8 layers, at ~0.01 per logit of a tiny random
+# model; 0.1 leaves room over the largest of ~400k logits
+SERVING_LOGITS_ATOL = 0.1
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -257,11 +272,13 @@ def profile_path(model: str, cfg, card: str, run) -> None:
               "count": e.count})
 
 
-def main_path(pipe, kernels: dict, expect: dict, card: str):
+def main_path(pipe, kernels: dict, expect: dict, card: str,
+              label: str = "main_path"):
     """The bench workload through pipe.transcribe_batch: a warm-up, then
     one run with every kernel's launch count set to 0 just before it and
-    read just after it. Fails unless the counts equal `expect` and the
-    output is sane. Returns (run, audio, bias, launches)."""
+    read just after it, and the peak device memory from just before it.
+    Fails unless the counts equal `expect` and the output is sane. Returns
+    (run, audio, bias, the phase line)."""
     import torch
     cfg = pipe.cfg
     audio = bench_audio(cfg, BATCH)
@@ -275,6 +292,7 @@ def main_path(pipe, kernels: dict, expect: dict, card: str):
         return res
 
     run()                               # warm-up
+    torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -284,10 +302,13 @@ def main_path(pipe, kernels: dict, expect: dict, card: str):
     P = 4
     toks = res.tokens.cpu()
     gen = toks[:, P:]
-    emit({"phase": "main_path", "model": cfg.name, "dtype": "bfloat16",
-          "batch": BATCH, "gen_tokens": GEN_TOKENS, "wall_s": wall,
-          "audio_s_per_wall_s": BATCH * cfg.chunk_length_s / wall,
-          "launches": launches, "card": card})
+    line = {"phase": label, "model": cfg.name, "dtype": cfg.compute_dtype,
+            "quant": quant_flags(cfg), "batch": BATCH,
+            "gen_tokens": GEN_TOKENS, "wall_s": wall,
+            "audio_s_per_wall_s": BATCH * cfg.chunk_length_s / wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "card": card}
+    emit(line)
     for name, n in expect.items():
         require(launches[name] == n,
                 f"{cfg.name}: {name} launches {launches[name]} != {n}")
@@ -300,41 +321,71 @@ def main_path(pipe, kernels: dict, expect: dict, card: str):
             "non-finite sum_logprobs")
     nsp = res.no_speech_prob
     require(bool(((nsp >= 0) & (nsp <= 1)).all()), "no_speech_prob off [0,1]")
-    return run, audio, bias, launches
+    return run, audio, bias, line
+
+
+def quant_flags(cfg) -> list:
+    return [f for f in ("weight_quant", "cross_kv_quant", "self_kv_quant",
+                        "kv_cache_quant", "encoder_mlp_quant",
+                        "encoder_qkv_quant") if getattr(cfg, f)]
+
+
+def quant_ab(pipes: dict, audio, bias, card: str) -> None:
+    """The bench workload's wall under quant "off" and "auto" in one
+    process, in turns off, auto, auto, off (each pipeline warm)."""
+    import torch
+    walls = {name: [] for name in pipes}
+    for pipe in pipes.values():                 # warm-up
+        pipe.transcribe_batch(audio, max_new=GEN_TOKENS - 1, logit_bias=bias)
+    for name in ("off", "auto", "auto", "off"):
+        t0 = time.perf_counter()
+        pipes[name].transcribe_batch(audio, max_new=GEN_TOKENS - 1,
+                                     logit_bias=bias)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    cfg = pipes["auto"].cfg
+    emit({"phase": "quant_ab", "model": cfg.name, "dtype": cfg.compute_dtype,
+          "batch": BATCH, "gen_tokens": GEN_TOKENS,
+          "auto_quant": quant_flags(cfg), "off_walls_s": walls["off"],
+          "auto_walls_s": walls["auto"],
+          "auto_over_off": sum(walls["auto"]) / sum(walls["off"]),
+          "card": card})
 
 
 def main_path_stages(pipe, audio, bias, card: str) -> None:
-    """Where the main path's time goes (host clock, synchronised per
-    stage)."""
+    """Where the main path's time and memory go: per stage, the host clock
+    between two synchronisations and the peak device memory from its
+    start."""
     import torch
 
     from whisper_tpu_torch.audio import log_mel_spectrogram
     from whisper_tpu_torch.decode import _greedy_loop, _greedy_prefill, encode
     P, max_new = 4, GEN_TOKENS - 1
-    stages = {}
-    t = time.perf_counter()
-    wav = torch.from_numpy(audio).cuda()
-    mel = log_mel_spectrogram(wav, pipe.cfg)
-    torch.cuda.synchronize()
-    stages["mel_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    enc = encode(pipe.params, pipe.cfg, mel)
-    torch.cuda.synchronize()
-    stages["encoder_s"] = time.perf_counter() - t
-    t = time.perf_counter()
+    stages, peaks = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name + "_s"] = time.perf_counter() - t
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        return out
+
+    mel = stage("mel", lambda: log_mel_spectrogram(
+        torch.from_numpy(audio).cuda(), pipe.cfg))
+    enc = stage("encoder", lambda: encode(pipe.params, pipe.cfg, mel))
     with torch.inference_mode():
         prompt = pipe.prompt(BATCH)
-        pre = _greedy_prefill(pipe.params, pipe.cfg, enc, prompt,
-                              P + GEN_TOKENS)
-        torch.cuda.synchronize()
-        stages["prefill_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        _greedy_loop(pipe.params, pipe.cfg, *pre, prompt, bias, max_new)
-        torch.cuda.synchronize()
-    stages["loop_s"] = time.perf_counter() - t
+        pre = stage("prefill", lambda: _greedy_prefill(
+            pipe.params, pipe.cfg, enc, prompt, P + GEN_TOKENS))
+        stage("loop", lambda: _greedy_loop(pipe.params, pipe.cfg, *pre,
+                                           prompt, bias, max_new))
     stages["loop_ms_per_step"] = 1e3 * stages["loop_s"] / max_new
-    emit({"phase": "main_path_stages", "model": pipe.cfg.name, **stages,
-          "card": card})
+    emit({"phase": "main_path_stages", "model": pipe.cfg.name,
+          "dtype": pipe.cfg.compute_dtype, "quant": quant_flags(pipe.cfg),
+          **stages, "peak_gb": peaks, "card": card})
 
 
 def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
@@ -353,7 +404,7 @@ def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
         t0 = time.perf_counter()
         p32 = WhisperPipeline.from_params(params, model, dtype="float32",
                                           device=device,
-                                          vocab_path=vocab_path)
+                                          vocab_path=vocab_path, quant="off")
         wav = torch.from_numpy(clips).to(device)
         enc = encode(p32.params, p32.cfg, log_mel_spectrogram(wav, p32.cfg))
         prompt = p32.prompt(len(clips))
@@ -364,6 +415,7 @@ def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
                             max_new=max_new)
         runs[name] = (res.tokens.cpu(), logits.cpu(), enc.cpu(),
                       time.perf_counter() - t0)
+        runs["cfg"] = p32.cfg
         del p32, wav, enc, logits, res
         torch.cuda.empty_cache()
     same_tokens = bool(torch.equal(runs["gpu"][0], runs["cpu"][0]))
@@ -371,17 +423,19 @@ def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
     enc_err = float((runs["gpu"][2] - runs["cpu"][2]).abs().max())
     agree16 = float((bf16_tokens[:, P:] == runs["gpu"][0][:, P:]
                      ).float().mean())
-    out = {"model": model, "batch": len(clips), "max_new": max_new,
+    name = getattr(model, "name", model)
+    out = {"model": name, "quant": quant_flags(runs["cfg"]),
+           "batch": len(clips), "max_new": max_new,
            "tokens_identical": same_tokens, "tokens": runs["gpu"][0].tolist(),
            "prefill_logits_max_abs_err": logit_err,
            "encoder_max_abs_err": enc_err,
            "bf16_token_agreement_with_fp32": agree16,
            "gpu_s": runs["gpu"][3], "cpu_s": runs["cpu"][3]}
-    require(same_tokens, f"{model}: fp32 tokens differ between GPU and CPU")
+    require(same_tokens, f"{name}: fp32 tokens differ between GPU and CPU")
     # 1e-3: fp32 logits of order 10, GPU kernels against CPU torch summing
     # in other orders (TF32 would miss this by ~100x)
     require(logit_err < 1e-3,
-            f"{model}: fp32 prefill logits differ by {logit_err}")
+            f"{name}: fp32 prefill logits differ by {logit_err}")
     return out
 
 
@@ -645,6 +699,164 @@ def ragged_checks(card: str) -> dict:
     return out
 
 
+def q8_inputs(B: int, H: int, S: int, dtype, g):
+    """q (B, 1, H, 64) in dtype and int8 K/V with per-vector scales,
+    quantized on the card by the port's quantize_kv."""
+    import torch
+
+    from whisper_tpu_torch.models.whisper import quantize_kv
+    q = torch.randn((B, 1, H, 64), generator=g).to("cuda", dtype)
+    k8, ks = quantize_kv(torch.randn((B, H, S, 64), generator=g).cuda() * 2)
+    v8, vs = quantize_kv(torch.randn((B, H, S, 64), generator=g).cuda())
+    return q, k8, ks, v8, vs
+
+
+def q8_checks(card: str) -> dict:
+    """q8_vs_plain: both wrappers of the int8 decode kernel against the
+    plain version at tiny's and turbo's b32 cross shapes (all 1500 keys)
+    and at tiny's with kv_len 0, 1, 77 and 1499, fp32 and bf16; then
+    q8_time for each wrapper at both b32 shapes in fp32 (the main path's
+    dtype for this kernel). Returns the kernels-line numbers by wrapper
+    (tiny b32 fp32; max_abs_err over the fp32 cases)."""
+    import torch
+
+    from whisper_tpu_torch.ops.decode_attention import (
+        decode_attention_q8,
+        decode_attention_q8_bh,
+        decode_attention_q8_plain,
+    )
+    wrappers = {"decode_attention_q8_bh": decode_attention_q8_bh,
+                "decode_attention_q8": decode_attention_q8}
+    shapes = {"tiny": (BATCH, 6), "turbo": (BATCH, 20)}
+    cases = [("tiny", None), ("turbo", None), ("tiny", 0), ("tiny", 1),
+             ("tiny", 77), ("tiny", 1499)]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    err = {name: 0.0 for name in wrappers}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = Q8_TOL[str(dtype).split(".")[1]]
+        for model, kv_len in cases:
+            B, H = shapes[model]
+            args = q8_inputs(B, H, 1500, dtype, g)
+            want = decode_attention_q8_plain(*args, kv_len).float()
+            for name, fn in wrappers.items():
+                got = fn(*args, kv_len).float()
+                torch.cuda.synchronize()
+                e = (got - want).abs()
+                ok = bool((e <= atol + rtol * want.abs()).all())
+                if kv_len == 0:
+                    ok = ok and not bool(got.any())
+                if dtype == torch.float32:      # the main path's dtype
+                    err[name] = max(err[name], float(e.max()))
+                emit({"phase": "q8_vs_plain", "wrapper": name,
+                      "dtype": str(dtype), "shape": [B, 1, H, 64],
+                      "S": 1500, "kv_len": kv_len,
+                      "max_abs_err": float(e.max()), "atol": atol,
+                      "rtol": rtol, "ok": ok})
+                require(ok, f"{name} {dtype} {model} kv_len={kv_len} "
+                            f"disagrees with its plain version "
+                            f"(max abs err {float(e.max())})")
+            del args, want
+    out = {}
+    for model, (B, H) in shapes.items():
+        args = q8_inputs(B, H, 1500, torch.float32, g)
+        # int8 K and V and their fp32 scales read once, q read and the
+        # output written once; 4 FLOP per key and dim on the fp32 cores
+        moved = 2 * B * H * 1500 * (64 + 4) + 2 * args[0].numel() * 4
+        bnd = bound(moved, 4 * B * H * 1500 * 64, "float32")
+        for name, fn in wrappers.items():
+            ms, plain_ms = alternate_ms(
+                lambda: decode_attention_q8_plain(*args),
+                lambda: fn(*args), iters=50)
+            line = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                    **bnd, "library_ms": None}
+            emit({"phase": "q8_time", "wrapper": name, "model": model,
+                  "shape": [B, 1, H, 64], "S": 1500, "dtype": "float32",
+                  **line, "bound_share": bnd["bound_ms"] / ms, "card": card})
+            if model == "tiny":
+                out[name] = line
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def append_int8_checks(card: str) -> None:
+    """append_int8_vs_plain: the scalar append on int8 caches at the two
+    shapes the main path gives it, tiny b32 and turbo b32 (L, B, H, 128,
+    64), exact and in place at four positions each; then its time at
+    turbo's shape, the one the int8 self cache of serving_turbo runs."""
+    import torch
+
+    from whisper_tpu_torch.ops.cache_append import (
+        cache_append_rows,
+        cache_append_rows_plain,
+    )
+    g = torch.Generator(device="cpu").manual_seed(9)
+
+    def ints(s):
+        return torch.randint(-127, 128, s, generator=g,
+                             dtype=torch.int8).cuda()
+
+    for model, H in (("tiny", 6), ("turbo", 20)):
+        shape = (4, BATCH, H, 128, 64)
+        for pos in (0, 5, 63, 127):
+            ck, cv = ints(shape), ints(shape)
+            kn, vn = ints(shape[:3] + (64,)), ints(shape[:3] + (64,))
+            want_k, want_v = cache_append_rows_plain(ck.clone(), cv.clone(),
+                                                     kn, vn, pos)
+            ptrs = (ck.data_ptr(), cv.data_ptr())
+            got_k, got_v = cache_append_rows(ck, cv, kn, vn, pos)
+            torch.cuda.synchronize()
+            in_place = (got_k.data_ptr(), got_v.data_ptr()) == ptrs
+            exact = bool(torch.equal(got_k, want_k)
+                         and torch.equal(got_v, want_v))
+            emit({"phase": "append_int8_vs_plain", "model": model,
+                  "pos": pos, "shape": list(shape), "exact": exact,
+                  "in_place": in_place})
+            require(exact and in_place,
+                    f"cache_append_rows int8 {model} pos {pos}: "
+                    f"exact={exact} in_place={in_place}")
+    ms, plain_ms = alternate_ms(
+        lambda: cache_append_rows_plain(ck, cv, kn, vn, 63),
+        lambda: cache_append_rows(ck, cv, kn, vn, 63), iters=200)
+    emit({"phase": "append_time", "model": "turbo", "shape": list(shape),
+          "dtype": "int8", "ms": ms, "plain_ms": plain_ms,
+          **bound(2 * 2 * kn.numel(), 0, "bfloat16"), "card": card})
+
+
+def serving_logits_vs_cpu(params, model, clips, card: str,
+                          vocab_path=None) -> None:
+    """The serving path's prefill logits (quant="auto", bf16) on the card
+    against the port on the CPU, same params and clips."""
+    import torch
+
+    from whisper_tpu_torch.audio import log_mel_spectrogram
+    from whisper_tpu_torch.decode import _greedy_prefill, encode
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    logits = {}
+    for device in ("cuda", "cpu"):
+        pipe = WhisperPipeline.from_params(params, model, dtype="bfloat16",
+                                           device=device, quant="auto",
+                                           batch_hint=BATCH,
+                                           vocab_path=vocab_path)
+        wav = torch.from_numpy(clips).to(device)
+        enc = encode(pipe.params, pipe.cfg, log_mel_spectrogram(wav, pipe.cfg))
+        with torch.inference_mode():
+            pre = _greedy_prefill(pipe.params, pipe.cfg, enc,
+                                  pipe.prompt(len(clips)), 4 + 1 + 12)
+        logits[device] = pre[3].float().cpu()
+        del pipe, wav, enc, pre
+    torch.cuda.empty_cache()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    agree = float((logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)
+                   ).float().mean())
+    emit({"phase": "serving_logits_vs_cpu", "model": model,
+          "batch": len(clips), "max_abs_err": err,
+          "atol": SERVING_LOGITS_ATOL, "argmax_agreement": agree,
+          "card": card})
+    require(err <= SERVING_LOGITS_ATOL,
+            f"{model} serving prefill logits differ by {err} on the card")
+
+
 def flash_per_fill(cfg, slots: int, p_pad: int) -> int:
     """Flash launches of one batched prefill of p_pad positions over the
     slot batch, as multi_head_attention's gate routes them: per decoder
@@ -825,7 +1037,8 @@ def continuous_identity(params, card: str) -> None:
         del solo, crowd
 
     cfg = get_config("tiny").replace(compute_dtype="float32")
-    pipe = WhisperPipeline.from_params(params, cfg, device="cuda")
+    pipe = WhisperPipeline.from_params(params, cfg, device="cuda",
+                                       quant="off")
     for name, opts in (("no_rules", None),
                        ("suppress", DecodeOptions(suppress_blank=True,
                                                   suppress_tokens=(100, 200)))):
@@ -955,6 +1168,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from whisper_tpu_torch import cli, get_config, weights
+    from whisper_tpu_torch.config import apply_serving_quant
     from whisper_tpu_torch.ops import _build
     from whisper_tpu_torch.ops.cache_append import (
         cache_append_rows,
@@ -964,6 +1178,10 @@ def main() -> int:
     from whisper_tpu_torch.ops.encoder_layer import (
         encoder_block_tail,
         encoder_block_tail_plain,
+    )
+    from whisper_tpu_torch.ops.decode_attention import (
+        decode_attention_q8,
+        decode_attention_q8_bh,
     )
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -976,7 +1194,10 @@ def main() -> int:
     kernels = {"encoder_block_tail": encoder_block_tail,
                "cache_append_rows": cache_append_rows,
                "flash_attention": flash_attention,
-               "cache_append_rows_ragged": cache_append_rows_ragged}
+               "cache_append_rows_ragged": cache_append_rows_ragged,
+               "decode_attention_q8_bh": decode_attention_q8_bh,
+               "decode_attention_q8": decode_attention_q8}
+    no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0}
 
     # 1. card
     card = card_line()
@@ -1077,23 +1298,46 @@ def main() -> int:
 
     ragged = ragged_checks(card)
     flash = flash_checks(card)
+    q8 = q8_checks(card)
+    append_int8_checks(card)
 
     # 4. tiny main path: the bench workload through the pipeline
     params = weights.init_params(cfg, seed=0)
     pipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
-                                       device="cuda")
-    run, audio, bias, tiny_launches = main_path(
+                                       device="cuda", quant="off")
+    run, audio, bias, line = main_path(
         pipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
                         "cache_append_rows": GEN_TOKENS - 1,
                         "flash_attention": 0,
-                        "cache_append_rows_ragged": 0}, card)
+                        "cache_append_rows_ragged": 0, **no_q8}, card)
+    tiny_launches = line["launches"]
     main_path_stages(pipe, audio, bias, card)
     if opts.profile:
         profile_kernels(cfg, card, append_args)
         profile_path("tiny", cfg, card, run)
     bundled_vocab = pipe.tokenizer.tokens
-    del pipe, run, append_args
+    del run, append_args
+
+    # 4a. tiny b32 bf16 with the serving policy: weight-only int8 and the
+    # int8 cross cache, read scale-commuted (no int8 decode kernel in bf16)
+    spipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
+                                        device="cuda", quant="auto",
+                                        batch_hint=BATCH)
+    require(quant_flags(spipe.cfg) == ["weight_quant", "cross_kv_quant"],
+            f"tiny b32 bf16 auto quant: {quant_flags(spipe.cfg)}")
+    srun, _, _, _ = main_path(
+        spipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
+                         "cache_append_rows": GEN_TOKENS - 1,
+                         "flash_attention": 0,
+                         "cache_append_rows_ragged": 0, **no_q8}, card,
+        label="serving_tiny")
+    main_path_stages(spipe, audio, bias, card)
+    quant_ab({"off": pipe, "auto": spipe}, audio, bias, card)
+    if opts.profile:
+        profile_path("tiny_serving", cfg, card, srun)
+    del pipe, spipe, srun
     torch.cuda.empty_cache()
+    serving_logits_vs_cpu(params, "tiny", bench_audio(cfg, 2), card)
 
     # 4b. tiny continuous engine: 96 requests through 32 slots
     engine = ContinuousBatcher(params, cfg.replace(compute_dtype="bfloat16"),
@@ -1115,11 +1359,32 @@ def main() -> int:
     # 5. tiny fp32 parity: the card against the CPU's plain versions
     clips = bench_audio(cfg, 2)
     p16 = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
-                                      device="cuda")
+                                      device="cuda", quant="off")
     tok16 = p16.transcribe_batch(clips, max_new=12).tokens.cpu()
     del p16
     parity = fp32_parity("tiny", params, clips, 12, tok16)
     emit({"phase": "fp32_parity", **parity})
+
+    # 5b. tiny b32 fp32 with the int8 cross cache: every layer's cross
+    # read at every step is one int8 decode kernel launch; then 2 clips x
+    # 12 tokens against the port on the CPU
+    qcfg = cfg.replace(cross_kv_quant=True)
+    qpipe = WhisperPipeline.from_params(params, qcfg, dtype="float32",
+                                        device="cuda", quant="off")
+    _, _, _, line = main_path(
+        qpipe, kernels, {"decode_attention_q8_bh":
+                         cfg.n_text_layers * (GEN_TOKENS - 1),
+                         "decode_attention_q8": 0,
+                         "cache_append_rows": GEN_TOKENS - 1,
+                         "encoder_block_tail": cfg.n_audio_layers,
+                         "flash_attention": 0,
+                         "cache_append_rows_ragged": 0}, card,
+        label="q8_fp32_main_path")
+    q8_launches = line["launches"]
+    del qpipe
+    torch.cuda.empty_cache()
+    parity = fp32_parity(qcfg, params, clips, 12, tok16)
+    emit({"phase": "q8_fp32_parity", **parity})
 
     # 6. the CLI, in process
     with tempfile.TemporaryDirectory() as tmp:
@@ -1132,8 +1397,12 @@ def main() -> int:
             w.writeframes(x.tobytes())
         rc = cli.main(["--random-weights", "--audio", path, "--max-new", "8",
                        "--device", "cuda"])
-    emit({"phase": "cli", "rc": rc})
-    require(rc == 0, f"cli returned {rc}")
+        rc_q = cli.main(["--random-weights", "--audio", path, "--max-new",
+                         "8", "--device", "cuda", "--dtype", "bfloat16",
+                         "--weight-quant", "--cross-kv-quant",
+                         "--self-kv-quant"])
+    emit({"phase": "cli", "rc": rc, "rc_quant_flags": rc_q})
+    require(rc == 0 and rc_q == 0, f"cli returned {rc}, {rc_q}")
     del params
     torch.cuda.empty_cache()
 
@@ -1148,14 +1417,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vocab = write_v3_vocab(bundled_vocab, tmp)
         pipe = WhisperPipeline.from_params(tparams, TURBO, dtype="bfloat16",
-                                           device="cuda", vocab_path=vocab)
+                                           device="cuda", vocab_path=vocab,
+                                           quant="off")
         require(pipe.tokenizer.vocab_size == tcfg.vocab_size,
                 "turbo vocab table size")
-        run, audio, bias, turbo_launches = main_path(
+        run, audio, bias, line = main_path(
             pipe, kernels, {"flash_attention": tcfg.n_audio_layers,
                             "encoder_block_tail": 0,
                             "cache_append_rows": GEN_TOKENS - 1,
-                            "cache_append_rows_ragged": 0}, card)
+                            "cache_append_rows_ragged": 0, **no_q8}, card)
+        turbo_launches, turbo_peak = line["launches"], line["peak_mem_gb"]
         main_path_stages(pipe, audio, bias, card)
         if opts.profile:
             profile_path(TURBO, tcfg, card, run)
@@ -1168,9 +1439,11 @@ def main() -> int:
         engine = ContinuousBatcher(pipe.params, pipe.cfg, max_slots=8,
                                    max_new=TURBO_ENGINE_MAX_NEW,
                                    tokenizer=pipe.tokenizer)
-        line, _ = continuous_run(
+        # the rerun closure holds the engine (its params and state):
+        # dropped at once, so that later peaks do not count them
+        line = continuous_run(
             engine, engine_traffic(tcfg, TURBO_ENGINE_REQUESTS, seed=1),
-            kernels, "continuous_turbo", card)
+            kernels, "continuous_turbo", card)[0]
         check_engine_launches(line, engine, tcfg, tcfg.n_audio_layers)
         require(line["launches"]["flash_attention"]
                 >= tcfg.n_audio_layers * line["fills"],
@@ -1182,6 +1455,44 @@ def main() -> int:
         # 8. turbo fp32 parity, full depth on both sides
         parity = fp32_parity(TURBO, tparams, clip, 8, tok16, vocab)
         emit({"phase": "turbo_fp32_parity", **parity})
+
+        # 8b. turbo b32 bf16 with the serving policy (weight-only int8, the
+        # int8 cross cache; the encoder's int8 flags are no-ops with the
+        # tail off) plus the int8 self cache, at full width and depth
+        scfg = apply_serving_quant(
+            tcfg.replace(compute_dtype="bfloat16"), batch=BATCH
+        ).replace(self_kv_quant=True)
+        spipe = WhisperPipeline.from_params(tparams, scfg, dtype="bfloat16",
+                                            device="cuda", vocab_path=vocab,
+                                            quant="off")
+        require(quant_flags(spipe.cfg) == [
+            "weight_quant", "cross_kv_quant", "self_kv_quant",
+            "encoder_mlp_quant", "encoder_qkv_quant"],
+            f"turbo serving quant: {quant_flags(spipe.cfg)}")
+        srun, audio, bias, line = main_path(
+            spipe, kernels, {"flash_attention": tcfg.n_audio_layers,
+                             "encoder_block_tail": 0,
+                             "cache_append_rows": GEN_TOKENS - 1,
+                             "cache_append_rows_ragged": 0, **no_q8}, card,
+            label="serving_turbo")
+        L, H, S, D = (tcfg.n_text_layers, tcfg.n_heads, tcfg.n_audio_ctx,
+                      tcfg.head_dim)
+        emit({"phase": "turbo_memory", "peak_mem_gb_off": turbo_peak,
+              "peak_mem_gb_serving": line["peak_mem_gb"],
+              "cross_kv_gb_bf16": 2 * L * BATCH * H * S * D * 2 / 1e9,
+              "cross_kv_gb_int8": 2 * L * BATCH * H * S * (D + 4) / 1e9,
+              "card": card})
+        main_path_stages(spipe, audio, bias, card)
+        if opts.profile:
+            profile_path("large-v3-turbo_serving", tcfg, card, srun)
+        del srun
+        opipe = WhisperPipeline.from_params(tparams, TURBO, dtype="bfloat16",
+                                            device="cuda", vocab_path=vocab,
+                                            quant="off")
+        quant_ab({"off": opipe, "auto": spipe}, audio, bias, card)
+        del spipe, opipe, audio, bias
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # 9. results
     emit({"kernels": [
@@ -1212,6 +1523,18 @@ def main() -> int:
          "max_abs_err": ragged["max_abs_err"], "ms": ragged["ms"],
          "plain_ms": ragged["plain_ms"], "bound_ms": ragged["bound_ms"],
          "bound_by": ragged["bound_by"], "library_ms": ragged["library_ms"]},
+        {"name": "decode_attention_q8_bh", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "whisper_tpu/ops/decode_attention.py:464",
+         "launches": q8_launches["decode_attention_q8_bh"],
+         **q8["decode_attention_q8_bh"]},
+        # the JAX package calls decode_attention_q8 from no path (tests
+        # only): its launches on the main path are 0
+        {"name": "decode_attention_q8", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "whisper_tpu/ops/decode_attention.py:525",
+         "launches": q8_launches["decode_attention_q8"],
+         **q8["decode_attention_q8"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

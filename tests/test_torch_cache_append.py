@@ -50,6 +50,34 @@ def test_append_matches_jax_kernel_in_place(pos, dtype):
                                   np.asarray(jv.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("pos", [0, 7, 31])
+def test_append_int8_matches_jax_kernel_in_place(pos):
+    """int8 caches (the self_kv_quant step's quantized rows): exact against
+    the JAX kernel in interpret mode, in place."""
+    rng = np.random.RandomState(pos)
+    L, B, H, S, D = 2, 2, 3, 32, 64
+    arrs = [rng.randint(-127, 128, shape).astype(np.int8)
+            for shape in ((L, B, H, S, D), (L, B, H, S, D), (L, B, H, D),
+                          (L, B, H, D))]
+    jk, jv = jax_append(*(jnp.asarray(a) for a in arrs), pos, interpret=True)
+    tk, tv, tkn, tvn = (torch.from_numpy(a) for a in arrs)
+    ptr_k, ptr_v = tk.data_ptr(), tv.data_ptr()
+    before = cache_append_rows.launches
+    ok, ov = cache_append_rows(tk, tv, tkn, tvn, pos)
+    assert cache_append_rows.launches == before
+    assert ok.dtype == torch.int8
+    assert ok.data_ptr() == ptr_k and ov.data_ptr() == ptr_v
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(jv))
+
+
+def test_append_refuses_mixed_int8_rows():
+    """int8 caches take int8 rows only: the step quantizes them first."""
+    ck, cv, kn, vn = (torch.from_numpy(a) for a in _mk(8))
+    with pytest.raises(TypeError, match="int8"):
+        cache_append_rows(ck.to(torch.int8), cv.to(torch.int8), kn, vn, 0)
+
+
 def test_append_touches_only_row_pos():
     ck, cv, kn, vn = (torch.from_numpy(a) for a in _mk(9))
     k0, v0 = ck.clone(), cv.clone()

@@ -16,6 +16,11 @@ from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows_ragged,
     cache_append_rows_ragged_plain,
 )
+from whisper_tpu_torch.ops.decode_attention import (
+    decode_attention_q8,
+    decode_attention_q8_bh,
+    decode_attention_q8_plain,
+)
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     encoder_block_tail_plain,
@@ -313,3 +318,128 @@ def test_long_cache_decode_raises_on_cuda(dev):
     k = torch.zeros((1, 2, 4096, 64), device=dev)
     with pytest.raises(NotImplementedError, match="decode_attention_bh"):
         multi_head_attention(q, k, k, 10)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention_q8(_bh): int8 K/V with per-vector scales, and the int8
+# scalar append
+# ---------------------------------------------------------------------------
+
+def _q8_args(B, H, S, dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def quant(x):
+        s = (x.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-10)
+        return torch.round(x / s).clamp(-127, 127).to(torch.int8), s
+
+    q = torch.randn((B, 1, H, 64), generator=g).to(dev, dtype)
+    k8, ks = quant(torch.randn((B, H, S, 64), generator=g) * 2)
+    v8, vs = quant(torch.randn((B, H, S, 64), generator=g))
+    return [q] + [t.to(dev) for t in (k8, ks, v8, vs)]
+
+
+# fp32 2e-5 / 1e-5: online against two-pass softmax, fp32 sums in other
+# orders; bf16 2e-3 / 1e-2: about one bf16 ulp of the output.
+_Q8_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-3, 1e-2)}
+
+
+@pytest.mark.parametrize("which", ["bh", "per_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,kv_len", [
+    (32, 6, 1500, None),        # tiny b32's cross read
+    (32, 20, 1500, None),       # turbo b32's
+    (2, 3, 200, 0), (2, 3, 200, 1), (2, 3, 200, 77), (2, 3, 200, 199),
+    (1, 2, 4096, 3000),         # the >= 4096-slot gate's read
+])
+def test_decode_q8_kernel_matches_plain(dev, which, dtype, B, H, S, kv_len):
+    fn = decode_attention_q8_bh if which == "bh" else decode_attention_q8
+    args = _q8_args(B, H, S, dtype, dev)
+    before = fn.launches
+    got = fn(*args, kv_len)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = decode_attention_q8_plain(*args, kv_len)
+    assert got.dtype == dtype and got.shape == want.shape
+    atol, rtol = _Q8_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if kv_len == 0:
+        assert not got.any()
+
+
+def test_decode_q8_kernel_never_reads_past_kv_len(dev):
+    args = _q8_args(2, 3, 300, torch.float32, dev, seed=1)
+    clean = decode_attention_q8_bh(*args, 130)
+    for t in (args[2], args[4]):               # the scales past kv_len
+        t[:, :, 130:] = float("nan")
+    got = decode_attention_q8_bh(*args, 130)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
+def test_decode_q8_kernel_refuses_what_it_does_not_take(dev):
+    q, k8, ks, v8, vs = _q8_args(1, 2, 16, torch.float32, dev)
+    with pytest.raises(TypeError, match="int8"):
+        decode_attention_q8_bh(q, k8.float(), ks, v8, vs)
+    with pytest.raises(TypeError, match="query"):
+        decode_attention_q8_bh(q.half(), k8, ks, v8, vs)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention_q8_bh(q[..., :32], k8[..., :32].contiguous(), ks,
+                               v8[..., :32].contiguous(), vs)
+    with pytest.raises(ValueError, match="not contiguous"):
+        decode_attention_q8(q, k8.transpose(1, 2).contiguous().transpose(1, 2),
+                            ks, v8, vs)
+
+
+@pytest.mark.parametrize("heads", [6, 20])     # tiny, turbo at b32
+@pytest.mark.parametrize("pos", [0, 1, 63, 127])
+def test_cache_append_int8_kernel_matches_plain(dev, pos, heads):
+    g = torch.Generator(device="cpu").manual_seed(pos)
+    shape = (4, 32, heads, 128, 64)
+    ck, cv = (torch.randint(-127, 128, shape, generator=g, dtype=torch.int8
+                            ).to(dev) for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, shape[:3] + (64,), generator=g,
+                            dtype=torch.int8).to(dev) for _ in range(2))
+    want_k, want_v = cache_append_rows_plain(ck.clone(), cv.clone(), kn, vn,
+                                             pos)
+    ptr_k = ck.data_ptr()
+    before = cache_append_rows.launches
+    ok, ov = cache_append_rows(ck, cv, kn, vn, pos)
+    torch.cuda.synchronize()
+    assert cache_append_rows.launches == before + 1
+    assert ok.data_ptr() == ptr_k
+    assert torch.equal(ok, want_k) and torch.equal(ov, want_v)
+
+
+@pytest.mark.parametrize("flags", [{"cross_kv_quant": True},
+                                   {"kv_cache_quant": True}])
+def test_int8_greedy_on_the_card_matches_the_cpu(dev, flags):
+    """Greedy fp32 at a head_dim-64 nano width with int8 caches: the
+    card's tokens equal the CPU's plain path. With an int8 cross cache
+    every layer's cross read at every step is one decode_attention_q8_bh
+    launch; under kv_cache_quant the reads dequantize (1500 < 4096)."""
+    import numpy as np
+
+    from whisper_tpu_torch import get_config, weights
+    from whisper_tpu_torch.decode import greedy_decode
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = get_config("tiny").replace(name="cuda-q8-nano", d_model=128,
+                                     n_heads=2, n_audio_layers=2,
+                                     n_text_layers=2, **flags)
+    params = weights.init_params(cfg, seed=4)
+    enc = torch.from_numpy(np.random.RandomState(0).randn(
+        2, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+    prompt = torch.tensor([build_prompt(cfg)] * 2)
+    bias = torch.zeros(cfg.vocab_size)
+    bias[cfg.eot_token] = -1e9              # EOT banned: all 10 steps run
+    toks = {}
+    for device in ("cpu", "cuda"):
+        p = weights.to_device(params, device)
+        before = decode_attention_q8_bh.launches
+        res = greedy_decode(p, cfg, enc.to(device), prompt.to(device),
+                            max_new=10, logit_bias=bias.to(device))
+        toks[device] = res.tokens.cpu()
+        if device == "cuda":
+            want = (cfg.n_text_layers * 10 if cfg.cross_kv_quant else 0)
+            assert decode_attention_q8_bh.launches - before == want
+    assert torch.equal(toks["cuda"], toks["cpu"])

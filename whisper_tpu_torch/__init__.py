@@ -7,7 +7,9 @@ its counterpart's name, public function names and tensor layouts (q is
 weights are stored (in, out)), so a reader can put the two side by side.
 
 Covered so far, for every model of the family (tiny to large-v3-turbo),
-unquantized, in fp32 (token-parity mode) and bf16:
+in fp32 (token-parity mode) and bf16, greedy decoding also with the int8
+serving stack (weight-only int8, int8 cross/self/full KV caches, the
+serving policy):
   - config.py        <- whisper_tpu/config.py (WhisperConfig, CONFIGS)
   - tokenizer.py     <- whisper_tpu/tokenizer.py, with its own copy of the
                         bundled table (assets/vocab.txt)
@@ -17,9 +19,10 @@ unquantized, in fp32 (token-parity mode) and bf16:
   - models/whisper.py<- whisper_tpu/models/whisper.py (encoder with the
                         fused tail or the tail-off branch, prefill, the
                         in-place T==1 decode step, the ragged step)
-  - ops/             <- whisper_tpu/ops: the four Pallas kernels on these
+  - ops/             <- whisper_tpu/ops: the Pallas kernels on these
                         paths (encoder_block_tail, flash_attention,
-                        cache_append_rows, cache_append_rows_ragged) as
+                        cache_append_rows, cache_append_rows_ragged,
+                        decode_attention_q8_bh / decode_attention_q8) as
                         hand-written CUDA C++ kernels for sm_90a, each with
                         a plain PyTorch twin, and the attention size
                         dispatch

@@ -8,9 +8,12 @@ Usage:
     python -m whisper_tpu_torch.cli --model large-v3-turbo --random-weights \
         --vocab vocab_v3.txt --audio clip.wav --dtype bfloat16
 
-One <= 30 s window, greedy, unquantized. The device defaults to cuda and
-the command fails when CUDA is absent; --device cpu runs the plain CPU
-versions of the kernels.
+One <= 30 s window, greedy. The quant flags set the JAX CLI's int8
+options one by one (--weight-quant and --self-kv-quant are bf16 serving
+mode only; fp32 ignores --self-kv-quant and refuses --weight-quant);
+the JAX serving policy is not applied (the port's quant default is off,
+see pipeline.py). The device defaults to cuda and the command fails when
+CUDA is absent; --device cpu runs the plain CPU versions of the kernels.
 """
 
 from __future__ import annotations
@@ -36,6 +39,15 @@ def main(argv=None) -> int:
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="float32 = token-parity mode, bfloat16 = serving mode")
+    p.add_argument("--kv-quant", action="store_true",
+                   help="int8 self and cross caches (kv_cache_quant)")
+    p.add_argument("--cross-kv-quant", action="store_true",
+                   help="int8 cross cache (cross_kv_quant)")
+    p.add_argument("--self-kv-quant", action="store_true",
+                   help="int8 self cache, bf16 mode only (self_kv_quant)")
+    p.add_argument("--weight-quant", action="store_true",
+                   help="weight-only int8 decoder weights, bf16 mode only "
+                        "(weight_quant)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
@@ -52,7 +64,9 @@ def main(argv=None) -> int:
         resolve_device(args.device)
     except RuntimeError as e:
         p.error(str(e))
-    cfg = get_config(args.model)
+    cfg = get_config(args.model).replace(
+        kv_cache_quant=args.kv_quant, cross_kv_quant=args.cross_kv_quant,
+        self_kv_quant=args.self_kv_quant, weight_quant=args.weight_quant)
     wav = load_wav(args.audio, cfg.sample_rate)
     if len(wav) > cfg.n_samples:
         p.error(f"--audio is {len(wav) / cfg.sample_rate:.1f} s; this port "

@@ -7,15 +7,20 @@ same model (tests/test_torch_config_tokenizer.py holds the two equal).
 The port reads a config only through its attributes, so a
 whisper_tpu.config.WhisperConfig handed to it works the same.
 
-The int8 and fused-step fields are carried so that the dataclasses stay
-field-for-field equal; the port does not run those paths yet and raises
-where one is asked for. apply_serving_quant (:244) comes with the int8
-serving slice.
+The int8 fields drive the port's int8 serving stack (weight_quant,
+kv_cache_quant, cross_kv_quant, self_kv_quant); encoder_quant, and the
+two encoder flags where the fused tail runs, raise NotImplementedError
+(models/whisper.py encoder_forward). fused_step is carried so that the
+dataclasses stay field-for-field equal. `apply_serving_quant` is the JAX
+package's serving policy (:244), answer for answer: every gate in it was
+set by TPU measurements, so the port's pipeline applies it only when
+asked (`quant="auto"`; the default is "off").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 
@@ -185,3 +190,35 @@ def get_config(name: str) -> WhisperConfig:
         raise ValueError(
             f"unknown model {name!r}; have {sorted(CONFIGS)} "
             f"(+ aliases {sorted(ALIASES)})") from None
+
+
+def apply_serving_quant(cfg: WhisperConfig,
+                        batch: Optional[int] = None) -> WhisperConfig:
+    """The JAX package's serving quantization policy (whisper_tpu/config.py
+    :244-311), rule for rule:
+      * WHISPER_TPU_AUTO_QUANT other than "1" turns the policy off;
+      * fp32 (token-parity) mode passes through;
+      * a config with any quant flag set explicitly passes through;
+      * tiny width (d_model <= 384) at <= 8 effective decode rows (`batch`,
+        when known: batch x beam width) keeps quant off;
+      * otherwise weight-only int8, int8 cross K/V except at d_model 768,
+        the encoder's int8 MLP from d_model 768 and its int8 QKV from 1024,
+        and the int8 self cache for d_model >= 1024 with more than four
+        decoder layers.
+    Its gates were measured on a TPU v5e; the port's own policy awaits the
+    H100's A/Bs (PERF.md)."""
+    if os.environ.get("WHISPER_TPU_AUTO_QUANT", "1") != "1":
+        return cfg
+    if str(cfg.compute_dtype).removeprefix("torch.") == "float32":
+        return cfg
+    if (cfg.weight_quant or cfg.cross_kv_quant or cfg.kv_cache_quant
+            or cfg.self_kv_quant
+            or cfg.encoder_mlp_quant or cfg.encoder_qkv_quant):
+        return cfg
+    if batch is not None and batch <= 8 and cfg.d_model <= 384:
+        return cfg
+    return cfg.replace(weight_quant=True, cross_kv_quant=cfg.d_model != 768,
+                       encoder_mlp_quant=cfg.d_model >= 768,
+                       encoder_qkv_quant=cfg.d_model >= 1024,
+                       self_kv_quant=(cfg.d_model >= 1024
+                                      and cfg.n_text_layers > 4))

@@ -3,9 +3,12 @@
 //
 // wt_cache_append replaces the Pallas TPU kernel
 // whisper_tpu/ops/cache_append.py:62 cache_append_rows (kernel body
-// _append_kernel, :44), for fp32 and bf16 caches: write every layer's new
-// K and V row, (L, B, H, D), at row `pos` of the (L, B, H, S, D) caches,
-// touching nothing else.
+// _append_kernel, :44), for fp32, bf16 and int8 caches: write every
+// layer's new K and V row, (L, B, H, D), at row `pos` of the
+// (L, B, H, S, D) caches, touching nothing else. The int8 rows of an int8
+// self cache (self_kv_quant) arrive quantized, and their scale rows are
+// written beside the launch, as the JAX step does
+// (models/whisper.py:1328-1351).
 //
 // wt_cache_append_ragged replaces :133 cache_append_rows_ragged (body
 // _append_ragged_kernel, :117), the continuous-batching engine's append:
@@ -108,20 +111,28 @@ cudaError_t launch_append(void* ck, void* cv, const void* kn, const void* vn,
 
 // Returns cudaGetLastError() after the launch (0 on success). cache_k,
 // cache_v: (rows, S, D); k_new, v_new: (rows, D); rows = L*B*H; all
-// contiguous in one element type.
+// contiguous in one element type: elem 0 fp32, 1 bf16, 2 int8.
 extern "C" int wt_cache_append(void* cache_k, void* cache_v,
                                const void* k_new, const void* v_new,
                                long long rows, int s_len, int d, int pos,
-                               int is_bf16, void* stream) {
+                               int elem, void* stream) {
   if (rows < 1 || d < 1 || pos < 0 || pos >= s_len ||
       (rows + APPEND_ROWS - 1) / APPEND_ROWS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_append<__nv_bfloat16>(cache_k, cache_v, k_new,
-                                                      v_new, rows, s_len, d,
-                                                      pos, s)
-                       : launch_append<float>(cache_k, cache_v, k_new, v_new,
-                                              rows, s_len, d, pos, s));
+  switch (elem) {
+    case 0:
+      return (int)launch_append<float>(cache_k, cache_v, k_new, v_new, rows,
+                                       s_len, d, pos, s);
+    case 1:
+      return (int)launch_append<__nv_bfloat16>(cache_k, cache_v, k_new,
+                                               v_new, rows, s_len, d, pos, s);
+    case 2:
+      return (int)launch_append<int8_t>(cache_k, cache_v, k_new, v_new, rows,
+                                        s_len, d, pos, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Returns cudaGetLastError() after the launch (0 on success). cache_k,

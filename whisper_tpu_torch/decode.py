@@ -3,9 +3,11 @@
 detect_language).
 
 The JAX package runs the loop on the device inside one jitted
-while_loop. The port drives a Python loop of T==1 steps (decoder_step_ip)
-whose tensors never leave the card; the host reads one boolean every
-POLL_EVERY steps to stop early once every row has emitted EOT. Results
+while_loop. The port drives a Python loop of T==1 steps whose tensors
+never leave the card: decoder_step_ip, or under kv_cache_quant a T==1
+decoder_forward, as the JAX step choice has it (:266-284). The host
+reads one boolean every POLL_EVERY steps to stop early once every row
+has emitted EOT. Results
 equal the step-wise loop's: finished rows keep re-emitting EOT (the
 buffer's padding) and their sum_logprobs stays frozen
 (whisper_tpu/decode.py:297-316), so the steps after the last finish
@@ -101,7 +103,9 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
                  prefill_logits, prompt, logit_bias, max_new: int,
                  opts: Optional[DecodeOptions] = None) -> DecodeResult:
     """First pick, no-speech probability, then up to max_new T==1 steps
-    (:216), each ending in one in-place append."""
+    (:216). Each step is decoder_step_ip (one in-place append; it reads
+    an int8 self cache scale-commuted), or a T==1 decoder_forward when
+    every cache is int8 (kv_cache_quant)."""
     B, P = prompt.shape
     eot = cfg.eot_token
     first, sum_lp = _pick(prefill_logits, logit_bias, opts, cfg, tokens, P,
@@ -115,12 +119,12 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
     no_speech_prob = torch.softmax(sot_logits.float(), dim=-1
                                    )[:, cfg.no_speech_token]
 
+    step = decoder_forward if cfg.kv_cache_quant else decoder_step_ip
     for i in range(max_new):
         if i % POLL_EVERY == 0 and bool(finished.all()):
             break
         last = tokens[:, P + i:P + i + 1]
-        logits, cache = decoder_step_ip(params, cfg, last, P + i, cache,
-                                        cross_kv)
+        logits, cache = step(params, cfg, last, P + i, cache, cross_kv)
         picked, lp = _pick(logits, logit_bias, opts, cfg, tokens, P + i + 1,
                            P)
         live = ~finished

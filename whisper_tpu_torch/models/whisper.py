@@ -1,10 +1,24 @@
 """Whisper encoder and decoder as functions over the params tree
-(whisper_tpu/models/whisper.py), unquantized, fp32 or bf16.
+(whisper_tpu/models/whisper.py), fp32 or bf16, with the JAX package's
+int8 serving stack: weight-only int8 decoder linears (`w_s` per output
+column, `tok_emb_s` per row), int8 K/V caches with per-vector fp32 scales
+({"k", "k_s", "v", "v_s"}) for the cross cache, the self cache or both.
 
 The params tree and every layout are the JAX package's: layers stacked on
 a leading L axis, linear weights (in, out), q (B, T, H, D), K/V and the
 caches head-major (L, B, H, S, D). Where JAX scans the layers, the port
 loops over them in Python.
+
+int8 reads follow the JAX routes. bf16 mode reads an int8 cross or self
+cache scale-commuted (`_att_cross_q8`, `_self_attention_extra_q8`: the
+scales multiply scores and probabilities, no dequantized cache exists);
+fp32 mode reads an int8 cross cache through decode_attention_q8_bh (the
+hand-written kernel on CUDA, its plain version on the CPU); prefills and
+kv_cache_quant steps dequantize (`_cache_attention` →
+multi_head_attention_quant). The int8 weights are dequantized at every
+call (`_wq_dequant`), where XLA fuses the dequantization into the
+product's operand read: on the card that writes a copy of each weight in
+the compute dtype per step.
 
 Differences from the JAX module, all deliberate:
   * The self cache is updated IN PLACE: decoder_forward writes the prompt
@@ -34,11 +48,15 @@ import torch
 import torch.nn.functional as F
 
 from whisper_tpu_torch.config import WhisperConfig
-from whisper_tpu_torch.ops.attention import multi_head_attention
+from whisper_tpu_torch.ops.attention import (
+    multi_head_attention,
+    multi_head_attention_quant,
+)
 from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows,
     cache_append_rows_ragged,
 )
+from whisper_tpu_torch.ops.decode_attention import decode_attention_q8_bh
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     tail_fits_smem,
@@ -101,9 +119,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def _wq_dequant(p: Params, dtype) -> torch.Tensor:
+    """Effective weight of an int8 linear ({"w": int8 (..., in, out),
+    "w_s": fp32 (..., out)}): the values and the per-column scale, each
+    cast to the compute dtype, multiplied and rounded there (:68)."""
+    return p["w"].to(dtype) * p["w_s"].to(dtype).unsqueeze(-2)
+
+
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """x @ w + b with w stored (in, out)."""
-    return x @ p["w"] + p["b"]
+    """x @ w + b with w stored (in, out); an int8 linear (with "w_s")
+    dequantizes first (:82)."""
+    w = _wq_dequant(p, x.dtype) if "w_s" in p else p["w"]
+    return x @ w + p["b"]
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -140,6 +167,67 @@ def sinusoidal_positions(length: int, channels: int) -> torch.Tensor:
     scaled = np.arange(length)[:, None] * inv[None, :]
     return torch.tensor(np.concatenate([np.sin(scaled), np.cos(scaled)], 1),
                         dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# weight-only int8 (:199-265)
+# ---------------------------------------------------------------------------
+
+def _int8_symmetric(x: torch.Tensor, dim: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over `dim`, in the JAX package's order so that the
+    values are its bit for bit: max|x| / 127, at least 1e-10, divide,
+    round half to even, clip. Returns (int8 values, fp32 scales with
+    `dim` kept). The divide, round and clip run in place on one fp32
+    copy of x, where XLA fuses them."""
+    xf = x.to(torch.float32, copy=True)
+    s = torch.clamp_min(xf.abs().amax(dim=dim, keepdim=True) / 127.0, 1e-10)
+    return xf.div_(s).round_().clamp_(-127, 127).to(torch.int8), s
+
+
+def _quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column int8 over the reduction (in) axis (:203):
+    (..., in, out) -> (int8 values, fp32 scales (..., out))."""
+    q, s = _int8_symmetric(w, -2)
+    return q, s.squeeze(-2)
+
+
+def quantize_weights_wq(params: Params, cfg: WhisperConfig) -> Params:
+    """Weight-only int8 for the decoder's per-step weights (:212): the
+    self-attention projections, cross-attention q and o, fc1 and fc2 per
+    output column; tok_emb per row (`tok_emb_s`, the tied logits'
+    output-column axis). Cross-attention k/v, the encoder, biases,
+    LayerNorms and positions stay as they are. Quantize AFTER the cast to
+    the compute dtype, as the JAX pipeline does (pipeline.py:90-97): the
+    int8 values of bf16 and fp32 weights differ.
+
+    The port's fused self-attention `qkv` linear (weights.to_device) is
+    quantized per column like any other, which gives q, k and v's int8
+    values and their three scale vectors concatenated. A linear that is
+    already int8 is kept. bf16 serving mode only: fp32 raises."""
+    if compute_dtype(cfg) == torch.float32:
+        raise ValueError("weight_quant is the serving-mode (bf16) feature; "
+                         "fp32 is the token-parity contract")
+
+    def qlin(p):
+        if "w_s" in p:
+            return p
+        q, s = _quant_cols(p["w"])
+        return {"w": q, "w_s": s, "b": p["b"]}
+
+    dec = params["decoder"]
+    layers = dict(dec["layers"])
+    layers["attn"] = {n: qlin(p) for n, p in layers["attn"].items()}
+    layers["cross_attn"] = {**layers["cross_attn"],
+                            "q": qlin(layers["cross_attn"]["q"]),
+                            "o": qlin(layers["cross_attn"]["o"])}
+    layers["fc1"] = qlin(layers["fc1"])
+    layers["fc2"] = qlin(layers["fc2"])
+    dec = {**dec, "layers": layers}
+    if "tok_emb_s" not in dec:
+        q, s = _int8_symmetric(dec["tok_emb"], -1)
+        dec["tok_emb"], dec["tok_emb_s"] = q, s.squeeze(-1)
+    return {**params, "decoder": dec}
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +275,18 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
     dtype = compute_dtype(cfg)
     x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(dtype)
     tail = _encoder_tail_mode(cfg, x.device)
+    if dtype != torch.float32 and cfg.encoder_quant:
+        raise NotImplementedError(
+            "encoder_quant: the int8 encoder matmuls (whisper_tpu/models/"
+            "whisper.py:124 linear_i8dyn) are not ported")
+    if dtype != torch.float32 and tail == "tail" and (
+            cfg.encoder_mlp_quant or cfg.encoder_qkv_quant):
+        # JAX takes these int8 paths only with its fused tail; where the
+        # tail is off (d >= 768 here) both flags are no-ops (:505-508, :537)
+        raise NotImplementedError(
+            "encoder_mlp_quant / encoder_qkv_quant: the int8 variant of the "
+            "encoder tail kernel (whisper_tpu/ops/encoder_layer.py:240, "
+            "mlp_q and o_q) is not ported")
     for i in range(cfg.n_audio_layers):
         lp = layer_index(enc["layers"], i)
         y = layer_norm(x, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
@@ -210,12 +310,28 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
 # decoder + KV cache
 # ---------------------------------------------------------------------------
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-vector symmetric int8 (:589): (..., D) -> (int8 values, fp32
+    scale (..., 1))."""
+    return _int8_symmetric(x, -1)
+
+
 def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
                   s_max: int, device) -> dict[str, torch.Tensor]:
     """Zeroed self-attention cache {"k", "v"}, each (L, B, H, s_max, Dh)
     (:620). s_max right-sizes the slots to what the decode can reach
-    (decode._cache_slots)."""
+    (decode._cache_slots). With kv_cache_quant, or self_kv_quant outside
+    fp32 (fp32 ignores it), the values are int8 and the per-vector scales
+    {"k_s", "v_s"} (L, B, H, s_max, 1) fp32 start at 1e-10."""
     shape = (cfg.n_text_layers, batch, cfg.n_heads, s_max, cfg.head_dim)
+    if cfg.kv_cache_quant or (cfg.self_kv_quant and dtype != torch.float32):
+        def scales():
+            return torch.full(shape[:-1] + (1,), 1e-10, dtype=torch.float32,
+                              device=device)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": scales(),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_s": scales()}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -223,27 +339,46 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
 def precompute_cross_kv(params: Params, cfg: WhisperConfig,
                         enc_out: torch.Tensor) -> dict[str, torch.Tensor]:
     """Every decoder layer's cross-attention K/V, once per transcription
-    (:654): {"k", "v"} each (L, B, H, n_audio_ctx, Dh)."""
+    (:654): {"k", "v"} each (L, B, H, n_audio_ctx, Dh); int8 with
+    per-vector scales {"k_s", "v_s"} under kv_cache_quant or
+    cross_kv_quant (:669-672)."""
     layers = params["decoder"]["layers"]
-    ks, vs = [], []
+    quant = cfg.kv_cache_quant or cfg.cross_kv_quant
+    out = {name: [] for name in (("k", "k_s", "v", "v_s") if quant
+                                 else ("k", "v"))}
     for i in range(cfg.n_text_layers):
         ca = layer_index(layers["cross_attn"], i)
-        ks.append(split_heads_hm(linear(enc_out, ca["k"]), cfg.n_heads))
-        vs.append(split_heads_hm(linear(enc_out, ca["v"]), cfg.n_heads))
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}
+        for name in ("k", "v"):
+            x = split_heads_hm(linear(enc_out, ca[name]), cfg.n_heads)
+            if quant:       # layer by layer: fp32 temporaries of one layer
+                x, x_s = quantize_kv(x)
+                out[name + "_s"].append(x_s)
+            out[name].append(x)
+    return {name: torch.stack(xs) for name, xs in out.items()}
 
 
-def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def _cache_attention(q: torch.Tensor, entry: dict[str, torch.Tensor],
                      kv_len, *, causal: bool, q_offset: int, dtype
                      ) -> torch.Tensor:
-    """Attention over one layer's cache slice (:605-617, the unquantized
-    route): K/V in the compute dtype, through the size dispatch."""
-    return multi_head_attention(q, k.to(dtype), v.to(dtype), kv_len,
-                                causal=causal, q_offset=q_offset)
+    """Attention over one layer's cache slice `entry` ({"k", "v"}, plus
+    {"k_s", "v_s"} when int8) (:605-617): an int8 slice goes through
+    multi_head_attention_quant, a plain one through the size dispatch with
+    K/V in the compute dtype."""
+    if "k_s" in entry:
+        return multi_head_attention_quant(
+            q, entry["k"], entry["k_s"], entry["v"], entry["v_s"], kv_len,
+            causal=causal, q_offset=q_offset)
+    return multi_head_attention(q, entry["k"].to(dtype), entry["v"].to(dtype),
+                                kv_len, causal=causal, q_offset=q_offset)
 
 
 def tok_embed(dec: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return dec["tok_emb"][tokens].to(dtype)
+    """Token embedding; an int8 table's rows take their per-row scale
+    after the gather (:187)."""
+    e = dec["tok_emb"][tokens].to(dtype)
+    if "tok_emb_s" in dec:
+        return e * dec["tok_emb_s"][tokens].unsqueeze(-1).to(dtype)
+    return e
 
 
 def final_logits(params: Params, cfg: WhisperConfig, h: torch.Tensor
@@ -256,10 +391,15 @@ def final_logits(params: Params, cfg: WhisperConfig, h: torch.Tensor
     torch.matmul would round the logits to bf16 and make argmax ties, so
     both operands are upcast: bf16 x bf16 products are exact in fp32, so
     this is the same sum with an fp32 output. In fp32 mode it is the
-    HIGHEST-precision product (:772-774)."""
+    HIGHEST-precision product (:772-774). An int8 table is dequantized
+    per row in the compute dtype first (:775-782)."""
     dec = params["decoder"]
     h = layer_norm(h, dec["ln"]["g"], dec["ln"]["b"], cfg.ln_eps)
-    return h.float() @ dec["tok_emb"].float().t()
+    emb = dec["tok_emb"]
+    if "tok_emb_s" in dec:
+        dtype = compute_dtype(cfg)
+        emb = emb.to(dtype) * dec["tok_emb_s"].unsqueeze(-1).to(dtype)
+    return h.float() @ emb.float().t()
 
 
 def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
@@ -267,10 +407,11 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
                     cross_kv: dict[str, torch.Tensor]
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One decoder pass over T tokens at positions [pos_offset,
-    pos_offset + T) (:676) — the prompt prefill. Writes the new K/V rows
-    into kv_cache in place, then attends with the (kv_len, causal,
-    q_offset) mask through `_cache_attention`, as JAX does (:731-741).
-    Returns (logits (B, T, vocab) fp32, kv_cache)."""
+    pos_offset + T) (:676): the prompt prefill, and every step under
+    kv_cache_quant. Writes the new K/V rows into kv_cache in place
+    (quantized first into an int8 cache, :708-721), then attends with the
+    (kv_len, causal, q_offset) mask through `_cache_attention`, as JAX
+    does (:731-741). Returns (logits (B, T, vocab) fp32, kv_cache)."""
     h = decoder_hidden(params, cfg, tokens, pos_offset, kv_cache, cross_kv)
     return final_logits(params, cfg, h), kv_cache
 
@@ -292,15 +433,20 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         lp = layer_index(dec["layers"], i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
-        kv_cache["k"][i, :, :, pos_offset:kv_len] = k_new
-        kv_cache["v"][i, :, :, pos_offset:kv_len] = v_new
-        a = _cache_attention(q, kv_cache["k"][i], kv_cache["v"][i], kv_len,
+        for name, new in (("k", k_new), ("v", v_new)):
+            rows = (i, slice(None), slice(None), slice(pos_offset, kv_len))
+            if name + "_s" in kv_cache:
+                kv_cache[name][rows], kv_cache[name + "_s"][rows] = \
+                    quantize_kv(new)
+            else:
+                kv_cache[name][rows] = new
+        a = _cache_attention(q, layer_index(kv_cache, i), kv_len,
                              causal=True, q_offset=pos_offset, dtype=dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
-        a = _cache_attention(q, cross_kv["k"][i], cross_kv["v"][i], None,
+        a = _cache_attention(q, layer_index(cross_kv, i), None,
                              causal=False, q_offset=0, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
@@ -364,40 +510,118 @@ def _cross_attention(q, k, v, D: int, dtype) -> torch.Tensor:
     return _weighted(p, v, dtype, fp32_mode).to(dtype)
 
 
+def _scale_row(s: torch.Tensor) -> torch.Tensor:
+    """Per-vector scales (B, H, S, 1) -> (B, H, 1, S), the score axis."""
+    return s[..., 0].unsqueeze(2)
+
+
+def _self_attention_extra_q8(q, k8, k_s, v8, v_s, k_new, v_new,
+                             pos: int, D: int, dtype) -> torch.Tensor:
+    """`_self_attention_extra` over a scale-commuted int8 self cache
+    (:1010, the T==1 form; bf16 serving mode): the key scales multiply the
+    scores and the value scales the probabilities, so no dequantized
+    cache exists:
+        score[s] = (q . k8[s]) * (k_s[s] * D^-0.5)
+        out      = sum_s bf16(p[s] * v_s[s]) * v8[s]
+    with bf16 x int8 products exact in fp32 and fp32 sums. The current
+    token's k_new/v_new join unquantized. k8/v8 int8 (B,H,S,D); k_s/v_s
+    fp32 (B,H,S,1); q (B,1,H,D); returns (B,1,H,D) in dtype."""
+    s_c = torch.einsum("bthd,bhsd->bhts", q.float(), k8.float()) * (
+        _scale_row(k_s) * (D ** -0.5))
+    s_s = _scores(q, k_new, D, False)                          # (B,H,1,1)
+    strict = torch.arange(k8.shape[2], device=q.device) < pos
+    s_c = s_c.masked_fill(~strict, torch.finfo(torch.float32).min)
+    m = torch.maximum(s_c.amax(dim=-1, keepdim=True), s_s)
+    e_c = torch.exp(s_c - m)
+    e_s = torch.exp(s_s - m)
+    denom = e_c.sum(dim=-1, keepdim=True) + e_s
+    pv = (e_c / denom * _scale_row(v_s)).to(dtype)
+    o = torch.einsum("bhts,bhsd->bthd", pv.float(), v8.float())
+    o = o + (e_s / denom).permute(0, 3, 1, 2) * v_new.permute(0, 2, 1, 3).float()
+    return o.to(dtype)
+
+
+def _att_cross_q8(q: torch.Tensor, cross_l: dict[str, torch.Tensor], D: int,
+                  dtype) -> torch.Tensor:
+    """Scale-commuted int8 cross attention for the T==1 step (:1104, the
+    T==1 form; bf16 serving mode): as `_self_attention_extra_q8`, over
+    all n_audio_ctx positions with a plain softmax. The JAX query tiling
+    (`_mxu_query_tile`) is a TPU lowering trick that gives the same rows,
+    and is not ported."""
+    s = torch.einsum("bthd,bhsd->bhts", q.float(), cross_l["k"].float()) * (
+        _scale_row(cross_l["k_s"]) * (D ** -0.5))
+    pv = (torch.softmax(s, dim=-1) * _scale_row(cross_l["v_s"])).to(dtype)
+    return torch.einsum("bhts,bhsd->bthd", pv.float(),
+                        cross_l["v"].float()).to(dtype)
+
+
 def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
                     pos: int, kv_cache: dict[str, torch.Tensor],
                     cross_kv: dict[str, torch.Tensor]
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """One T==1 decode step at position `pos` (:1160, unquantized).
+    """One T==1 decode step at position `pos` (:1160).
 
     Inside the layer loop the self cache is read-only (rows < pos) and the
     current token joins as an explicit softmax term; after the loop ONE
     cache_append_rows call writes every layer's new K/V row at `pos`, in
-    place. Returns (logits (B, 1, vocab) fp32, kv_cache)."""
+    place. The int8 branches, as JAX routes them (:1215-1253):
+      * an int8 self cache (self_kv_quant, bf16 mode) is read through
+        `_self_attention_extra_q8`; after the loop the stacked rows are
+        quantized, appended by the same kernel on the int8 caches, and
+        their scale rows written by indexed assignment (:1328-1351);
+      * an int8 cross cache is read through `_att_cross_q8` in bf16 mode
+        and through decode_attention_q8_bh in fp32 mode.
+    Returns (logits (B, 1, vocab) fp32, kv_cache)."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
+    fp32_mode = dtype == torch.float32
+    q8_self = "k_s" in kv_cache
+    if q8_self and fp32_mode:
+        raise ValueError("decoder_step_ip: an int8 self cache is bf16 "
+                         "serving mode only (fp32 ignores self_kv_quant)")
     D = cfg.head_dim
     h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos].to(dtype)
+
+    def att_cross(q, cross_l):
+        if "k_s" not in cross_l:
+            return _cross_attention(q, cross_l["k"], cross_l["v"], D, dtype)
+        if not fp32_mode:
+            return _att_cross_q8(q, cross_l, D, dtype)
+        return decode_attention_q8_bh(q, cross_l["k"], cross_l["k_s"],
+                                      cross_l["v"], cross_l["v_s"])
+
     k_news, v_news = [], []
     for i in range(cfg.n_text_layers):
         lp = layer_index(dec["layers"], i)
+        cache_l = layer_index(kv_cache, i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
-        a = _self_attention_extra(q, kv_cache["k"][i], kv_cache["v"][i],
-                                  k_new, v_new, pos, D, dtype)
+        if q8_self:
+            a = _self_attention_extra_q8(
+                q, cache_l["k"], cache_l["k_s"], cache_l["v"], cache_l["v_s"],
+                k_new, v_new, pos, D, dtype)
+        else:
+            a = _self_attention_extra(q, cache_l["k"], cache_l["v"], k_new,
+                                      v_new, pos, D, dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
-        a = _cross_attention(q, cross_kv["k"][i], cross_kv["v"][i], D, dtype)
+        a = att_cross(q, layer_index(cross_kv, i))
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
         k_news.append(k_new[:, :, 0, :])
         v_news.append(v_new[:, :, 0, :])
+    k_rows, v_rows = torch.stack(k_news), torch.stack(v_news)
+    if q8_self:
+        (k_rows, k_sc), (v_rows, v_sc) = quantize_kv(k_rows), quantize_kv(v_rows)
     cache_append_rows(kv_cache["k"], kv_cache["v"],
-                      torch.stack(k_news).to(kv_cache["k"].dtype),
-                      torch.stack(v_news).to(kv_cache["v"].dtype), pos)
+                      k_rows.to(kv_cache["k"].dtype),
+                      v_rows.to(kv_cache["v"].dtype), pos)
+    if q8_self:
+        kv_cache["k_s"][:, :, :, pos] = k_sc
+        kv_cache["v_s"][:, :, :, pos] = v_sc
     return final_logits(params, cfg, h), kv_cache
 
 
@@ -420,8 +644,9 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
     Returns (logits (B, 1, vocab) fp32, kv_cache)."""
     if "k_s" in kv_cache or "k_s" in cross_kv:
         raise NotImplementedError(
-            "decoder_step_ragged: int8 caches (k_s/v_s scales) come with the "
-            "int8 serving slice (ROADMAP Queue 1 item 8)")
+            "decoder_step_ragged: int8 caches (k_s/v_s scales) in the "
+            "continuous engine, with the ragged int8 append, are not ported "
+            "(ROADMAP Queue 1 item 8)")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     D = cfg.head_dim
@@ -438,7 +663,7 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
-        a = _cache_attention(q, cross_kv["k"][i], cross_kv["v"][i], None,
+        a = _cache_attention(q, layer_index(cross_kv, i), None,
                              causal=False, q_offset=0, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)

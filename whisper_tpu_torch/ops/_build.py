@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.wt_cache_append.argtypes = [
         P, P, P, P,            # cache_k, cache_v, k_new, v_new
         ctypes.c_longlong,     # rows = L*B*H
-        I, I, I, I, P]         # S, D, pos, is_bf16, stream
+        I, I, I, I, P]         # S, D, pos, elem (fp32/bf16/int8), stream
     lib.wt_cache_append.restype = I
     lib.wt_cache_append_ragged.argtypes = [
         P, P, P, P,            # cache_k, cache_v, k_new, v_new
@@ -128,6 +128,11 @@ def load_library() -> ctypes.CDLL:
         L, L, L, L, L, L,      # k strides (b, h, s), v strides (b, h, s)
         I, P]                  # is_bf16, stream
     lib.wt_flash_attention.restype = I
+    lib.wt_decode_attention_q8.argtypes = [
+        P, P, P, P, P, P,      # q, k, k_scale, v, v_scale, out
+        I, I, I, I, I,         # B, H, S, D, kv_len
+        I, P]                  # q_is_bf16, stream
+    lib.wt_decode_attention_q8.restype = I
     lib.wt_error_string.argtypes = [I]
     lib.wt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,6 @@
-"""Multi-head attention: the size dispatch and the plain attention
-(whisper_tpu/ops/attention.py:73-122 multi_head_attention, :164
-mha_reference).
+"""Multi-head attention: the size dispatch, its int8-cache form and the
+plain attention (whisper_tpu/ops/attention.py:73-122 multi_head_attention,
+:125 multi_head_attention_quant, :164 mha_reference).
 
 `multi_head_attention` is the JAX package's auto policy for T > 1: a call
 whose fp32 score matrix would take at least 16 MiB goes to the flash
@@ -16,6 +16,12 @@ Whisper path reaches it (the self cache holds at most 448 slots, cross
 attention covers 1500 positions, and the decode step computes both reads
 itself).
 
+`multi_head_attention_quant` reads an int8 cache (values plus per-vector
+fp32 scales): a T==1 read of 4096 slots or more goes to
+decode_attention_q8_bh (the hand-written kernel on CUDA, its plain
+version on the CPU), as the JAX gate sends it to its Pallas kernel; every
+other read dequantizes to q's dtype and goes through multi_head_attention.
+
 Layouts: q (B, T, H, D) token-major; k, v (B, H, S, D) head-major.
 Masking is (kv_len, causal, q_offset): key j is visible to query i iff
 j < kv_len and, when causal, j <= q_offset + i.
@@ -27,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from whisper_tpu_torch.ops.decode_attention import decode_attention_q8_bh
 from whisper_tpu_torch.ops.flash_attention import flash_attention
 
 _NEG_INF = torch.finfo(torch.float32).min
@@ -64,6 +71,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"(whisper_tpu/ops/decode_attention.py:297), which the port has "
             f"not ported")
     return mha_reference(q, k, v, kv_len, causal=causal, q_offset=q_offset)
+
+
+def multi_head_attention_quant(q: torch.Tensor, k: torch.Tensor,
+                               k_scale: torch.Tensor, v: torch.Tensor,
+                               v_scale: torch.Tensor,
+                               kv_len: Optional[int] = None, *,
+                               causal: bool = False,
+                               q_offset: int = 0) -> torch.Tensor:
+    """Attention over an int8 cache: k, v (B, H, S, D) int8 with k_scale,
+    v_scale (B, H, S, 1) fp32. Returns (B, T, H, D) in q's dtype. At
+    T == 1 the causal mask is the length mask, so the kernel route takes
+    kv_len alone; a per-row kv_len or q_offset stays off it, as in JAX
+    (:141-157)."""
+    ragged = ((torch.is_tensor(kv_len) and kv_len.ndim >= 1)
+              or (torch.is_tensor(q_offset) and q_offset.ndim >= 1))
+    if q.shape[1] == 1 and not ragged and k.shape[2] >= _DECODE_KERNEL_MIN_S:
+        return decode_attention_q8_bh(q, k, k_scale, v, v_scale, kv_len)
+    kd = (k.float() * k_scale).to(q.dtype)
+    vd = (v.float() * v_scale).to(q.dtype)
+    return multi_head_attention(q, kd, vd, kv_len, causal=causal,
+                                q_offset=q_offset)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

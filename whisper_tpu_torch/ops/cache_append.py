@@ -12,7 +12,9 @@ own row written first.
 
 Each wrapper launches its hand-written CUDA kernel (csrc/cache_append.cu,
 which carries the design note) for CUDA tensors and runs its plain version
-(indexed assignment) for CPU tensors. Both write into the given tensors
+(indexed assignment) for CPU tensors. The scalar form also takes int8
+caches: an int8 self cache's rows arrive quantized (models/whisper.py
+decoder_step_ip), and the caller writes their scale rows. Both write into the given tensors
 and return them; neither makes a copy. The ragged wrapper never reads
 `pos` on the host: the kernel reads it from device memory.
 """
@@ -24,6 +26,8 @@ import torch
 from whisper_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the scalar kernel's element types, by the code its C entry point takes
+_APPEND_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def cache_append_rows_plain(cache_k, cache_v, k_new, v_new, pos: int):
@@ -56,7 +60,7 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write k_new/v_new (L, B, H, D) at row `pos` of the (L, B, H, S, D)
     caches, in place; returns the same two tensors. CPU tensors take the
-    plain version; CUDA tensors (fp32 or bf16, contiguous) launch the
+    plain version; CUDA tensors (fp32, bf16 or int8, contiguous) launch the
     kernel or raise."""
     pos = int(pos)
     _check(cache_k, cache_v, k_new, v_new, pos)
@@ -65,7 +69,7 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
     if cache_k.device.type != "cuda":
         raise ValueError(f"cache_append_rows: no kernel for device "
                          f"{cache_k.device}")
-    if cache_k.dtype not in _DTYPES:
+    if cache_k.dtype not in _APPEND_ELEM:
         raise TypeError(f"cache_append_rows: no kernel for {cache_k.dtype}")
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v),
                     ("k_new", k_new), ("v_new", v_new)):
@@ -75,8 +79,7 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
     lib = _build.load_library()
     err = lib.wt_cache_append(
         cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), L * B * H, S, D, pos,
-        int(cache_k.dtype == torch.bfloat16),
+        v_new.data_ptr(), L * B * H, S, D, pos, _APPEND_ELEM[cache_k.dtype],
         torch.cuda.current_stream(cache_k.device).cuda_stream)
     _build.check(lib, err, "cache_append_rows")
     cache_append_rows.launches += 1

@@ -5,6 +5,15 @@ The pipeline owns the params on its device in the compute dtype and runs
 mel -> encoder -> prefill -> greedy loop. It defaults to `cuda` and
 raises when CUDA is absent: only an explicit `device="cpu"` runs the
 plain CPU versions of the kernels.
+
+Quantization. `quant="auto"` applies the JAX package's serving policy
+(config.apply_serving_quant, with `batch_hint` as the effective decode
+rows) and gives exactly the config the JAX pipeline would; `quant="off"`
+runs the config as given, quant flags included. The port's default is
+"off", where the JAX pipeline's is "auto": every gate of that policy was
+set by TPU measurements, and the port's own policy waits for the H100's
+A/Bs (ROADMAP Queue 1 item 8). With `weight_quant` the decoder weights
+are quantized after the cast to the compute dtype, as in JAX.
 """
 
 from __future__ import annotations
@@ -16,13 +25,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from whisper_tpu_torch.config import WhisperConfig, get_config
+from whisper_tpu_torch.config import (
+    WhisperConfig,
+    apply_serving_quant,
+    get_config,
+)
 from whisper_tpu_torch.tokenizer import Tokenizer, build_prompt
 from whisper_tpu_torch import weights as weights_lib
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
 from whisper_tpu_torch.decode import DecodeResult, encode, greedy_decode
 from whisper_tpu_torch.decode_rules import DecodeOptions, non_speech_tokens
-from whisper_tpu_torch.models.whisper import compute_dtype
+from whisper_tpu_torch.models.whisper import (
+    compute_dtype,
+    quantize_weights_wq,
+)
 
 
 @dataclasses.dataclass
@@ -44,15 +60,26 @@ def resolve_device(device) -> torch.device:
 
 class WhisperPipeline:
     def __init__(self, cfg: WhisperConfig | str, params,
-                 device="cuda", tokenizer: Optional[Tokenizer] = None):
+                 device="cuda", tokenizer: Optional[Tokenizer] = None,
+                 quant: str = "off", batch_hint: Optional[int] = None):
         """params: a params tree of CPU or device tensors (fp32). The
         pipeline casts it by the JAX package's rule (rank >= 2 leaves take
-        the compute dtype, weights.to_device) and moves it to `device`."""
+        the compute dtype, weights.to_device) and moves it to `device`.
+        quant: "off" (default) or "auto" (the JAX serving policy, see the
+        module docstring); batch_hint: effective decode rows (batch x beam
+        width) for the policy's small-batch gate, None for batched
+        serving."""
+        if quant not in ("auto", "off"):
+            raise ValueError(f"quant must be 'auto' or 'off', got {quant!r}")
         self.cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+        if quant == "auto":
+            self.cfg = apply_serving_quant(self.cfg, batch=batch_hint)
         self.device = resolve_device(device)
         dtype = compute_dtype(self.cfg)
         self.params = weights_lib.to_device(
             params, self.device, None if dtype == torch.float32 else dtype)
+        if self.cfg.weight_quant:
+            self.params = quantize_weights_wq(self.params, self.cfg)
         self.tokenizer = tokenizer or Tokenizer(config=self.cfg)
 
     # ---- constructors (model: family name or a WhisperConfig) ----
@@ -63,7 +90,8 @@ class WhisperPipeline:
 
     @classmethod
     def from_flat_bin(cls, path: str, model="tiny", dtype: str = "float32",
-                      device="cuda", vocab_path: Optional[str] = None
+                      device="cuda", vocab_path: Optional[str] = None,
+                      quant: str = "off", batch_hint: Optional[int] = None
                       ) -> "WhisperPipeline":
         """Load a reference-format headerless fp32 weight blob. vocab_path:
         the model's vocab.txt (default: the bundled 51,865-entry table,
@@ -71,25 +99,29 @@ class WhisperPipeline:
         cfg = cls._config(model, dtype)
         tokenizer = Tokenizer(vocab_path, config=cfg)
         return cls(cfg, weights_lib.from_flat_bin_path(path, cfg), device,
-                   tokenizer)
+                   tokenizer, quant, batch_hint)
 
     @classmethod
     def from_random(cls, model="tiny", seed: int = 0, dtype: str = "float32",
-                    device="cuda", vocab_path: Optional[str] = None
+                    device="cuda", vocab_path: Optional[str] = None,
+                    quant: str = "off", batch_hint: Optional[int] = None
                     ) -> "WhisperPipeline":
         """Random weights from a numpy seed, for benchmarks and tests."""
         cfg = cls._config(model, dtype)
         tokenizer = Tokenizer(vocab_path, config=cfg)
-        return cls(cfg, weights_lib.init_params(cfg, seed), device, tokenizer)
+        return cls(cfg, weights_lib.init_params(cfg, seed), device, tokenizer,
+                   quant, batch_hint)
 
     @classmethod
     def from_params(cls, params, model="tiny", dtype: str = "float32",
-                    device="cuda", vocab_path: Optional[str] = None
+                    device="cuda", vocab_path: Optional[str] = None,
+                    quant: str = "off", batch_hint: Optional[int] = None
                     ) -> "WhisperPipeline":
         """A params tree of the port's tensors (weights.from_jax_params
         converts the JAX package's tree)."""
         cfg = cls._config(model, dtype)
-        return cls(cfg, params, device, Tokenizer(vocab_path, config=cfg))
+        return cls(cfg, params, device, Tokenizer(vocab_path, config=cfg),
+                   quant, batch_hint)
 
     # ---- decode options ----
     def make_options(self, timestamps: bool = False,

@@ -206,8 +206,9 @@ class ContinuousBatcher:
         cfg = self.cfg
         if cfg.kv_cache_quant or cfg.cross_kv_quant or cfg.self_kv_quant:
             raise NotImplementedError(
-                "int8 caches in the continuous engine come with the int8 "
-                "serving slice (ROADMAP Queue 1 item 8)")
+                "int8 caches in the continuous engine (decoder_step_ragged "
+                "with the ragged int8 append) are not ported (ROADMAP "
+                "Queue 1 item 8)")
         dev, B = self.device, self.B
         dtype = compute_dtype(cfg)
         cache = init_kv_cache(cfg, B, dtype, cfg.n_text_ctx, dev)

@@ -32,10 +32,14 @@ def _tree_map(fn, tree):
 
 def from_jax_params(tree) -> Params:
     """The JAX params tree (leaves as numpy arrays, e.g. after
-    `jax.tree.map(np.asarray, params)`) -> the same tree of fp32 CPU
-    tensors. Leaves are copied, so the result owns its memory."""
-    return _tree_map(
-        lambda x: torch.from_numpy(np.array(x, dtype=np.float32)), tree)
+    `jax.tree.map(np.asarray, params)`) -> the same tree of CPU tensors:
+    int8 leaves (a tree after the JAX quantize_weights_wq) stay int8,
+    every other leaf becomes fp32. Leaves are copied, so the result owns
+    its memory."""
+    def leaf(x):
+        dt = np.int8 if np.asarray(x).dtype == np.int8 else np.float32
+        return torch.from_numpy(np.array(x, dtype=dt))
+    return _tree_map(leaf, tree)
 
 
 # ---------------------------------------------------------------------------
@@ -186,25 +190,31 @@ def to_device(params: Params, device, dtype: torch.dtype | None = None
     """Move every leaf to `device`; with `dtype`, cast the fp32 leaves of
     rank >= 2 to it — the JAX package's rule (whisper_tpu/weights.py:337
     to_device), so the stacked per-layer biases and LayerNorm params take
-    the compute dtype while the top-level 1-D ones stay fp32.
+    the compute dtype while the top-level 1-D ones stay fp32. The leaves
+    of an int8 tree keep their types: int8 values, and the fp32 scales
+    (`w_s`, `tok_emb_s`), which the JAX pipeline makes after its cast.
 
     Each self-attention's q, k and v linears become one `qkv` linear,
-    weight (L, d, 3d) and bias (L, 3d), fused once here: the JAX model
-    concatenates them inside its jitted step (models/whisper.py:89
-    qkv_fused), the port's eager step would do it at every call. A tree
-    placed before keeps its fused linear."""
+    weight (L, d, 3d) and bias (L, 3d) (and an int8 linear's scales
+    (L, 3d)), fused once here: the JAX model concatenates them inside its
+    jitted step (models/whisper.py:89 qkv_fused), the port's eager step
+    would do it at every call. A tree placed before keeps its fused
+    linear."""
     device = torch.device(device)
 
-    def put(x: torch.Tensor) -> torch.Tensor:
-        if dtype is not None and x.dtype == torch.float32 and x.ndim >= 2:
-            x = x.to(dtype)
-        return x.to(device)
+    def put(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: put(v, k) for k, v in tree.items()}
+        if (dtype is not None and tree.dtype == torch.float32
+                and tree.ndim >= 2 and not name.endswith("_s")):
+            tree = tree.to(dtype)
+        return tree.to(device)
 
     def fuse(attn: dict) -> dict:
         if "qkv" in attn:
             return attn
         qkv = {n: torch.cat([attn[p][n] for p in "qkv"], dim=-1)
-               for n in ("w", "b")}
+               for n in attn["q"]}
         return {"qkv": qkv, "o": attn["o"]}
 
     params = {part: dict(sub) for part, sub in params.items()}
@@ -212,4 +222,4 @@ def to_device(params: Params, device, dtype: torch.dtype | None = None
         layers = dict(params[part]["layers"])
         layers["attn"] = fuse(layers["attn"])
         params[part]["layers"] = layers
-    return _tree_map(put, params)
+    return put(params)
