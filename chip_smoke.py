@@ -17,7 +17,14 @@ and the int8 append against their plain versions, tiny b32 bf16 and turbo
 b32 bf16 with the serving policy (quant="auto", turbo also with the int8
 self cache), each timed against quant="off" in the same process, and
 tiny b32 fp32 with an int8 cross cache, whose every cross read launches
-the int8 decode kernel and whose tokens equal the CPU's.
+the int8 decode kernel and whose tokens equal the CPU's. Then the fused
+decoder step (cfg.fused_step): fused_decoder_step against its plain
+version at tiny and turbo widths and timed beside its bound and the
+unfused step, the tiny b32 bf16 workload with the fused step (one
+fused_decoder_step and one append launch per loop step) timed against
+the unfused path in turns, tiny fp32 with the fused step against the CPU
+and the unfused tokens, and turbo b32 bf16 with the fused step at full
+width and depth.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
@@ -43,6 +50,7 @@ imports jax.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -78,6 +86,14 @@ Q8_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
 # its plain version) through 8 layers, at ~0.01 per logit of a tiny random
 # model; 0.1 leaves room over the largest of ~400k logits
 SERVING_LOGITS_ATOL = 0.1
+# the fused decoder step against its plain version. fp32: fp32 FMAs
+# against cuBLAS fp32 through up to 4 layers and two softmaxes, summed in
+# other orders. bf16: one bf16 ulp of O(4) values, where a sum in another
+# order lands on the other side of a rounding point and the flip is
+# carried into the later layers
+FUSED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.06, 2e-2)}
+FUSED_POS = (0, 4, 48, 447)       # empty self cache .. the last of 448 slots
+FUSED_TIME_POS = 48               # mid-bench: prompt 4 + 44 loop steps
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -153,12 +169,21 @@ def bench_audio(cfg, batch: int) -> np.ndarray:
                      for b in range(batch)]).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _side_stream():
+    """The one side stream of every warm-up before a capture: cuBLAS keeps
+    a workspace for each stream it has run on, so a new stream per
+    capture would leave one more resident each time."""
+    import torch
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
     """Device ms per fn() call, captured `launches` times in one CUDA
     graph and timed over `replays` replays: the launch cost of the host
     is left out."""
     import torch
-    side = torch.cuda.Stream()
+    side = _side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -292,6 +317,7 @@ def main_path(pipe, kernels: dict, expect: dict, card: str,
         return res
 
     run()                               # warm-up
+    resident = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -307,7 +333,8 @@ def main_path(pipe, kernels: dict, expect: dict, card: str,
             "gen_tokens": GEN_TOKENS, "wall_s": wall,
             "audio_s_per_wall_s": BATCH * cfg.chunk_length_s / wall,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launches, "card": card}
+            "resident_gb_before": resident, "launches": launches,
+            "card": card}
     emit(line)
     for name, n in expect.items():
         require(launches[name] == n,
@@ -330,25 +357,44 @@ def quant_flags(cfg) -> list:
                         "encoder_qkv_quant") if getattr(cfg, f)]
 
 
-def quant_ab(pipes: dict, audio, bias, card: str) -> None:
-    """The bench workload's wall under quant "off" and "auto" in one
-    process, in turns off, auto, auto, off (each pipeline warm)."""
+def ab_walls(pipes: dict, audio, bias, order: tuple) -> dict:
+    """The bench workload's wall through each pipeline in one process, in
+    turns `order` (each pipeline warm first)."""
     import torch
     walls = {name: [] for name in pipes}
     for pipe in pipes.values():                 # warm-up
         pipe.transcribe_batch(audio, max_new=GEN_TOKENS - 1, logit_bias=bias)
-    for name in ("off", "auto", "auto", "off"):
+    for name in order:
         t0 = time.perf_counter()
         pipes[name].transcribe_batch(audio, max_new=GEN_TOKENS - 1,
                                      logit_bias=bias)
         torch.cuda.synchronize()
         walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def quant_ab(pipes: dict, audio, bias, card: str) -> None:
+    """The bench workload's wall under quant "off" and "auto" in one
+    process, in turns off, auto, auto, off (each pipeline warm)."""
+    walls = ab_walls(pipes, audio, bias, ("off", "auto", "auto", "off"))
     cfg = pipes["auto"].cfg
     emit({"phase": "quant_ab", "model": cfg.name, "dtype": cfg.compute_dtype,
           "batch": BATCH, "gen_tokens": GEN_TOKENS,
           "auto_quant": quant_flags(cfg), "off_walls_s": walls["off"],
           "auto_walls_s": walls["auto"],
           "auto_over_off": sum(walls["auto"]) / sum(walls["off"]),
+          "card": card})
+
+
+def fused_ab(pipes: dict, audio, bias, card: str) -> None:
+    """The bench workload's wall with the fused step off and on in one
+    process, in turns off, on, on, off (each pipeline warm)."""
+    walls = ab_walls(pipes, audio, bias, ("off", "on", "on", "off"))
+    cfg = pipes["on"].cfg
+    emit({"phase": "fused_ab", "model": cfg.name, "dtype": cfg.compute_dtype,
+          "batch": BATCH, "gen_tokens": GEN_TOKENS,
+          "off_walls_s": walls["off"], "on_walls_s": walls["on"],
+          "on_over_off": sum(walls["on"]) / sum(walls["off"]),
           "card": card})
 
 
@@ -385,6 +431,7 @@ def main_path_stages(pipe, audio, bias, card: str) -> None:
     stages["loop_ms_per_step"] = 1e3 * stages["loop_s"] / max_new
     emit({"phase": "main_path_stages", "model": pipe.cfg.name,
           "dtype": pipe.cfg.compute_dtype, "quant": quant_flags(pipe.cfg),
+          "fused_step": bool(pipe.cfg.fused_step),
           **stages, "peak_gb": peaks, "card": card})
 
 
@@ -609,6 +656,232 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
     t_ops = flops / H100_FLOPS[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fused_inputs(B: int, L: int, H: int, dtype, seed: int):
+    """fused_decoder_step operands at width H*64 (ff = 4d), made on the
+    card from a seed: h0, the packed decoder (weights scaled by
+    1/sqrt(fan-in); non-trivial biases and LayerNorm vectors, bf16-valued
+    in bf16 as the live params are), a 448-slot self cache and 1500 cross
+    positions."""
+    import torch
+
+    from whisper_tpu_torch.ops.decoder_step import PackedDecoder, vec_offsets
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, ff = 64 * H, 256 * H
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    off = vec_offsets(d, ff)
+    vec = torch.randn((L, off["end"]), generator=g, device="cuda") * 0.1
+    for name in ("ln1_g", "ln2_g", "ln3_g"):
+        vec[:, off[name]:off[name] + d] += 1.0
+    packed = PackedDecoder(
+        wqkv=r(L, d, 3 * d, scale=d ** -0.5), wcq=r(L, d, d, scale=d ** -0.5),
+        wo=r(L, d, d, scale=d ** -0.5), wco=r(L, d, d, scale=d ** -0.5),
+        fc1=r(L, d, ff, scale=d ** -0.5), fc2=r(L, ff, d, scale=ff ** -0.5),
+        vec=vec.to(dtype).float())
+    return (r(B, d), packed, r(L, B, H, 448, 64), r(L, B, H, 448, 64),
+            r(L, B, H, 1500, 64), r(L, B, H, 1500, 64))
+
+
+def fused_layers(args, L: int):
+    """The first L layers of fused_inputs' operands (contiguous views)."""
+    from whisper_tpu_torch.ops.decoder_step import PackedDecoder
+    h0, packed, *caches = args
+    return (h0, PackedDecoder(*(t[:L] for t in packed)),
+            *(c[:L] for c in caches))
+
+
+def fused_checks(card: str) -> float:
+    """fused_vs_plain: the kernel against its plain version at tiny b32
+    (4 layers), turbo b32 (one layer and four) and tiny B = 1 and 3, fp32
+    and bf16, at pos 0, 4, 48 and 447 of the 448-slot cache; the largest
+    error on h_out, k_new and v_new per case. Returns the largest error of
+    the main path's case (tiny b32 bf16)."""
+    import torch
+
+    from whisper_tpu_torch.ops.decoder_step import (
+        fused_decoder_step,
+        fused_decoder_step_plain,
+    )
+    main_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = FUSED_TOL[str(dtype).split(".")[1]]
+        for model, H, B, depths in (("tiny", 6, BATCH, (4,)),
+                                    ("turbo", 20, BATCH, (1, 4)),
+                                    ("tiny", 6, 1, (4,)), ("tiny", 6, 3, (4,))):
+            full = fused_inputs(B, 4, H, dtype, seed=B + H)
+            for L in depths:
+                args = fused_layers(full, L)
+                for pos in FUSED_POS:
+                    got = fused_decoder_step(*args, pos + 1, n_heads=H)
+                    want = fused_decoder_step_plain(*args, pos + 1, n_heads=H)
+                    torch.cuda.synchronize()
+                    errs, ok = {}, True
+                    for name, a, b in zip(("h_out", "k_new", "v_new"), got,
+                                          want):
+                        e = (a.float() - b.float()).abs()
+                        errs[name] = float(e.max())
+                        ok = ok and bool((e <= atol + rtol * b.float().abs()
+                                          ).all())
+                    if (model, B, dtype) == ("tiny", BATCH, torch.bfloat16):
+                        main_err = max(main_err, *errs.values())
+                    emit({"phase": "fused_vs_plain", "model": model,
+                          "dtype": str(dtype), "batch": B, "layers": L,
+                          "heads": H, "pos": pos, "max_abs_err": errs,
+                          "atol": atol, "rtol": rtol, "ok": ok})
+                    require(ok, f"fused_decoder_step {model} {dtype} B={B} "
+                                f"L={L} pos={pos} disagrees with its plain "
+                                f"version ({errs})")
+                    del got, want
+            del full
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def fused_decoder_tree(packed, cfg, dtype, seed: int) -> dict:
+    """A params tree whose decoder holds the packed operands (the port's
+    stacked layout; biases and LayerNorm vectors in the compute dtype, as
+    weights.to_device leaves them), with random embeddings."""
+    import torch
+
+    from whisper_tpu_torch.ops.decoder_step import vec_offsets
+    d, ff = cfg.d_model, cfg.d_ff
+    off = vec_offsets(d, ff)
+    v = packed.vec.to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def seg(name, n=d):
+        return v[:, off[name]:off[name] + n]
+
+    def lin(w, name, n=d):
+        return {"w": w, "b": seg(name, n)}
+
+    def ln(i):
+        return {"g": seg(f"ln{i}_g"), "b": seg(f"ln{i}_b")}
+
+    layers = {"attn": {"qkv": lin(packed.wqkv, "qkv_b", 3 * d),
+                       "o": lin(packed.wo, "o_b")},
+              "cross_attn": {"q": lin(packed.wcq, "cq_b"),
+                             "o": lin(packed.wco, "co_b")},
+              "attn_ln": ln(1), "cross_ln": ln(2), "mlp_ln": ln(3),
+              "fc1": lin(packed.fc1, "fc1_b", ff),
+              "fc2": lin(packed.fc2, "fc2_b")}
+    emb = torch.randn((cfg.vocab_size, d), generator=g, device="cuda") * 0.02
+    pos = torch.randn((cfg.n_text_ctx, d), generator=g, device="cuda") * 0.02
+    return {"decoder": {"tok_emb": emb.to(dtype), "pos_emb": pos.to(dtype),
+                        "layers": layers,
+                        "ln": {"g": torch.ones(d, device="cuda"),
+                               "b": torch.zeros(d, device="cuda")}}}
+
+
+def fused_bound(B: int, L: int, H: int, pos: int, e: int, dtype: str
+                ) -> dict:
+    """The least time of one fused_decoder_step: every weight, the packed
+    fp32 vectors, the cross K/V and the pos live self rows read once, h0,
+    h_out, k_new and v_new once; the products (2 B L 14 d^2) and the
+    attention over pos + 1 self and 1500 cross keys."""
+    d, ff = 64 * H, 256 * H
+    moved = (L * 14 * d * d * e + L * (13 * d + ff) * 4
+             + 2 * L * B * H * (1500 + pos) * 64 * e
+             + 2 * B * d * e + 2 * L * B * H * 64 * e)
+    flops = 2 * B * L * 14 * d * d + 4 * B * L * H * (pos + 1 + 1500) * 64
+    return bound(moved, flops, dtype)
+
+
+def fused_time(card: str) -> dict:
+    """fused_time at tiny b32 and turbo b32 (4 layers), bf16 and fp32, pos
+    48: the kernel and its plain version in turns (CUDA events), the
+    kernel by CUDA-graph replay, and as context the whole step fused
+    (embeddings, kernel, append, logits) against the port's unfused
+    decoder_step_ip on a decoder of the same tensors, in turns and by
+    graph replay. Returns the kernels-line numbers (tiny b32 bf16)."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.decode import _make_fused_step
+    from whisper_tpu_torch.models.whisper import decoder_step_ip
+    from whisper_tpu_torch.ops.decoder_step import (
+        fused_decoder_step,
+        fused_decoder_step_plain,
+    )
+    out = {}
+    pos = FUSED_TIME_POS
+    for model, H, iters in (("tiny", 6, 20), (TURBO, 20, 10)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            args = fused_inputs(BATCH, 4, H, dtype, seed=11)
+            ms, plain_ms = alternate_ms(
+                lambda: fused_decoder_step_plain(*args, pos + 1, n_heads=H),
+                lambda: fused_decoder_step(*args, pos + 1, n_heads=H), iters)
+            kernel_graph_ms = graph_ms(
+                lambda: fused_decoder_step(*args, pos + 1, n_heads=H),
+                launches=20, replays=10)
+            cfg = get_config(model).replace(compute_dtype=name)
+            params = fused_decoder_tree(args[1], cfg, dtype, seed=12)
+            cache = {"k": args[2], "v": args[3]}
+            cross = {"k": args[4], "v": args[5]}
+            last = torch.randint(0, 50_000, (BATCH, 1), device="cuda")
+            fused = _make_fused_step(params, cfg, cross)
+
+            def step_fused():
+                fused(last, pos, cache)
+
+            def step_ip():
+                decoder_step_ip(params, cfg, last, pos, cache, cross)
+
+            step_ms, ip_ms = alternate_ms(step_ip, step_fused, iters)
+            bnd = fused_bound(BATCH, 4, H, pos, dtype.itemsize, name)
+            line = {"max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+                    **bnd, "library_ms": None}
+            emit({"phase": "fused_time", "model": model, "dtype": name,
+                  "batch": BATCH, "layers": 4, "pos": pos, **line,
+                  "graph_ms": kernel_graph_ms,
+                  "bound_share": bnd["bound_ms"] / kernel_graph_ms,
+                  "context_step_ms": {
+                      "fused": step_ms, "decoder_step_ip": ip_ms,
+                      "fused_graph": graph_ms(step_fused, 20, 10),
+                      "decoder_step_ip_graph": graph_ms(step_ip, 20, 10)},
+                  "card": card})
+            if model == "tiny" and dtype == torch.bfloat16:
+                out = line
+            del args, params, cache, cross, fused
+            torch.cuda.empty_cache()
+    return out
+
+
+def fused_step_logit_err(params, cfg, clips) -> float:
+    """One fused fp32 step's logits on the card against the CPU's, each
+    after its own prefill of the same clips: the largest abs difference."""
+    import torch
+
+    from whisper_tpu_torch.audio import log_mel_spectrogram
+    from whisper_tpu_torch.decode import (
+        _greedy_prefill,
+        _make_fused_step,
+        encode,
+    )
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    logits = {}
+    for device in ("cuda", "cpu"):
+        p = WhisperPipeline.from_params(params, cfg, dtype="float32",
+                                        device=device, quant="off")
+        wav = torch.from_numpy(clips).to(device)
+        enc = encode(p.params, p.cfg, log_mel_spectrogram(wav, p.cfg))
+        prompt = p.prompt(len(clips))
+        P = prompt.shape[1]
+        with torch.inference_mode():
+            cross, cache, _, pre = _greedy_prefill(p.params, p.cfg, enc,
+                                                   prompt, P + 2)
+            step = _make_fused_step(p.params, p.cfg, cross)
+            lg, _ = step(pre[:, -1].argmax(-1)[:, None], P, cache)
+        logits[device] = lg.float().cpu()
+        del p, wav, enc, cross, cache, pre
+    torch.cuda.empty_cache()
+    return float((logits["cuda"] - logits["cpu"]).abs().max())
 
 
 def ragged_positions(B: int, S: int, seed: int, outside=None) -> np.ndarray:
@@ -995,7 +1268,7 @@ def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
         for p_pad, count in engine.fill_buckets.items())
     line["expected"] = {"cache_append_rows_ragged": line["engine_steps"],
                         "cache_append_rows": 0, "encoder_block_tail": tail,
-                        "flash_attention": flash}
+                        "flash_attention": flash, "fused_decoder_step": 0}
     emit(line)
     for name, want in line["expected"].items():
         require(n[name] == want, f"{line['phase']}: {name} launches "
@@ -1183,6 +1456,7 @@ def main() -> int:
         decode_attention_q8,
         decode_attention_q8_bh,
     )
+    from whisper_tpu_torch.ops.decoder_step import fused_decoder_step
     from whisper_tpu_torch.ops.flash_attention import flash_attention
     from whisper_tpu_torch.pipeline import WhisperPipeline
     from whisper_tpu_torch.serving_continuous import ContinuousBatcher
@@ -1196,8 +1470,11 @@ def main() -> int:
                "flash_attention": flash_attention,
                "cache_append_rows_ragged": cache_append_rows_ragged,
                "decode_attention_q8_bh": decode_attention_q8_bh,
-               "decode_attention_q8": decode_attention_q8}
-    no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0}
+               "decode_attention_q8": decode_attention_q8,
+               "fused_decoder_step": fused_decoder_step}
+    # every greedy run without the fused step launches neither of these
+    no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0,
+             "fused_decoder_step": 0}
 
     # 1. card
     card = card_line()
@@ -1300,6 +1577,8 @@ def main() -> int:
     flash = flash_checks(card)
     q8 = q8_checks(card)
     append_int8_checks(card)
+    fused_err = fused_checks(card)
+    fused = fused_time(card)
 
     # 4. tiny main path: the bench workload through the pipeline
     params = weights.init_params(cfg, seed=0)
@@ -1312,6 +1591,26 @@ def main() -> int:
                         "cache_append_rows_ragged": 0, **no_q8}, card)
     tiny_launches = line["launches"]
     main_path_stages(pipe, audio, bias, card)
+
+    # 4'. the same workload with the fused decoder step: one
+    # fused_decoder_step and one append launch per loop step
+    fpipe = WhisperPipeline.from_params(params, cfg.replace(fused_step=True),
+                                        dtype="bfloat16", device="cuda",
+                                        quant="off")
+    frun, _, _, line = main_path(
+        fpipe, kernels, {"fused_decoder_step": GEN_TOKENS - 1,
+                         "cache_append_rows": GEN_TOKENS - 1,
+                         "encoder_block_tail": cfg.n_audio_layers,
+                         "flash_attention": 0, "cache_append_rows_ragged": 0,
+                         "decode_attention_q8_bh": 0,
+                         "decode_attention_q8": 0}, card,
+        label="fused_main_path")
+    fused_launches = line["launches"]
+    main_path_stages(fpipe, audio, bias, card)
+    fused_ab({"off": pipe, "on": fpipe}, audio, bias, card)
+    if opts.profile:
+        profile_path("tiny_fused", cfg, card, frun)
+    del fpipe, frun
     if opts.profile:
         profile_kernels(cfg, card, append_args)
         profile_path("tiny", cfg, card, run)
@@ -1365,6 +1664,22 @@ def main() -> int:
     parity = fp32_parity("tiny", params, clips, 12, tok16)
     emit({"phase": "fp32_parity", **parity})
 
+    # 5a. tiny fp32 with the fused step: the card against the CPU, and
+    # against the card's unfused tokens above
+    fcfg = cfg.replace(fused_step=True)
+    fparity = fp32_parity(fcfg, params, clips, 12, tok16)
+    fparity["tokens_equal_unfused"] = fparity["tokens"] == parity["tokens"]
+    fparity["step_logits_max_abs_err"] = fused_step_logit_err(params, fcfg,
+                                                              clips)
+    emit({"phase": "fused_fp32_parity", **fparity})
+    require(fparity["tokens_equal_unfused"],
+            "fused fp32 tokens differ from the unfused path's")
+    # 1e-4: one fp32 step of logits of order 10 on top of the prefill's
+    # own GPU/CPU difference (1e-5 here)
+    require(fparity["step_logits_max_abs_err"] < 1e-4,
+            f"fused fp32 step logits differ by "
+            f"{fparity['step_logits_max_abs_err']}")
+
     # 5b. tiny b32 fp32 with the int8 cross cache: every layer's cross
     # read at every step is one int8 decode kernel launch; then 2 clips x
     # 12 tokens against the port on the CPU
@@ -1375,6 +1690,7 @@ def main() -> int:
         qpipe, kernels, {"decode_attention_q8_bh":
                          cfg.n_text_layers * (GEN_TOKENS - 1),
                          "decode_attention_q8": 0,
+                         "fused_decoder_step": 0,
                          "cache_append_rows": GEN_TOKENS - 1,
                          "encoder_block_tail": cfg.n_audio_layers,
                          "flash_attention": 0,
@@ -1428,6 +1744,29 @@ def main() -> int:
                             "cache_append_rows_ragged": 0, **no_q8}, card)
         turbo_launches, turbo_peak = line["launches"], line["peak_mem_gb"]
         main_path_stages(pipe, audio, bias, card)
+
+        # 7'. turbo with the fused step, on the same device params
+        fpipe = WhisperPipeline.from_params(
+            pipe.params, tcfg.replace(fused_step=True), dtype="bfloat16",
+            device="cuda", vocab_path=vocab, quant="off")
+        _, _, _, line = main_path(
+            fpipe, kernels, {"fused_decoder_step": GEN_TOKENS - 1,
+                             "flash_attention": tcfg.n_audio_layers,
+                             "encoder_block_tail": 0,
+                             "cache_append_rows": GEN_TOKENS - 1,
+                             "cache_append_rows_ragged": 0,
+                             "decode_attention_q8_bh": 0,
+                             "decode_attention_q8": 0}, card,
+            label="fused_turbo")
+        emit({"phase": "fused_turbo_memory", "peak_mem_gb_fused":
+              line["peak_mem_gb"], "peak_mem_gb_unfused": turbo_peak,
+              "self_cache_gb_448": 2 * tcfg.n_text_layers * BATCH
+              * tcfg.n_heads * 448 * tcfg.head_dim * 2 / 1e9,
+              "self_cache_gb_128": 2 * tcfg.n_text_layers * BATCH
+              * tcfg.n_heads * 128 * tcfg.head_dim * 2 / 1e9, "card": card})
+        main_path_stages(fpipe, audio, bias, card)
+        fused_ab({"off": pipe, "on": fpipe}, audio, bias, card)
+        del fpipe
         if opts.profile:
             profile_path(TURBO, tcfg, card, run)
         clip = bench_audio(tcfg, 1)
@@ -1535,6 +1874,13 @@ def main() -> int:
          "replaces": "whisper_tpu/ops/decode_attention.py:525",
          "launches": q8_launches["decode_attention_q8"],
          **q8["decode_attention_q8"]},
+        # timed at tiny b32 bf16, pos 48; its error over fused_vs_plain's
+        # tiny b32 bf16 cases; no PyTorch call computes a decoder step
+        {"name": "fused_decoder_step", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decoder_step.cu",
+         "replaces": "whisper_tpu/ops/decoder_step.py:320",
+         "launches": fused_launches["fused_decoder_step"],
+         **fused, "max_abs_err": fused_err},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,333 @@
+"""The port's fused decoder step (whisper_tpu_torch/ops/decoder_step.py and
+its gate in decode.py) against the JAX package's, on the CPU at the nano
+width (d=64, 2 heads of 32, 2 + 2 layers): the plain version against
+JAX's Pallas kernel in interpret mode (as tests/test_fused_step.py runs
+it), chained steps, greedy tokens, the gate and the packing."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_tpu import decode as jax_decode
+from whisper_tpu.models.whisper import decoder_forward as jax_decoder_forward
+from whisper_tpu.models.whisper import init_kv_cache as jax_init_kv_cache
+from whisper_tpu.models.whisper import init_params as jax_init_params
+from whisper_tpu.models.whisper import (
+    precompute_cross_kv as jax_precompute_cross_kv,
+)
+from whisper_tpu.ops.decoder_step import fused_decoder_step as jax_fused_step
+from whisper_tpu.ops.decoder_step import pack_misc, split_weights
+from whisper_tpu.tokenizer import build_prompt
+from whisper_tpu.weights import to_device as jax_to_device
+from whisper_tpu_torch import decode
+from whisper_tpu_torch.decode import greedy_decode
+from whisper_tpu_torch.ops.decoder_step import (
+    fused_decoder_step,
+    pack_decoder_weights,
+    vec_offsets,
+)
+from whisper_tpu_torch.weights import from_jax_params, to_device
+
+torch.set_num_threads(2)
+
+# fp32: JAX's own bound for the fused step against the XLA path
+# (tests/test_fused_step.py:52-59); bf16: its bf16 bound (:98-100), about
+# one bf16 ulp of O(1) values where the two sum in other orders
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+DTYPES = {"float32": (torch.float32, jnp.float32),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.fixture(scope="module")
+def nano(small_cfg):
+    """Nano params with non-trivial biases and LayerNorm parameters (a
+    random init's are zeros and ones), as a numpy tree."""
+    tree = jax.tree.map(np.asarray,
+                        jax_init_params(small_cfg, jax.random.PRNGKey(11)))
+    rng = np.random.RandomState(12)
+    layers = tree["decoder"]["layers"]
+
+    def perturb(sub):
+        for name, leaf in sub.items():
+            if isinstance(leaf, dict):
+                perturb(leaf)
+            elif name == "b":
+                sub[name] = (0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+            elif name == "g":
+                sub[name] = (1 + 0.2 * rng.randn(*leaf.shape)
+                             ).astype(np.float32)
+    perturb(layers)
+    return small_cfg, tree
+
+
+def _jax_tree(tree, dtype: str):
+    jt = jax.tree.map(jnp.asarray, tree)
+    return jt if dtype == "float32" else jax_to_device(jt, jnp.bfloat16)
+
+
+def _port_tree(tree, dtype: str):
+    return to_device(from_jax_params(tree), "cpu",
+                     None if dtype == "float32" else torch.bfloat16)
+
+
+def _head_outer(x: np.ndarray) -> np.ndarray:
+    """(L, B, H, S, D) -> JAX's kernel layout (L, H*B, S, D)."""
+    L, B, H, S, D = x.shape
+    return x.transpose(0, 2, 1, 3, 4).reshape(L, H * B, S, D)
+
+
+def _from_head_outer_rows(x: np.ndarray, B: int) -> np.ndarray:
+    """JAX's (L, H*B, D) rows -> the port's (L, B, H, D)."""
+    L, HB, D = x.shape
+    return x.reshape(L, HB // B, B, D).transpose(0, 2, 1, 3)
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [2, 3])
+@pytest.mark.parametrize("pos", [0, 5, 447])
+def test_plain_step_matches_jax_interpret(nano, dtype, B, pos):
+    """h_out, k_new and v_new of one step over random caches: the port's
+    fused_decoder_step (its plain version on the CPU) against JAX's kernel
+    in interpret mode on the same operands, at pos 0 (no cache row read),
+    5 and 447 (the last slot of the 448-slot cache)."""
+    cfg, tree = nano
+    tdt, jdt = DTYPES[dtype]
+    L, H, D, d = cfg.n_text_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+    rng = np.random.RandomState(100 * B + pos)
+    h0 = rng.randn(B, d).astype(np.float32)
+    sk, sv = (rng.randn(L, B, H, cfg.n_text_ctx, D).astype(np.float32)
+              for _ in range(2))
+    ck, cv = (rng.randn(L, B, H, cfg.n_audio_ctx, D).astype(np.float32)
+              for _ in range(2))
+
+    layers = _jax_tree(tree, dtype)["decoder"]["layers"]
+    wqkv, wcq, wo, wco = split_weights(layers, H, jdt)
+    want = jax_fused_step(
+        jnp.asarray(h0, jdt), wqkv, wcq, wo, wco,
+        layers["fc1"]["w"].astype(jdt), layers["fc2"]["w"].astype(jdt),
+        *pack_misc(layers, H),
+        *(jnp.asarray(_head_outer(x), jdt) for x in (sk, sv, ck, cv)),
+        pos + 1, n_layers=L, n_heads=H, eps=cfg.ln_eps, interpret=True)
+
+    packed = pack_decoder_weights(
+        _port_tree(tree, dtype)["decoder"]["layers"], tdt)
+    launches = fused_decoder_step.launches
+    got = fused_decoder_step(
+        torch.from_numpy(h0).to(tdt), packed,
+        *(torch.from_numpy(x).to(tdt) for x in (sk, sv, ck, cv)),
+        pos + 1, n_heads=H, eps=cfg.ln_eps)
+    assert fused_decoder_step.launches == launches   # the CPU runs no kernel
+    tol = TOL[dtype]
+    for name, g, w in (("h_out", got[0], _f32(want[0])),
+                       ("k_new", got[1], _from_head_outer_rows(_f32(want[1]),
+                                                               B)),
+                       ("v_new", got[2], _from_head_outer_rows(_f32(want[2]),
+                                                               B))):
+        assert g.dtype == tdt, name
+        np.testing.assert_allclose(_f32(g), w, rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+def _prefill(cfg, tree, B: int):
+    """JAX prefill of the SOT prompt into a 448-slot cache (the fused
+    gate's size) over a random encoder output: (jax params, jax cache,
+    jax cross K/V, first tokens, the same cache and cross K/V in torch)."""
+    jparams = jax.tree.map(jnp.asarray, tree)
+    enc = jnp.asarray(np.random.RandomState(3).randn(
+        B, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+    cross = jax_precompute_cross_kv(jparams, cfg, enc)
+    prompt = jnp.asarray(np.tile(build_prompt(cfg), (B, 1)), jnp.int32)
+    cache = jax_init_kv_cache(cfg, B)
+    logits, cache = jax_decoder_forward(jparams, cfg, prompt, jnp.int32(0),
+                                        cache, cross)
+    first = jnp.argmax(logits[:, -1, :], axis=-1).astype(jnp.int32)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    return (jparams, cache, cross, first, {n: t(cache[n]) for n in "kv"},
+            {n: t(cross[n]) for n in "kv"}, prompt.shape[1])
+
+
+def test_three_chained_steps_match_jax(nano):
+    """Three fused steps through the port's _make_fused_step against JAX's
+    (interpret mode), each fed JAX's argmax: logits within 1e-4 and the
+    same argmax at every step; the port's appends land where JAX's
+    dynamic_update_slice writes."""
+    cfg, tree = nano
+    cfg = cfg.replace(fused_step=True)
+    B = 2
+    jparams, jcache, jcross, first, cache, cross, P = _prefill(cfg, tree, B)
+    jstep, jcache = jax_decode._make_fused_step(jparams, cfg, jcache, jcross)
+    step = decode._make_fused_step(_port_tree(tree, "float32"), cfg, cross)
+    last = first[:, None]
+    for i in range(3):
+        want, jcache = jstep(last, jnp.int32(P + i), jcache)
+        got, cache = step(torch.from_numpy(np.array(last)).long(), P + i,
+                          cache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+        nxt = np.asarray(jnp.argmax(want[:, -1, :], axis=-1))
+        np.testing.assert_array_equal(got[:, -1].argmax(-1).numpy(), nxt)
+        last = jnp.asarray(nxt[:, None], jnp.int32)
+    L, _, H, S, D = cache["k"].shape
+    back = np.asarray(jcache["k"]).reshape(L, H, B, S, D).transpose(
+        0, 2, 1, 3, 4)
+    np.testing.assert_allclose(cache["k"][:, :, :, :P + 3].numpy(),
+                               back[:, :, :, :P + 3], rtol=1e-4, atol=1e-5)
+
+
+def test_fused_greedy_tokens_match_jax_and_unfused(nano):
+    """Greedy fp32 with fused_step=True: tokens and lengths identical to
+    JAX greedy_decode with the fused step and to the port's unfused path,
+    sum_logprobs within 1e-4 (max_new=19: a cap no other test decodes the
+    nano config with)."""
+    cfg, tree = nano
+    B = 2
+    rng = np.random.RandomState(4)
+    enc = rng.randn(B, cfg.n_audio_ctx, cfg.d_model).astype(np.float32)
+    prompt = np.tile(build_prompt(cfg), (B, 1))
+    fcfg = cfg.replace(fused_step=True)
+    want = jax_decode.greedy_decode(jax.tree.map(jnp.asarray, tree), fcfg,
+                                    jnp.asarray(enc),
+                                    jnp.asarray(prompt, jnp.int32), max_new=19)
+    params = _port_tree(tree, "float32")
+    runs = {}
+    for name, c in (("fused", fcfg), ("unfused", cfg)):
+        runs[name] = greedy_decode(params, c, torch.from_numpy(enc),
+                                   torch.from_numpy(prompt), max_new=19)
+    for name, got in runs.items():
+        np.testing.assert_array_equal(got.tokens.numpy(),
+                                      np.asarray(want.tokens), err_msg=name)
+        np.testing.assert_array_equal(got.lengths.numpy(),
+                                      np.asarray(want.lengths), err_msg=name)
+        np.testing.assert_allclose(got.sum_logprobs.numpy(),
+                                   np.asarray(want.sum_logprobs), atol=1e-4,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_fused_path_runs_the_fused_step(nano, monkeypatch):
+    """With the gate on, every loop step goes through fused_decoder_step
+    once and the prefill allocates n_text_ctx slots; with it off, neither."""
+    cfg, tree = nano
+    monkeypatch.delenv("WHISPER_TPU_FUSED", raising=False)
+    calls, slots = [], []
+    real_step, real_cache = decode.fused_decoder_step, decode.init_kv_cache
+
+    def counting_step(*a, **kw):
+        calls.append(kw)
+        return real_step(*a, **kw)
+
+    def recording_cache(cfg, batch, dtype, s_max, device):
+        slots.append(s_max)
+        return real_cache(cfg, batch, dtype, s_max, device)
+    monkeypatch.setattr(decode, "fused_decoder_step", counting_step)
+    monkeypatch.setattr(decode, "init_kv_cache", recording_cache)
+    params = _port_tree(tree, "float32")
+    enc = torch.zeros(1, cfg.n_audio_ctx, cfg.d_model)
+    prompt = torch.tensor([build_prompt(cfg)])
+    bias = torch.zeros(cfg.vocab_size)
+    bias[cfg.eot_token] = -1e9
+    for fused, want_calls, want_slots in ((True, 6, 448), (False, 0, 64)):
+        calls.clear()
+        slots.clear()
+        greedy_decode(params, cfg.replace(fused_step=fused), enc, prompt,
+                      max_new=6, logit_bias=bias)
+        assert len(calls) == want_calls and slots == [want_slots]
+
+
+_FLAGS = [{}, {"kv_cache_quant": True}, {"cross_kv_quant": True},
+          {"weight_quant": True}, {"self_kv_quant": True}]
+
+
+@pytest.mark.parametrize("flags", _FLAGS, ids=lambda f: "+".join(f) or "none")
+@pytest.mark.parametrize("fused", [None, True, False])
+@pytest.mark.parametrize("env", [None, "0", "1"])
+def test_gate_and_cache_slots_match_jax(small_cfg, monkeypatch, flags, fused,
+                                        env):
+    """_fused_step_enabled and _cache_slots answer as JAX's for every quant
+    flag, cfg.fused_step and WHISPER_TPU_FUSED; the default is off."""
+    if env is None:
+        monkeypatch.delenv("WHISPER_TPU_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("WHISPER_TPU_FUSED", env)
+    cfg = small_cfg.replace(fused_step=fused, **flags)
+    on = decode._fused_step_enabled(cfg)
+    assert on == jax_decode._fused_step_enabled(cfg)
+    if not flags and fused is None and env is None:
+        assert on is False
+    for total in (1, 23, 93, 200, 449):
+        assert (decode._cache_slots(cfg, total)
+                == jax_decode._cache_slots(cfg, total))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_packing_matches_jax_without_head_padding(nano, dtype):
+    """pack_decoder_weights equals JAX's split_weights and pack_misc once
+    the 128-lane head padding is stripped, and passes the params' matrices
+    through without a copy."""
+    cfg, tree = nano
+    tdt, jdt = DTYPES[dtype]
+    H, D, d = cfg.n_heads, cfg.head_dim, cfg.d_model
+    L, ff = cfg.n_text_layers, cfg.d_ff
+    layers = _jax_tree(tree, dtype)["decoder"]["layers"]
+    wqkv, wcq, wo, wco = (np.asarray(jnp.asarray(x, jnp.float32))
+                          for x in split_weights(layers, H, jdt))
+    qkvb, fc1b, miscp, miscd = (np.asarray(x) for x in pack_misc(layers, H))
+    Dhp = wcq.shape[-1] // H
+
+    def cols(x, n):       # (..., n*H*Dhp) -> (..., n*H*D)
+        return x.reshape(*x.shape[:-1], n * H, Dhp)[..., :D].reshape(
+            *x.shape[:-1], n * H * D)
+
+    def rows(x):          # (L, H*Dhp, d) -> (L, H*D, d)
+        return x.reshape(L, H, Dhp, d)[:, :, :D].reshape(L, H * D, d)
+
+    port_layers = _port_tree(tree, dtype)["decoder"]["layers"]
+    got = pack_decoder_weights(port_layers, tdt)
+    for name, want in (("wqkv", cols(wqkv, 3)), ("wcq", cols(wcq, 1)),
+                       ("wo", rows(wo)), ("wco", rows(wco)),
+                       ("fc1", np.asarray(layers["fc1"]["w"], np.float32)),
+                       ("fc2", np.asarray(layers["fc2"]["w"], np.float32))):
+        t = getattr(got, name)
+        assert t.dtype == tdt, name
+        np.testing.assert_array_equal(t.float().numpy(), want, err_msg=name)
+    assert got.wqkv.data_ptr() == port_layers["attn"]["qkv"]["w"].data_ptr()
+    assert got.fc2.data_ptr() == port_layers["fc2"]["w"].data_ptr()
+    off = vec_offsets(d, ff)
+    vec = got.vec.numpy()
+    assert got.vec.dtype == torch.float32 and vec.shape == (L, off["end"])
+    np.testing.assert_array_equal(vec[:, :3 * d], cols(qkvb[:, 0], 3))
+    np.testing.assert_array_equal(vec[:, off["fc1_b"]:off["fc1_b"] + ff],
+                                  fc1b[:, 0])
+    np.testing.assert_array_equal(vec[:, off["cq_b"]:off["cq_b"] + d],
+                                  cols(miscp[:, 0], 1))
+    np.testing.assert_array_equal(vec[:, off["o_b"]:], miscd[:, 0])
+
+
+def test_wrapper_refuses_bad_operands(nano):
+    """pos outside the cache raises on the CPU too; int8 trees are refused
+    by the packing (the gate keeps them off the fused step)."""
+    cfg, tree = nano
+    L, H, D, d = cfg.n_text_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+    packed = pack_decoder_weights(_port_tree(tree, "float32")[
+        "decoder"]["layers"], torch.float32)
+    sk = torch.zeros(L, 1, H, 8, D)
+    ck = torch.zeros(L, 1, H, 16, D)
+    h0 = torch.zeros(1, d)
+    for kv_len in (0, 9):
+        with pytest.raises(IndexError, match="outside"):
+            fused_decoder_step(h0, packed, sk, sk, ck, ck, kv_len, n_heads=H)
+    with pytest.raises(ValueError, match="shape"):
+        fused_decoder_step(h0, packed, sk[:, :, :1], sk, ck, ck, 3, n_heads=H)
+    layers = dict(_port_tree(tree, "float32")["decoder"]["layers"])
+    layers["fc1"] = {**layers["fc1"], "w_s": torch.ones(L, cfg.d_ff)}
+    with pytest.raises(ValueError, match="int8"):
+        pack_decoder_weights(layers, torch.float32)

@@ -21,6 +21,12 @@ from whisper_tpu_torch.ops.decode_attention import (
     decode_attention_q8_bh,
     decode_attention_q8_plain,
 )
+from whisper_tpu_torch.ops.decoder_step import (
+    PackedDecoder,
+    fused_decoder_step,
+    fused_decoder_step_plain,
+    vec_offsets,
+)
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     encoder_block_tail_plain,
@@ -442,4 +448,121 @@ def test_int8_greedy_on_the_card_matches_the_cpu(dev, flags):
         if device == "cuda":
             want = (cfg.n_text_layers * 10 if cfg.cross_kv_quant else 0)
             assert decode_attention_q8_bh.launches - before == want
+    assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# fused_decoder_step: the whole T==1 decoder step in one cooperative launch
+# ---------------------------------------------------------------------------
+
+def _fused_args(B, L, H, ff, S, Sc, dtype, dev, seed=0):
+    """h0, packed operands with non-trivial biases and LayerNorm vectors,
+    and random self and cross caches (L, B, H, S, 64)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d = 64 * H
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dev, dtype)
+
+    off = vec_offsets(d, ff)
+    vec = torch.randn(L, off["end"], generator=g) * 0.1
+    for name in ("ln1_g", "ln2_g", "ln3_g"):
+        vec[:, off[name]:off[name] + d] += 1.0
+    if dtype == torch.bfloat16:     # the live params' values are bf16
+        vec = vec.bfloat16().float()
+    packed = PackedDecoder(
+        wqkv=r(L, d, 3 * d, scale=0.05), wcq=r(L, d, d, scale=0.05),
+        wo=r(L, d, d, scale=0.05), wco=r(L, d, d, scale=0.05),
+        fc1=r(L, d, ff, scale=0.05), fc2=r(L, ff, d, scale=0.05),
+        vec=vec.to(dev))
+    return (r(B, d), packed, r(L, B, H, S, 64), r(L, B, H, S, 64),
+            r(L, B, H, Sc, 64), r(L, B, H, Sc, 64))
+
+
+# fp32 1e-4: fp32 FMAs against cuBLAS fp32 through 4 layers, summed in
+# other orders; bf16 atol 0.06 / rtol 2e-2: one bf16 ulp of O(4) values,
+# where a sum in another order lands on the other side of a rounding point
+_FUSED_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.06, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 3, 32])
+@pytest.mark.parametrize("pos", [0, 5, 447])
+def test_fused_step_kernel_matches_plain(dev, dtype, B, pos):
+    """Whisper-tiny's decoder (d=384, 6 heads, ff=1536, 4 layers), a
+    448-slot self cache and 1500 cross positions."""
+    args = _fused_args(B, 4, 6, 1536, 448, 1500, dtype, dev, seed=pos)
+    before = fused_decoder_step.launches
+    got = fused_decoder_step(*args, pos + 1, n_heads=6)
+    torch.cuda.synchronize()
+    assert fused_decoder_step.launches == before + 1
+    want = fused_decoder_step_plain(*args, pos + 1, n_heads=6)
+    atol, rtol = _FUSED_TOL[dtype]
+    for name, a, b in zip(("h_out", "k_new", "v_new"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 5, 200])
+def test_fused_step_kernel_never_reads_rows_at_or_past_pos(dev, dtype, pos):
+    args = _fused_args(3, 2, 6, 1536, 448, 1500, dtype, dev, seed=7)
+    clean = fused_decoder_step(*args, pos + 1, n_heads=6)
+    for cache in args[2:4]:
+        cache[:, :, :, pos:] = float("nan")
+    got = fused_decoder_step(*args, pos + 1, n_heads=6)
+    torch.cuda.synchronize()
+    for a, b in zip(got, clean):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+def test_fused_step_kernel_refuses_what_it_does_not_take(dev):
+    h0, packed, sk, sv, ck, cv = _fused_args(2, 1, 2, 512, 16, 32,
+                                             torch.float32, dev)
+    with pytest.raises(IndexError, match="outside"):
+        fused_decoder_step(h0, packed, sk, sv, ck, cv, 17, n_heads=2)
+    with pytest.raises(ValueError, match="head_dim"):      # 4 heads of 32
+        fused_decoder_step(h0, packed, sk.reshape(1, 2, 4, 16, 32),
+                           sv.reshape(1, 2, 4, 16, 32),
+                           ck.reshape(1, 2, 4, 32, 32),
+                           cv.reshape(1, 2, 4, 32, 32), 3, n_heads=4)
+    with pytest.raises(TypeError, match="int8"):
+        fused_decoder_step(h0, packed, sk.to(torch.int8), sv.to(torch.int8),
+                           ck, cv, 3, n_heads=2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fused_decoder_step(h0, packed, sk,
+                           sv.transpose(3, 4).contiguous().transpose(3, 4),
+                           ck, cv, 3, n_heads=2)
+
+
+def test_fused_greedy_on_the_card_matches_the_cpu(dev):
+    """Greedy fp32 at a head_dim-64 nano width with the fused step: one
+    fused_decoder_step and one append launch per loop step, and the card's
+    tokens equal the CPU's plain path."""
+    import numpy as np
+
+    from whisper_tpu_torch import get_config, weights
+    from whisper_tpu_torch.decode import greedy_decode
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = get_config("tiny").replace(name="cuda-fused-nano", d_model=128,
+                                     n_heads=2, n_audio_layers=2,
+                                     n_text_layers=2, fused_step=True)
+    params = weights.init_params(cfg, seed=5)
+    enc = torch.from_numpy(np.random.RandomState(1).randn(
+        2, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+    prompt = torch.tensor([build_prompt(cfg)] * 2)
+    bias = torch.zeros(cfg.vocab_size)
+    bias[cfg.eot_token] = -1e9              # EOT banned: all 10 steps run
+    toks = {}
+    for device in ("cpu", "cuda"):
+        p = weights.to_device(params, device)
+        fused, append = fused_decoder_step.launches, cache_append_rows.launches
+        res = greedy_decode(p, cfg, enc.to(device), prompt.to(device),
+                            max_new=10, logit_bias=bias.to(device))
+        toks[device] = res.tokens.cpu()
+        if device == "cuda":
+            assert fused_decoder_step.launches - fused == 10
+            assert cache_append_rows.launches - append == 10
     assert torch.equal(toks["cuda"], toks["cpu"])

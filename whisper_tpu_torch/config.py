@@ -10,8 +10,10 @@ whisper_tpu.config.WhisperConfig handed to it works the same.
 The int8 fields drive the port's int8 serving stack (weight_quant,
 kv_cache_quant, cross_kv_quant, self_kv_quant); encoder_quant, and the
 two encoder flags where the fused tail runs, raise NotImplementedError
-(models/whisper.py encoder_forward). fused_step is carried so that the
-dataclasses stay field-for-field equal. `apply_serving_quant` is the JAX
+(models/whisper.py encoder_forward). fused_step drives the greedy loop
+as in the JAX package: True (or WHISPER_TPU_FUSED=1) takes the fused
+decoder step (decode._fused_step_enabled), None is the auto policy, off.
+`apply_serving_quant` is the JAX
 package's serving policy (:244), answer for answer: every gate in it was
 set by TPU measurements, so the port's pipeline applies it only when
 asked (`quant="auto"`; the default is "off").

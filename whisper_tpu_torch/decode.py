@@ -4,10 +4,13 @@ detect_language).
 
 The JAX package runs the loop on the device inside one jitted
 while_loop. The port drives a Python loop of T==1 steps whose tensors
-never leave the card: decoder_step_ip, or under kv_cache_quant a T==1
-decoder_forward, as the JAX step choice has it (:266-284). The host
-reads one boolean every POLL_EVERY steps to stop early once every row
-has emitted EOT. Results
+never leave the card, with the JAX step choice (:256-284): the fused
+decoder step when `_fused_step_enabled` (cfg.fused_step or
+WHISPER_TPU_FUSED=1, never with int8 weights or caches) — one
+fused_decoder_step launch for all layers plus one append — else
+decoder_step_ip, or under kv_cache_quant a T==1 decoder_forward. The
+host reads one boolean every POLL_EVERY steps to stop early once every
+row has emitted EOT. Results
 equal the step-wise loop's: finished rows keep re-emitting EOT (the
 buffer's padding) and their sum_logprobs stays frozen
 (whisper_tpu/decode.py:297-316), so the steps after the last finish
@@ -17,10 +20,10 @@ change nothing.
 every pick, the first included (:229-232). Temperature sampling and beam
 search are not ported yet (ROADMAP Queue 1 item 9) and raise.
 """
-
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -32,9 +35,16 @@ from whisper_tpu_torch.models.whisper import (
     decoder_forward,
     decoder_step_ip,
     encoder_forward,
+    final_logits,
     full_fp32,
     init_kv_cache,
     precompute_cross_kv,
+    tok_embed,
+)
+from whisper_tpu_torch.ops.cache_append import cache_append_rows
+from whisper_tpu_torch.ops.decoder_step import (
+    fused_decoder_step,
+    pack_decoder_weights,
 )
 
 POLL_EVERY = 8   # steps between the host's early-exit checks
@@ -59,10 +69,52 @@ def _lengths(tokens: torch.Tensor, P: int, eot: int) -> torch.Tensor:
     return P + gen_len
 
 
+def _fused_step_enabled(cfg: WhisperConfig) -> bool:
+    """Whether greedy decoding takes the fused decoder step (:41), rule
+    for rule: never with int8 weights or caches; WHISPER_TPU_FUSED, when
+    set, decides ("1" on, anything else off); then cfg.fused_step; else
+    off, the JAX auto policy. Read at every call: the port has no trace
+    cache to freeze it."""
+    if cfg.kv_cache_quant or cfg.cross_kv_quant or cfg.weight_quant:
+        return False
+    env = os.environ.get("WHISPER_TPU_FUSED")
+    if env is not None:
+        return env == "1"
+    if cfg.fused_step is not None:
+        return cfg.fused_step
+    return False
+
+
 def _cache_slots(cfg: WhisperConfig, total: int) -> int:
     """Self-cache slots for a decode capped at `total` positions, rounded
-    up to 64 (:180): 128 for the bench's 4 + 89 tokens."""
+    up to 64 (:180): 128 for the bench's 4 + 89 tokens; n_text_ctx when
+    the fused step is on, as the JAX gate allocates."""
+    if _fused_step_enabled(cfg):
+        return cfg.n_text_ctx
     return min(cfg.n_text_ctx, -(-total // 64) * 64)
+
+
+def _make_fused_step(params, cfg: WhisperConfig, cross_kv):
+    """The fused step closure (:70): the decoder's operands packed once
+    per transcription, then per step the embeddings, one
+    fused_decoder_step launch for every layer, one cache_append_rows
+    launch writing every layer's new row at `pos` (where JAX writes with
+    a dynamic_update_slice), and the logits. The caches keep the port's
+    layout: no head-outer copy. step(last (B, 1), pos, cache) ->
+    (logits (B, 1, vocab) fp32, cache)."""
+    dec = params["decoder"]
+    dtype = compute_dtype(cfg)
+    packed = pack_decoder_weights(dec["layers"], dtype)
+
+    def step(last, pos, cache):
+        h0 = tok_embed(dec, last[:, 0], dtype) + dec["pos_emb"][pos].to(dtype)
+        h_out, k_new, v_new = fused_decoder_step(
+            h0, packed, cache["k"], cache["v"], cross_kv["k"], cross_kv["v"],
+            pos + 1, n_heads=cfg.n_heads, eps=cfg.ln_eps)
+        cache_append_rows(cache["k"], cache["v"], k_new, v_new, pos)
+        return final_logits(params, cfg, h_out[:, None, :]), cache
+
+    return step
 
 
 def _greedy_prefill(params, cfg: WhisperConfig, enc_out: torch.Tensor,
@@ -103,9 +155,10 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
                  prefill_logits, prompt, logit_bias, max_new: int,
                  opts: Optional[DecodeOptions] = None) -> DecodeResult:
     """First pick, no-speech probability, then up to max_new T==1 steps
-    (:216). Each step is decoder_step_ip (one in-place append; it reads
-    an int8 self cache scale-commuted), or a T==1 decoder_forward when
-    every cache is int8 (kv_cache_quant)."""
+    (:216). Each step is the fused step when `_fused_step_enabled` and
+    the self cache is not int8 (:266-268), else decoder_step_ip (one
+    in-place append; it reads an int8 self cache scale-commuted), or a
+    T==1 decoder_forward when every cache is int8 (kv_cache_quant)."""
     B, P = prompt.shape
     eot = cfg.eot_token
     first, sum_lp = _pick(prefill_logits, logit_bias, opts, cfg, tokens, P,
@@ -119,12 +172,18 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
     no_speech_prob = torch.softmax(sot_logits.float(), dim=-1
                                    )[:, cfg.no_speech_token]
 
-    step = decoder_forward if cfg.kv_cache_quant else decoder_step_ip
+    if _fused_step_enabled(cfg) and "k_s" not in cache:
+        step = _make_fused_step(params, cfg, cross_kv)
+    else:
+        layer_step = decoder_forward if cfg.kv_cache_quant else decoder_step_ip
+
+        def step(last, pos, cache):
+            return layer_step(params, cfg, last, pos, cache, cross_kv)
     for i in range(max_new):
         if i % POLL_EVERY == 0 and bool(finished.all()):
             break
         last = tokens[:, P + i:P + i + 1]
-        logits, cache = step(params, cfg, last, P + i, cache, cross_kv)
+        logits, cache = step(last, P + i, cache)
         picked, lp = _pick(logits, logit_bias, opts, cfg, tokens, P + i + 1,
                            P)
         live = ~finished

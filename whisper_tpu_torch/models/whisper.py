@@ -24,10 +24,12 @@ Differences from the JAX module, all deliberate:
   * The self cache is updated IN PLACE: decoder_forward writes the prompt
     rows into the given tensors and decoder_step_ip appends with the
     in-place kernel; both also return the cache for symmetry with JAX.
-  * The decode step is always decoder_step_ip (read-only cache inside the
-    layer loop, the current token as an extra softmax term, one append
-    after the loop), in fp32 as in bf16. The JAX package pins it to the
-    append-first step (tests/test_cache_append.py:129-199).
+  * Outside the fused step (decode._make_fused_step, one
+    fused_decoder_step launch for every layer) the decode step is
+    decoder_step_ip (read-only cache inside the layer loop, the current
+    token as an extra softmax term, one append after the loop), in fp32
+    as in bf16; the JAX package runs decoder_step_t in fp32 and pins the
+    append-first step in its tests (tests/test_cache_append.py:129-199).
   * fp32 products run in full fp32 only with TF32 off on the card
     (`full_fp32`): JAX runs HIGHEST precision at every fp32 product.
   * Self-attention reads one fused (d, 3d) `qkv` linear, which

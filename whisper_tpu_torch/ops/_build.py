@@ -133,6 +133,18 @@ def load_library() -> ctypes.CDLL:
         I, I, I, I, I,         # B, H, S, D, kv_len
         I, P]                  # q_is_bf16, stream
     lib.wt_decode_attention_q8.restype = I
+    lib.wt_fused_decoder_step.argtypes = [
+        P, P, P, P, P, P, P,   # h0, wqkv, wcq, wo, wco, fc1, fc2
+        P,                     # vec (fp32)
+        P, P, P, P,            # self_k, self_v, cross_k, cross_v
+        P, P, P,               # h_out, k_new, v_new
+        P, L,                  # scratch (fp32) and its length
+        I, I, I, I, I, I,      # L, B, H, D, d, ff
+        I, I, I,               # S_self, S_cross, kv_len
+        F, I, P]               # eps, is_bf16, stream
+    lib.wt_fused_decoder_step.restype = I
+    lib.wt_fused_decoder_step_scratch.argtypes = [I, I, I, I]   # B, H, d, ff
+    lib.wt_fused_decoder_step_scratch.restype = L
     lib.wt_error_string.argtypes = [I]
     lib.wt_error_string.restype = ctypes.c_char_p
     return lib
