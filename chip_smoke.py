@@ -24,13 +24,22 @@ unfused step, the tiny b32 bf16 workload with the fused step (one
 fused_decoder_step and one append launch per loop step) timed against
 the unfused path in turns, tiny fp32 with the fused step against the CPU
 and the unfused tokens, and turbo b32 bf16 with the fused step at full
-width and depth.
+width and depth. Then the attention backend switch (cfg.attn_backend):
+the fp32/bf16 decode kernel's three wrappers (decode_attention_bh,
+decode_attention_bg, decode_attention) against their plain versions with
+NaN in the dead rows and timed beside the bound and SDPA; tiny and turbo
+b32 bf16 under "pallas" with WHISPER_TPU_IP_CROSS=bg8 (every cross read
+of the loop one decode_attention_bg launch) timed against the default
+path in turns; tiny b32 bf16 with kv_cache_quant under "pallas" (every
+T==1 step read one decode_attention_bh launch) and its fp32 tokens
+against the CPU; and the tiny engine under "pallas".
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--profile` adds the kernels' build timed serial against parallel, and
-after each greedy main path: the wall of five more main-path runs, the
+after each greedy main path (of the "pallas" ones, tiny's): the wall of
+five more main-path runs, the
 peak device memory, and one main-path run under torch.profiler (device
 time by kernel); for tiny also the fp32 tail
 against its plain version at b32, the append's device time under
@@ -50,6 +59,7 @@ imports jax.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -86,6 +96,12 @@ Q8_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
 # its plain version) through 8 layers, at ~0.01 per logit of a tiny random
 # model; 0.1 leaves room over the largest of ~400k logits
 SERVING_LOGITS_ATOL = 0.1
+# fp32 prefill logits on the card against the CPU under kv_cache_quant:
+# each device rounds the prompt's self K/V rows to int8, and an fp32
+# difference of ~1e-6 at a rounding boundary moves a value by one int8 step
+# (max|row| / 127); over a 4-token self read that reaches the logits at
+# ~1.5e-3 (the unquantized bound, 1e-3, holds everywhere else)
+KVQ_LOGITS_ATOL = 1e-2
 # the fused decoder step against its plain version. fp32: fp32 FMAs
 # against cuBLAS fp32 through up to 4 layers and two softmaxes, summed in
 # other orders. bf16: one bf16 ulp of O(4) values, where a sum in another
@@ -94,6 +110,27 @@ SERVING_LOGITS_ATOL = 0.1
 FUSED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.06, 2e-2)}
 FUSED_POS = (0, 4, 48, 447)       # empty self cache .. the last of 448 slots
 FUSED_TIME_POS = 48               # mid-bench: prompt 4 + 44 loop steps
+# the fp32/bf16 decode kernel (decode_attention_bh, _bg, decode_attention)
+# against its plain version. fp32: an online against a two-pass softmax,
+# summed in other orders. bf16: about one bf16 ulp of the output (and of
+# p, where decode_attention rounds it to bf16 V at a warp's running max
+# and the plain version at the final one)
+DECODE_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-3, 1e-2)}
+# (B, H, S, kv_lens): tiny's self cache (448 slots), tiny's and turbo's b32
+# cross reads, and a long cache past the auto gate's 4096 slots
+DECODE_CASES = {"tiny_self": (BATCH, 6, 448, (0, 1, 93, 448)),
+                "tiny_cross": (BATCH, 6, 1500, (None,)),
+                "turbo_cross": (BATCH, 20, 1500, (None,)),
+                "long_cache": (4, 6, 8192, (8000,))}
+# the three shapes timed: the main paths' b32 bf16 cross reads, and the
+# self read at 93 of 448 slots (the bench's prompt 4 + 89 tokens)
+DECODE_TIME = {"tiny_cross": (BATCH, 6, 1500, 1500),
+               "turbo_cross": (BATCH, 20, 1500, 1500),
+               "tiny_self_93": (BATCH, 6, 448, 93)}
+IP_CROSS_BG8 = {"WHISPER_TPU_IP_CROSS": "bg8"}
+# every greedy run but the "pallas" ones launches none of these
+NO_DECODE = {"decode_attention_bh": 0, "decode_attention_bg": 0,
+             "decode_attention": 0}
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -357,6 +394,37 @@ def quant_flags(cfg) -> list:
                         "encoder_qkv_quant") if getattr(cfg, f)]
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """os.environ with `env` set inside the block, restored after it."""
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+class EnvPipeline:
+    """A pipeline whose transcribe_batch runs with `env` set (the port
+    reads WHISPER_TPU_IP_CROSS at every step), so that an A/B in turns
+    gives the knob to one side only."""
+
+    def __init__(self, pipe, env: dict):
+        self.pipe, self.env = pipe, env
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def transcribe_batch(self, *args, **kw):
+        with environ(self.env):
+            return self.pipe.transcribe_batch(*args, **kw)
+
+
 def ab_walls(pipes: dict, audio, bias, order: tuple) -> dict:
     """The bench workload's wall through each pipeline in one process, in
     turns `order` (each pipeline warm first)."""
@@ -386,12 +454,14 @@ def quant_ab(pipes: dict, audio, bias, card: str) -> None:
           "card": card})
 
 
-def fused_ab(pipes: dict, audio, bias, card: str) -> None:
-    """The bench workload's wall with the fused step off and on in one
-    process, in turns off, on, on, off (each pipeline warm)."""
+def on_off_ab(phase: str, pipes: dict, audio, bias, card: str) -> None:
+    """The bench workload's wall with an option off and on in one process,
+    in turns off, on, on, off (each pipeline warm): the fused step
+    (fused_ab), attn_backend "pallas" with WHISPER_TPU_IP_CROSS=bg8
+    (bg_ab)."""
     walls = ab_walls(pipes, audio, bias, ("off", "on", "on", "off"))
     cfg = pipes["on"].cfg
-    emit({"phase": "fused_ab", "model": cfg.name, "dtype": cfg.compute_dtype,
+    emit({"phase": phase, "model": cfg.name, "dtype": cfg.compute_dtype,
           "batch": BATCH, "gen_tokens": GEN_TOKENS,
           "off_walls_s": walls["off"], "on_walls_s": walls["on"],
           "on_over_off": sum(walls["on"]) / sum(walls["off"]),
@@ -436,10 +506,11 @@ def main_path_stages(pipe, audio, bias, card: str) -> None:
 
 
 def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
-                bf16_tokens, vocab_path=None) -> dict:
+                bf16_tokens, vocab_path=None, logit_atol: float = 1e-3
+                ) -> dict:
     """fp32 on the card against the CPU's plain versions, from the same
     params: tokens, prefill logits and encoder output. Fails unless the
-    tokens are identical and the logits agree to 1e-3."""
+    tokens are identical and the logits agree to `logit_atol`."""
     import torch
 
     from whisper_tpu_torch.audio import log_mel_spectrogram
@@ -481,7 +552,8 @@ def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
     require(same_tokens, f"{name}: fp32 tokens differ between GPU and CPU")
     # 1e-3: fp32 logits of order 10, GPU kernels against CPU torch summing
     # in other orders (TF32 would miss this by ~100x)
-    require(logit_err < 1e-3,
+    out["logit_atol"] = logit_atol
+    require(logit_err < logit_atol,
             f"{name}: fp32 prefill logits differ by {logit_err}")
     return out
 
@@ -1052,6 +1124,120 @@ def q8_checks(card: str) -> dict:
     return out
 
 
+def decode_wrappers() -> dict:
+    """The fp32/bf16 decode wrappers by name, each with its plain version
+    and its keyword arguments (bg at the JAX default block_b 8)."""
+    from whisper_tpu_torch.ops import decode_attention as da
+    return {"decode_attention_bh": (da.decode_attention_bh,
+                                    da.decode_attention_bh_plain, {}),
+            "decode_attention_bg": (da.decode_attention_bg,
+                                    da.decode_attention_bg_plain,
+                                    {"block_b": 8}),
+            "decode_attention": (da.decode_attention,
+                                 da.decode_attention_plain, {})}
+
+
+def decode_checks(card: str) -> dict:
+    """decode_vs_plain: the three wrappers of the fp32/bf16 decode kernel
+    against their plain versions at DECODE_CASES (bg at block_b 8, or the
+    whole batch where it is smaller), fp32 and bf16, with NaN
+    written into every K/V row at or past kv_len (the kernel must not read
+    it; the plain version reads only the rows before it); bg's refusal of
+    a batch that block_b 8 does not divide. Returns the largest bf16 error
+    by wrapper (the main paths' dtype)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(10)
+    err = {name: 0.0 for name in decode_wrappers()}
+    for dtype in (torch.float32, torch.bfloat16):
+        atol, rtol = DECODE_TOL[str(dtype).split(".")[1]]
+        for case, (B, H, S, kv_lens) in DECODE_CASES.items():
+            q = torch.randn((B, 1, H, 64), generator=g).to("cuda", dtype)
+            k, v = (torch.randn((B, H, S, 64), generator=g).to("cuda", dtype)
+                    for _ in range(2))
+            for kv_len in kv_lens:
+                live = S if kv_len is None else kv_len
+                kp, vp = k.clone(), v.clone()
+                kp[:, :, live:] = float("nan")
+                vp[:, :, live:] = float("nan")
+                for name, (fn, plain, kw) in decode_wrappers().items():
+                    if kw.get("block_b", 1) > B:    # the long cache's B=4
+                        kw = {"block_b": B}
+                    want = plain(q, kp, vp, kv_len, **kw).float()
+                    got = fn(q, kp, vp, kv_len, **kw).float()
+                    torch.cuda.synchronize()
+                    e = (got - want).abs()
+                    ok = bool(torch.isfinite(got).all()
+                              and (e <= atol + rtol * want.abs()).all())
+                    if kv_len == 0:
+                        ok = ok and not bool(got.any())
+                    if dtype == torch.bfloat16:
+                        err[name] = max(err[name], float(e.max()))
+                    emit({"phase": "decode_vs_plain", "wrapper": name,
+                          "case": case, "dtype": str(dtype), **kw,
+                          "shape": [B, 1, H, 64], "S": S, "kv_len": kv_len,
+                          "nan_past_kv_len": live < S,
+                          "max_abs_err": float(e.max()), "atol": atol,
+                          "rtol": rtol, "ok": ok})
+                    require(ok, f"{name} {dtype} {case} kv_len={kv_len} "
+                                f"disagrees with its plain version (max abs "
+                                f"err {float(e.max())})")
+                del kp, vp
+            del q, k, v
+    fn = decode_wrappers()["decode_attention_bg"][0]
+    q = torch.zeros((12, 1, 6, 64), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((12, 6, 16, 64), device="cuda", dtype=torch.bfloat16)
+    try:
+        fn(q, k, k, block_b=8)
+        refused = False
+    except ValueError:
+        refused = True
+    emit({"phase": "decode_vs_plain", "wrapper": "decode_attention_bg",
+          "case": "batch_12_block_b_8", "refuses": refused})
+    require(refused, "decode_attention_bg took a batch of 12 at block_b 8")
+    torch.cuda.empty_cache()
+    return err
+
+
+def decode_time(card: str) -> dict:
+    """decode_time: each wrapper at DECODE_TIME's shapes in bf16, the
+    kernel and its plain version in turns (CUDA events), the kernel by
+    CUDA-graph replay, and the one PyTorch call for the same function
+    (scaled_dot_product_attention over k[:, :, :kv_len], timed here and
+    never called by the port) beside the bound. Returns the kernels-line
+    numbers by wrapper (tiny b32 bf16 cross read)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(11)
+    out = {}
+    for case, (B, H, S, kv_len) in DECODE_TIME.items():
+        q = torch.randn((B, 1, H, 64), generator=g).to("cuda", torch.bfloat16)
+        k, v = (torch.randn((B, H, S, 64), generator=g).to(
+            "cuda", torch.bfloat16) for _ in range(2))
+        qt, ks, vs = q.transpose(1, 2), k[:, :, :kv_len], v[:, :, :kv_len]
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, ks, vs), iters=50)
+        # K/V's live rows read once, q read and the output written once;
+        # 4 FLOP per live key and dim
+        bnd = bound(2 * B * H * kv_len * 64 * 2 + 2 * q.numel() * 2,
+                    4 * B * H * kv_len * 64, "bfloat16")
+        for name, (fn, plain, kw) in decode_wrappers().items():
+            ms, plain_ms = alternate_ms(lambda: plain(q, k, v, kv_len, **kw),
+                                        lambda: fn(q, k, v, kv_len, **kw),
+                                        iters=50)
+            replay_ms = graph_ms(lambda: fn(q, k, v, kv_len, **kw))
+            line = {"ms": ms, "plain_ms": plain_ms, **bnd,
+                    "library_ms": library_ms}
+            emit({"phase": "decode_time", "wrapper": name, "case": case,
+                  "shape": [B, 1, H, 64], "S": S, "kv_len": kv_len,
+                  "dtype": "bfloat16", **line, "graph_ms": replay_ms,
+                  "bound_share": bnd["bound_ms"] / replay_ms, "card": card})
+            if case == "tiny_cross":
+                out[name] = line
+        del q, k, v, qt, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
 def append_int8_checks(card: str) -> None:
     """append_int8_vs_plain: the scalar append on int8 caches at the two
     shapes the main path gives it, tiny b32 and turbo b32 (L, B, H, 128,
@@ -1130,19 +1316,23 @@ def serving_logits_vs_cpu(params, model, clips, card: str,
             f"{model} serving prefill logits differ by {err} on the card")
 
 
-def flash_per_fill(cfg, slots: int, p_pad: int) -> int:
-    """Flash launches of one batched prefill of p_pad positions over the
-    slot batch, as multi_head_attention's gate routes them: per decoder
-    layer, the self read (p_pad keys) and the cross read (n_audio_ctx
-    keys)."""
+def routed(cfg, B: int, T: int, S: int, route: str) -> int:
+    """1 when multi_head_attention sends a (B, T) query over S keys to
+    `route` under cfg.attn_backend, else 0."""
     import torch
 
     from whisper_tpu_torch.ops.attention import _route
-    q = torch.empty((slots, p_pad, cfg.n_heads, cfg.head_dim), device="meta")
-    n = sum(_route(q, torch.empty((slots, cfg.n_heads, s, cfg.head_dim),
-                                  device="meta")) == "flash"
-            for s in (p_pad, cfg.n_audio_ctx))
-    return cfg.n_text_layers * n
+    q = torch.empty((B, T, cfg.n_heads, cfg.head_dim), device="meta")
+    k = torch.empty((B, cfg.n_heads, S, cfg.head_dim), device="meta")
+    return int(_route(q, k, cfg.attn_backend) == route)
+
+
+def flash_per_fill(cfg, slots: int, p_pad: int) -> int:
+    """Flash launches of one batched prefill of p_pad positions over the
+    slot batch, as multi_head_attention routes them: per decoder layer,
+    the self read (p_pad keys) and the cross read (n_audio_ctx keys)."""
+    return cfg.n_text_layers * sum(routed(cfg, slots, p_pad, s, "flash")
+                                   for s in (p_pad, cfg.n_audio_ctx))
 
 
 def engine_traffic(cfg, n: int, seed: int) -> list:
@@ -1177,9 +1367,10 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     (the phase line, a function that drives the same traffic again)."""
     import torch
 
+    from whisper_tpu_torch import serving_continuous
     from whisper_tpu_torch.tokenizer import build_prompt
     cfg = engine.cfg
-    fill_s, steps, beside_live = [0.0], [0], [0]
+    fill_s, steps, beside_live, detects = [0.0], [0], [0], [0]
     fill, step_device = engine._fill_free_slots, engine.step_device
 
     def timed_fill():
@@ -1198,6 +1389,11 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
         step_device(k)
 
     engine._fill_free_slots, engine.step_device = timed_fill, counted_step
+    detect = serving_continuous.detect_language
+
+    def counted_detect(*args):
+        detects[0] += 1
+        return detect(*args)
 
     def run():
         rids = []
@@ -1214,9 +1410,13 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     fill_s[0], steps[0], beside_live[0] = 0.0, 0, 0
     for fn in kernels.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    rids, out = run()
-    wall = time.perf_counter() - t0
+    serving_continuous.detect_language = counted_detect
+    try:
+        t0 = time.perf_counter()
+        rids, out = run()
+        wall = time.perf_counter() - t0
+    finally:
+        serving_continuous.detect_language = detect
     launches = {name: fn.launches for name, fn in kernels.items()}
     fills = sum(engine.fill_buckets.values())
     generated = 0
@@ -1238,7 +1438,9 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     line = {"phase": label, "model": cfg.name, "dtype": cfg.compute_dtype,
             "slots": engine.B, "requests": len(reqs), "max_new": engine.max_new,
             "sync_every": engine.sync_every, "arrivals": ARRIVALS,
+            "attn_backend": cfg.attn_backend,
             "wall_s": wall, "engine_steps": steps[0], "fills": fills,
+            "detect_language_calls": detects[0],
             "fills_beside_live": beside_live[0],
             "fill_buckets": dict(engine.fill_buckets), "fill_s": fill_s[0],
             "generated_tokens": generated, "tokens_per_s": generated / wall,
@@ -1255,20 +1457,34 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
 
 def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
                           ) -> dict:
-    """Emit the engine's phase line and hold its launch counts to the path:
-    one ragged append per engine step and no scalar append; per fill, the
-    encoder's tail launches (tiny, base) or its flash launches (small and
-    up, `flash_per_encode`) and the prefill's flash launches by the gate.
-    Returns the counts."""
+    """Emit the engine's phase line and hold its launch counts to the path
+    under cfg.attn_backend: one ragged append per engine step and no
+    scalar append; per fill, the encoder's tail launches (tiny, base) or
+    its flash launches (small and up, `flash_per_encode`) and the
+    prefill's flash launches by the switch; decode_attention_bh for every
+    layer's T==1 cross read at each step, and for detect_language's self
+    (one of 64 slots) and cross reads, where the switch routes them there
+    ("pallas"); no other decode kernel and no fused step. Returns the
+    counts."""
+    from whisper_tpu_torch.decode import _cache_slots
     n = line["launches"]
-    fills = line["fills"]
+    fills, steps = line["fills"], line["engine_steps"]
     tail = cfg.n_audio_layers * fills if flash_per_encode == 0 else 0
     flash = flash_per_encode * fills + sum(
         count * flash_per_fill(cfg, engine.B, p_pad)
         for p_pad, count in engine.fill_buckets.items())
-    line["expected"] = {"cache_append_rows_ragged": line["engine_steps"],
+    B, Sx = engine.B, cfg.n_audio_ctx
+    bh = cfg.n_text_layers * (
+        steps * routed(cfg, B, 1, Sx, "decode")
+        + line["detect_language_calls"] * (
+            routed(cfg, B, 1, _cache_slots(cfg, 1), "decode")
+            + routed(cfg, B, 1, Sx, "decode")))
+    line["expected"] = {"cache_append_rows_ragged": steps,
                         "cache_append_rows": 0, "encoder_block_tail": tail,
-                        "flash_attention": flash, "fused_decoder_step": 0}
+                        "flash_attention": flash, **NO_DECODE,
+                        "decode_attention_bh": bh,
+                        "decode_attention_q8_bh": 0, "decode_attention_q8": 0,
+                        "fused_decoder_step": 0}
     emit(line)
     for name, want in line["expected"].items():
         require(n[name] == want, f"{line['phase']}: {name} launches "
@@ -1453,6 +1669,9 @@ def main() -> int:
         encoder_block_tail_plain,
     )
     from whisper_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_bg,
+        decode_attention_bh,
         decode_attention_q8,
         decode_attention_q8_bh,
     )
@@ -1471,10 +1690,14 @@ def main() -> int:
                "cache_append_rows_ragged": cache_append_rows_ragged,
                "decode_attention_q8_bh": decode_attention_q8_bh,
                "decode_attention_q8": decode_attention_q8,
-               "fused_decoder_step": fused_decoder_step}
-    # every greedy run without the fused step launches neither of these
+               "fused_decoder_step": fused_decoder_step,
+               "decode_attention_bh": decode_attention_bh,
+               "decode_attention_bg": decode_attention_bg,
+               "decode_attention": decode_attention}
+    # every greedy run without the fused step or "pallas" launches none of
+    # these
     no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0,
-             "fused_decoder_step": 0}
+             "fused_decoder_step": 0, **NO_DECODE}
 
     # 1. card
     card = card_line()
@@ -1576,6 +1799,8 @@ def main() -> int:
     ragged = ragged_checks(card)
     flash = flash_checks(card)
     q8 = q8_checks(card)
+    decode_err = decode_checks(card)
+    decode = decode_time(card)
     append_int8_checks(card)
     fused_err = fused_checks(card)
     fused = fused_time(card)
@@ -1603,14 +1828,38 @@ def main() -> int:
                          "encoder_block_tail": cfg.n_audio_layers,
                          "flash_attention": 0, "cache_append_rows_ragged": 0,
                          "decode_attention_q8_bh": 0,
-                         "decode_attention_q8": 0}, card,
+                         "decode_attention_q8": 0, **NO_DECODE}, card,
         label="fused_main_path")
     fused_launches = line["launches"]
     main_path_stages(fpipe, audio, bias, card)
-    fused_ab({"off": pipe, "on": fpipe}, audio, bias, card)
+    on_off_ab("fused_ab", {"off": pipe, "on": fpipe}, audio, bias, card)
     if opts.profile:
         profile_path("tiny_fused", cfg, card, frun)
     del fpipe, frun
+
+    # 4''. the same workload under attn_backend "pallas" with
+    # WHISPER_TPU_IP_CROSS=bg8: the prefill's T > 1 reads take flash, every
+    # layer's bf16 cross read at every loop step decode_attention_bg
+    bpipe = EnvPipeline(WhisperPipeline.from_params(
+        params, cfg.replace(attn_backend="pallas"), dtype="bfloat16",
+        device="cuda", quant="off"), IP_CROSS_BG8)
+    brun, _, _, line = main_path(
+        bpipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
+                         "flash_attention": 2 * cfg.n_text_layers,
+                         "decode_attention_bg":
+                         cfg.n_text_layers * (GEN_TOKENS - 1),
+                         "cache_append_rows": GEN_TOKENS - 1,
+                         "decode_attention_bh": 0, "decode_attention": 0,
+                         "cache_append_rows_ragged": 0,
+                         "decode_attention_q8_bh": 0,
+                         "decode_attention_q8": 0,
+                         "fused_decoder_step": 0}, card,
+        label="pallas_main_path")
+    bg_launches = line["launches"]
+    on_off_ab("bg_ab", {"off": pipe, "on": bpipe}, audio, bias, card)
+    if opts.profile:
+        profile_path("tiny_pallas_bg8", cfg, card, brun)
+    del bpipe, brun
     if opts.profile:
         profile_kernels(cfg, card, append_args)
         profile_path("tiny", cfg, card, run)
@@ -1650,6 +1899,23 @@ def main() -> int:
         profile_engine(rerun, line["wall_s"], "tiny", card)
     del engine, rerun
     gc.collect()        # continuous_run's wrappers hold the engine in a cycle
+    torch.cuda.empty_cache()
+
+    # 4b'. the same engine and traffic under attn_backend "pallas": every
+    # layer's cross read at every step and detect_language's reads take
+    # decode_attention_bh, every prefill read flash
+    engine = ContinuousBatcher(
+        params, cfg.replace(compute_dtype="bfloat16", attn_backend="pallas"),
+        max_slots=BATCH, max_new=ENGINE_MAX_NEW, sync_every=1)
+    # the rerun closure would hold the engine: dropped at once
+    line = continuous_run(
+        engine, engine_traffic(cfg, ENGINE_REQUESTS, seed=0), kernels,
+        "pallas_engine", card)[0]
+    check_engine_launches(line, engine, engine.cfg, 0)
+    require(line["detect_language_calls"] > 0,
+            "pallas_engine: detect_language never ran")
+    del engine, line
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 4c. the engine's tokens: schedule independence and greedy's tokens
@@ -1694,13 +1960,38 @@ def main() -> int:
                          "cache_append_rows": GEN_TOKENS - 1,
                          "encoder_block_tail": cfg.n_audio_layers,
                          "flash_attention": 0,
-                         "cache_append_rows_ragged": 0}, card,
+                         "cache_append_rows_ragged": 0, **NO_DECODE}, card,
         label="q8_fp32_main_path")
     q8_launches = line["launches"]
     del qpipe
     torch.cuda.empty_cache()
     parity = fp32_parity(qcfg, params, clips, 12, tok16)
     emit({"phase": "q8_fp32_parity", **parity})
+
+    # 5c. tiny b32 bf16 with kv_cache_quant under "pallas": every T==1
+    # step read (self and cross, per layer) dequantizes into
+    # decode_attention_bh, the prefill's reads into flash; the steps write
+    # their int8 rows in decoder_forward (no append kernel). Then fp32 with
+    # the same flags, 2 clips x 12 tokens, against the port on the CPU
+    kcfg = cfg.replace(kv_cache_quant=True, attn_backend="pallas")
+    kpipe = WhisperPipeline.from_params(params, kcfg, dtype="bfloat16",
+                                        device="cuda", quant="off")
+    _, _, _, line = main_path(
+        kpipe, kernels, {"decode_attention_bh":
+                         2 * cfg.n_text_layers * (GEN_TOKENS - 1),
+                         "flash_attention": 2 * cfg.n_text_layers,
+                         "encoder_block_tail": cfg.n_audio_layers,
+                         "cache_append_rows": 0, "decode_attention_bg": 0,
+                         "decode_attention": 0, "decode_attention_q8_bh": 0,
+                         "decode_attention_q8": 0, "fused_decoder_step": 0,
+                         "cache_append_rows_ragged": 0}, card,
+        label="pallas_kvq_main_path")
+    bh_launches = line["launches"]
+    del kpipe
+    torch.cuda.empty_cache()
+    parity = fp32_parity(kcfg, params, clips, 12, tok16,
+                         logit_atol=KVQ_LOGITS_ATOL)
+    emit({"phase": "pallas_fp32_parity", **parity})
 
     # 6. the CLI, in process
     with tempfile.TemporaryDirectory() as tmp:
@@ -1756,7 +2047,7 @@ def main() -> int:
                              "cache_append_rows": GEN_TOKENS - 1,
                              "cache_append_rows_ragged": 0,
                              "decode_attention_q8_bh": 0,
-                             "decode_attention_q8": 0}, card,
+                             "decode_attention_q8": 0, **NO_DECODE}, card,
             label="fused_turbo")
         emit({"phase": "fused_turbo_memory", "peak_mem_gb_fused":
               line["peak_mem_gb"], "peak_mem_gb_unfused": turbo_peak,
@@ -1765,8 +2056,29 @@ def main() -> int:
               "self_cache_gb_128": 2 * tcfg.n_text_layers * BATCH
               * tcfg.n_heads * 128 * tcfg.head_dim * 2 / 1e9, "card": card})
         main_path_stages(fpipe, audio, bias, card)
-        fused_ab({"off": pipe, "on": fpipe}, audio, bias, card)
+        on_off_ab("fused_ab", {"off": pipe, "on": fpipe}, audio, bias,
+                  card)
         del fpipe
+
+        # 7''. turbo under "pallas" with WHISPER_TPU_IP_CROSS=bg8, on the
+        # same device params: the encoder's and the prefill's reads take
+        # flash, every layer's cross read at every step decode_attention_bg
+        bpipe = EnvPipeline(WhisperPipeline.from_params(
+            pipe.params, tcfg.replace(attn_backend="pallas"),
+            dtype="bfloat16", device="cuda", vocab_path=vocab, quant="off"),
+            IP_CROSS_BG8)
+        main_path(bpipe, kernels,
+                  {"flash_attention": tcfg.n_audio_layers
+                   + 2 * tcfg.n_text_layers,
+                   "decode_attention_bg":
+                   tcfg.n_text_layers * (GEN_TOKENS - 1),
+                   "cache_append_rows": GEN_TOKENS - 1,
+                   "encoder_block_tail": 0, "decode_attention_bh": 0,
+                   "decode_attention": 0, "cache_append_rows_ragged": 0,
+                   "decode_attention_q8_bh": 0, "decode_attention_q8": 0,
+                   "fused_decoder_step": 0}, card, label="pallas_turbo")
+        on_off_ab("bg_ab", {"off": pipe, "on": bpipe}, audio, bias, card)
+        del bpipe
         if opts.profile:
             profile_path(TURBO, tcfg, card, run)
         clip = bench_audio(tcfg, 1)
@@ -1881,6 +2193,28 @@ def main() -> int:
          "replaces": "whisper_tpu/ops/decoder_step.py:320",
          "launches": fused_launches["fused_decoder_step"],
          **fused, "max_abs_err": fused_err},
+        # the three below timed at tiny b32's bf16 cross read (B=32, H=6,
+        # 1500 keys); their error over decode_vs_plain's bf16 cases
+        {"name": "decode_attention_bh", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "whisper_tpu/ops/decode_attention.py:297",
+         "launches": bh_launches["decode_attention_bh"],
+         "max_abs_err": decode_err["decode_attention_bh"],
+         **decode["decode_attention_bh"]},
+        {"name": "decode_attention_bg", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "whisper_tpu/ops/decode_attention.py:185",
+         "launches": bg_launches["decode_attention_bg"],
+         "max_abs_err": decode_err["decode_attention_bg"],
+         **decode["decode_attention_bg"]},
+        # the JAX package calls decode_attention from no path (tests only):
+        # its launches on the main path are 0
+        {"name": "decode_attention", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "whisper_tpu/ops/decode_attention.py:354",
+         "launches": bg_launches["decode_attention"],
+         "max_abs_err": decode_err["decode_attention"],
+         **decode["decode_attention"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -177,11 +177,20 @@ def test_dispatch_above_the_gate_is_jax_flash(monkeypatch):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-5)
 
 
-def test_dispatch_long_cache_decode_raises_off_cpu():
-    """A T==1 read of a >= 4096-slot cache belongs to decode_attention_bh:
-    on a device other than the CPU it raises; on the CPU it is the plain
-    attention."""
-    with pytest.raises(NotImplementedError, match="decode_attention_bh"):
+def test_dispatch_long_cache_decode_raises_off_cpu(monkeypatch):
+    """A T==1 read of a >= 4096-slot cache goes to decode_attention_bh by
+    the auto gate: on a device without the kernel the wrapper raises, with
+    no plain fallback; on the CPU it is the kernel's plain version, equal
+    to the JAX dispatch's result."""
+    calls = []
+    real = attention.decode_attention_bh
+
+    def counting(*args):
+        calls.append(args[1].shape[2])
+        return real(*args)
+
+    monkeypatch.setattr(attention, "decode_attention_bh", counting)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         multi_head_attention(_meta(1, 1, 2, 64), _meta(1, 2, 4096, 64),
                              _meta(1, 2, 4096, 64), 100)
     (jq, jk, jv), (q, k, v) = _inputs(1, 1, 4096, 1, torch.float32, D=8,
@@ -189,3 +198,4 @@ def test_dispatch_long_cache_decode_raises_off_cpu():
     want = np.asarray(jax_mha(jq, jk, jv, 100))
     got = multi_head_attention(q, k, v, 100)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-6, rtol=1e-5)
+    assert calls == [4096, 4096]

@@ -17,6 +17,12 @@ from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows_ragged_plain,
 )
 from whisper_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_bg,
+    decode_attention_bg_plain,
+    decode_attention_bh,
+    decode_attention_bh_plain,
+    decode_attention_plain,
     decode_attention_q8,
     decode_attention_q8_bh,
     decode_attention_q8_plain,
@@ -320,10 +326,113 @@ def test_flash_kernel_refuses_head_dim_32(dev):
 
 
 def test_long_cache_decode_raises_on_cuda(dev):
-    q = torch.zeros((1, 1, 2, 64), device=dev)
-    k = torch.zeros((1, 2, 4096, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="decode_attention_bh"):
-        multi_head_attention(q, k, k, 10)
+    """A T==1 read of a >= 4096-slot cache, which raised before
+    decode_attention_bh was ported, launches that kernel by the auto gate
+    and matches its plain version."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn((2, 1, 2, 64), generator=g).to(dev)
+    k, v = (torch.randn((2, 2, 4096, 64), generator=g).to(dev)
+            for _ in range(2))
+    before = decode_attention_bh.launches
+    got = multi_head_attention(q, k, v, 3000)
+    torch.cuda.synchronize()
+    assert decode_attention_bh.launches == before + 1
+    torch.testing.assert_close(got, decode_attention_bh_plain(q, k, v, 3000),
+                               atol=2e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention_bh, decode_attention_bg, decode_attention: fp32/bf16 K/V
+# ---------------------------------------------------------------------------
+
+_DECODE = {"bh": (decode_attention_bh, decode_attention_bh_plain, {}),
+           "bg": (decode_attention_bg, decode_attention_bg_plain,
+                  {"block_b": 1}),
+           "per_head": (decode_attention, decode_attention_plain, {})}
+
+
+def _decode_args(B, H, S, q_dtype, kv_dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, 1, H, 64), generator=g).to(dev, q_dtype)
+    k, v = (torch.randn((B, H, S, 64), generator=g).to(dev, kv_dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+# fp32 2e-5 / 1e-5: online against two-pass softmax, fp32 sums in other
+# orders; bf16 2e-3 / 1e-2: about one bf16 ulp of the output (and of p,
+# where decode_attention rounds it to bf16 V at another running max).
+_DECODE_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-3, 1e-2)}
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("B,H,S,kv_len", [
+    (32, 6, 1500, None),        # tiny b32's cross read
+    (32, 20, 1500, None),       # turbo b32's
+    (32, 6, 448, 93),           # tiny's self cache, mid-decode
+    (2, 3, 200, 0), (2, 3, 200, 1), (2, 3, 200, 77), (2, 3, 200, 199),
+    (1, 2, 4096, 3000),         # the >= 4096-slot gate's read
+])
+def test_decode_kernel_matches_plain(dev, which, q_dtype, kv_dtype, B, H, S,
+                                     kv_len):
+    fn, plain, kw = _DECODE[which]
+    args = _decode_args(B, H, S, q_dtype, kv_dtype, dev)
+    before = fn.launches
+    got = fn(*args, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, kv_len, **kw)
+    assert got.dtype == q_dtype and got.shape == want.shape
+    bf16 = torch.bfloat16 in (q_dtype, kv_dtype) and (
+        q_dtype == torch.bfloat16 or which == "per_head")
+    atol, rtol = _DECODE_TOL[torch.bfloat16 if bf16 else torch.float32]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if kv_len == 0:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_never_reads_past_kv_len(dev, which, dtype):
+    fn, _, kw = _DECODE[which]
+    q, k, v = _decode_args(2, 3, 300, dtype, dtype, dev, seed=1)
+    clean = fn(q, k, v, 130, **kw)
+    k[:, :, 130:] = float("nan")
+    v[:, :, 130:] = float("nan")
+    got = fn(q, k, v, 130, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
+def test_decode_bg_takes_block_b_as_jax_does(dev):
+    """block_b is a check, not a launch shape: bg at block_b 8 equals bh;
+    a block_b that does not divide the batch raises."""
+    q, k, v = _decode_args(32, 6, 1500, torch.bfloat16, torch.bfloat16, dev)
+    assert torch.equal(decode_attention_bg(q, k, v, 500, block_b=8),
+                       decode_attention_bh(q, k, v, 500))
+    with pytest.raises(ValueError, match="does not divide"):
+        decode_attention_bg(q[:6], k[:6], v[:6], block_b=4)
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+def test_decode_kernel_refuses_what_it_does_not_take(dev, which):
+    fn, _, kw = _DECODE[which]
+    q, k, v = _decode_args(1, 2, 16, torch.float32, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fn(q[..., :32].contiguous(), k[..., :32].contiguous(),
+           v[..., :32].contiguous(), **kw)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fn(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, **kw)
+    with pytest.raises(TypeError, match="query"):
+        fn(q.half(), k, v, **kw)
+    with pytest.raises(TypeError, match="one dtype"):
+        fn(q, k, v.bfloat16(), **kw)
+    with pytest.raises(ValueError, match="is on"):
+        fn(q, k.cpu(), v, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +558,86 @@ def test_int8_greedy_on_the_card_matches_the_cpu(dev, flags):
             want = (cfg.n_text_layers * 10 if cfg.cross_kv_quant else 0)
             assert decode_attention_q8_bh.launches - before == want
     assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+def _pallas_nano(**flags):
+    from whisper_tpu_torch import get_config
+    return get_config("tiny").replace(name="cuda-pallas-nano", d_model=128,
+                                      n_heads=2, n_audio_layers=2,
+                                      n_text_layers=2, attn_backend="pallas",
+                                      **flags)
+
+
+def test_pallas_greedy_on_the_card_matches_the_cpu(dev):
+    """fp32 kv_cache_quant greedy decoding and detect_language under
+    attn_backend "pallas" at a head_dim-64 nano width: every T==1 read
+    (self and cross per layer, each step and the detection pass) is one
+    decode_attention_bh launch, its q a strided view of the fused QKV made
+    contiguous by the route; tokens equal the CPU's, the language
+    probabilities agree to 1e-5."""
+    import numpy as np
+
+    from whisper_tpu_torch import weights
+    from whisper_tpu_torch.decode import detect_language, greedy_decode
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = _pallas_nano(kv_cache_quant=True)
+    params = weights.init_params(cfg, seed=5)
+    enc = torch.from_numpy(np.random.RandomState(1).randn(
+        2, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+    prompt = torch.tensor([build_prompt(cfg)] * 2)
+    bias = torch.zeros(cfg.vocab_size)
+    bias[cfg.eot_token] = -1e9              # EOT banned: all 10 steps run
+    toks, probs = {}, {}
+    for device in ("cpu", "cuda"):
+        p = weights.to_device(params, device)
+        before = decode_attention_bh.launches
+        toks[device] = greedy_decode(p, cfg, enc.to(device),
+                                     prompt.to(device), max_new=10,
+                                     logit_bias=bias.to(device)).tokens.cpu()
+        probs[device] = detect_language(p, cfg, enc.to(device)).cpu()
+        if device == "cuda":
+            want = 2 * cfg.n_text_layers * (10 + 1)
+            assert decode_attention_bh.launches - before == want
+    assert torch.equal(toks["cuda"], toks["cpu"])
+    torch.testing.assert_close(probs["cuda"], probs["cpu"], atol=1e-5,
+                               rtol=0)
+
+
+def test_bg_cross_step_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """decoder_step_ip in bf16 under WHISPER_TPU_IP_CROSS=bg8 at B=8: one
+    decode_attention_bg launch per layer; logits within a few bf16 ulps of
+    the O(1) values of the CPU step (the plain version) and the same
+    argmax."""
+    import numpy as np
+
+    from whisper_tpu_torch import weights
+    from whisper_tpu_torch.models import whisper as tm
+    from whisper_tpu_torch.tokenizer import build_prompt
+    monkeypatch.setenv("WHISPER_TPU_IP_CROSS", "bg8")
+    cfg = _pallas_nano(compute_dtype="bfloat16")
+    params = weights.init_params(cfg, seed=6)
+    enc = torch.from_numpy(np.random.RandomState(2).randn(
+        8, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))
+    prompt = torch.tensor([build_prompt(cfg)] * 8)
+    P = prompt.shape[1]
+    logits = {}
+    for device in ("cpu", "cuda"):
+        p = weights.to_device(params, device, torch.bfloat16)
+        with torch.inference_mode():
+            cross = tm.precompute_cross_kv(p, cfg, enc.to(device,
+                                                          torch.bfloat16))
+            cache = tm.init_kv_cache(cfg, 8, torch.bfloat16, 64, device)
+            pre, cache = tm.decoder_forward(p, cfg, prompt.to(device), 0,
+                                            cache, cross)
+            before = decode_attention_bg.launches
+            lg, _ = tm.decoder_step_ip(p, cfg, pre[:, -1:].argmax(-1), P,
+                                       cache, cross)
+        if device == "cuda":
+            assert decode_attention_bg.launches - before == cfg.n_text_layers
+        logits[device] = lg.float().cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=0.05,
+                               rtol=0)
+    assert torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1))
 
 
 # ---------------------------------------------------------------------------

@@ -48,8 +48,9 @@ class WhisperConfig:
     # Numerics: "float32" is the token-parity mode, "bfloat16" serving
     compute_dtype: str = "float32"
     ln_eps: float = 1e-5
-    # The JAX package's attention backend switch; the port dispatches by
-    # size (ops/attention.py) and ignores it.
+    # Attention backend: "reference" | "pallas" | "pallas_interpret" |
+    # "auto"; None defers to WHISPER_TPU_ATTN, then "auto" (the port honours
+    # it as the JAX package does: ops/attention.py, models/whisper.py)
     attn_backend: Optional[str] = None
     # int8 KV cache (self + cross) with per-vector scales
     kv_cache_quant: bool = False

@@ -9,16 +9,23 @@ a leading L axis, linear weights (in, out), q (B, T, H, D), K/V and the
 caches head-major (L, B, H, S, D). Where JAX scans the layers, the port
 loops over them in Python.
 
-int8 reads follow the JAX routes. bf16 mode reads an int8 cross or self
-cache scale-commuted (`_att_cross_q8`, `_self_attention_extra_q8`: the
-scales multiply scores and probabilities, no dequantized cache exists);
-fp32 mode reads an int8 cross cache through decode_attention_q8_bh (the
-hand-written kernel on CUDA, its plain version on the CPU); prefills and
+Attention takes cfg.attn_backend as the JAX model does (ops/attention.py:
+"reference", "pallas", "pallas_interpret", "auto"; None defers to
+WHISPER_TPU_ATTN, then "auto"): every `_cache_attention` read (prefills,
+the kv_cache_quant steps, detect_language, the engine's cross read) and
+the tail-off encoder's attention pass it on, and "reference" turns the
+encoder's tail kernel off. int8 reads follow the JAX routes. bf16 mode
+reads an int8 cross or self cache scale-commuted (`_att_cross_q8`,
+`_self_attention_extra_q8`: the scales multiply scores and probabilities,
+no dequantized cache exists); fp32 mode reads an int8 cross cache through
+decode_attention_q8_bh (the hand-written kernel on CUDA, its plain
+version on the CPU) unless the backend is "reference"; prefills and
 kv_cache_quant steps dequantize (`_cache_attention` →
-multi_head_attention_quant). The int8 weights are dequantized at every
-call (`_wq_dequant`), where XLA fuses the dequantization into the
-product's operand read: on the card that writes a copy of each weight in
-the compute dtype per step.
+multi_head_attention_quant). decoder_step_ip's bf16 unquantized cross
+read takes decode_attention_bg under WHISPER_TPU_IP_CROSS=bg[N]. The int8
+weights are dequantized at every call (`_wq_dequant`), where XLA fuses
+the dequantization into the product's operand read: on the card that
+writes a copy of each weight in the compute dtype per step.
 
 Differences from the JAX module, all deliberate:
   * The self cache is updated IN PLACE: decoder_forward writes the prompt
@@ -43,7 +50,8 @@ Differences from the JAX module, all deliberate:
 from __future__ import annotations
 
 import contextlib
-from typing import Any
+import os
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ import torch.nn.functional as F
 
 from whisper_tpu_torch.config import WhisperConfig
 from whisper_tpu_torch.ops.attention import (
+    default_backend,
     multi_head_attention,
     multi_head_attention_quant,
 )
@@ -58,7 +67,10 @@ from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows,
     cache_append_rows_ragged,
 )
-from whisper_tpu_torch.ops.decode_attention import decode_attention_q8_bh
+from whisper_tpu_torch.ops.decode_attention import (
+    decode_attention_bg,
+    decode_attention_q8_bh,
+)
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     tail_fits_smem,
@@ -253,11 +265,18 @@ def conv_stem(enc: Params, cfg: WhisperConfig, mel: torch.Tensor
 
 
 def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device) -> str:
-    """'tail' when the fused tail kernel takes the model's width on this
-    device (its MLP tile fits the opt-in shared memory: tiny, base),
-    'off' otherwise (small and up). The port's rule in place of the JAX
-    gate (:416-451), whose VMEM budgets are TPU calibration. The CPU
-    answers as an H100 would, so both devices run the same branch."""
+    """'off' under the "reference" attention backend (cfg.attn_backend,
+    else WHISPER_TPU_ATTN), as in the JAX gate (:431-434). Under every
+    other backend, 'tail' when the fused tail kernel takes the model's
+    width on this device (its MLP tile fits the opt-in shared memory:
+    tiny, base) and 'off' otherwise (small and up): the port's rule in
+    place of the JAX gate's (:435-451), whose VMEM budgets are TPU
+    calibration. JAX's "pallas" forces the tail on at every width, which a
+    Hopper block's shared memory cannot hold from small up, so "pallas"
+    keeps the port's rule. The CPU answers as an H100 would, so both
+    devices run the same branch."""
+    if (cfg.attn_backend or default_backend()) == "reference":
+        return "off"
     return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device)
             else "off")
 
@@ -270,8 +289,9 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
     fused block tail (attention, o-projection, LN2, MLP; the CUDA kernel
     for CUDA tensors, its plain twin on the CPU) or, when the tail is off
     (`_encoder_tail_mode`), the JAX tail-off branch (:572-578): attention
-    through multi_head_attention (the flash kernel at every encoder
-    size), the o-projection, LN2 in fp32 and the MLP in the compute dtype.
+    through multi_head_attention under cfg.attn_backend (the flash kernel
+    at every encoder size, but under "reference"), the o-projection, LN2
+    in fp32 and the MLP in the compute dtype.
     Then the final LayerNorm."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
@@ -301,8 +321,8 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
                 lp["attn"]["o"]["b"], lp["fc1"]["b"], lp["fc2"]["b"],
                 lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], eps=cfg.ln_eps)
             continue
-        x = x + linear(merge_heads(multi_head_attention(q, k, v)),
-                       lp["attn"]["o"])
+        a = multi_head_attention(q, k, v, backend=cfg.attn_backend)
+        x = x + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(x, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         x = x + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
     return layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"], cfg.ln_eps)
@@ -360,18 +380,19 @@ def precompute_cross_kv(params: Params, cfg: WhisperConfig,
 
 
 def _cache_attention(q: torch.Tensor, entry: dict[str, torch.Tensor],
-                     kv_len, *, causal: bool, q_offset: int, dtype
-                     ) -> torch.Tensor:
+                     kv_len, *, causal: bool, q_offset: int,
+                     cfg: WhisperConfig, dtype) -> torch.Tensor:
     """Attention over one layer's cache slice `entry` ({"k", "v"}, plus
-    {"k_s", "v_s"} when int8) (:605-617): an int8 slice goes through
-    multi_head_attention_quant, a plain one through the size dispatch with
-    K/V in the compute dtype."""
+    {"k_s", "v_s"} when int8) under cfg.attn_backend (:605-617): an int8
+    slice goes through multi_head_attention_quant, a plain one through
+    multi_head_attention with K/V in the compute dtype."""
     if "k_s" in entry:
         return multi_head_attention_quant(
             q, entry["k"], entry["k_s"], entry["v"], entry["v_s"], kv_len,
-            causal=causal, q_offset=q_offset)
+            causal=causal, q_offset=q_offset, backend=cfg.attn_backend)
     return multi_head_attention(q, entry["k"].to(dtype), entry["v"].to(dtype),
-                                kv_len, causal=causal, q_offset=q_offset)
+                                kv_len, causal=causal, q_offset=q_offset,
+                                backend=cfg.attn_backend)
 
 
 def tok_embed(dec: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -443,13 +464,14 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
             else:
                 kv_cache[name][rows] = new
         a = _cache_attention(q, layer_index(kv_cache, i), kv_len,
-                             causal=True, q_offset=pos_offset, dtype=dtype)
+                             causal=True, q_offset=pos_offset, cfg=cfg,
+                             dtype=dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
         a = _cache_attention(q, layer_index(cross_kv, i), None,
-                             causal=False, q_offset=0, dtype=dtype)
+                             causal=False, q_offset=0, cfg=cfg, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
@@ -557,6 +579,18 @@ def _att_cross_q8(q: torch.Tensor, cross_l: dict[str, torch.Tensor], D: int,
                         cross_l["v"].float()).to(dtype)
 
 
+def _ip_cross_block() -> Optional[int]:
+    """block_b of decoder_step_ip's bf16 cross read through
+    decode_attention_bg: N for WHISPER_TPU_IP_CROSS=bgN, 8 for "bg", None
+    for any other value or none (the einsum read), parsed as the JAX step
+    does (:1265-1268). Read at every call; JAX reads it at trace time,
+    which for a fixed process is the same."""
+    mode = os.environ.get("WHISPER_TPU_IP_CROSS", "xla")
+    if not mode.startswith("bg"):
+        return None
+    return int(mode[2:]) if len(mode) > 2 else 8
+
+
 def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
                     pos: int, kv_cache: dict[str, torch.Tensor],
                     cross_kv: dict[str, torch.Tensor]
@@ -572,7 +606,11 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
         quantized, appended by the same kernel on the int8 caches, and
         their scale rows written by indexed assignment (:1328-1351);
       * an int8 cross cache is read through `_att_cross_q8` in bf16 mode
-        and through decode_attention_q8_bh in fp32 mode.
+        and through decode_attention_q8_bh in fp32 mode, dequantized into
+        the einsum read under the "reference" backend (:1236-1253);
+      * a bf16 unquantized cross cache is read through decode_attention_bg
+        when WHISPER_TPU_IP_CROSS is bg or bgN and N divides the batch
+        (`_ip_cross_block`, :1260-1276); fp32 mode never takes it.
     Returns (logits (B, 1, vocab) fp32, kv_cache)."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
@@ -584,13 +622,22 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
     D = cfg.head_dim
     h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos].to(dtype)
 
+    reference = (cfg.attn_backend or default_backend()) == "reference"
+    block_b = None if fp32_mode else _ip_cross_block()
+
     def att_cross(q, cross_l):
-        if "k_s" not in cross_l:
-            return _cross_attention(q, cross_l["k"], cross_l["v"], D, dtype)
-        if not fp32_mode:
-            return _att_cross_q8(q, cross_l, D, dtype)
-        return decode_attention_q8_bh(q, cross_l["k"], cross_l["k_s"],
-                                      cross_l["v"], cross_l["v_s"])
+        k, v = cross_l["k"], cross_l["v"]
+        if "k_s" in cross_l:
+            if not fp32_mode:
+                return _att_cross_q8(q, cross_l, D, dtype)
+            if not reference:
+                return decode_attention_q8_bh(q, k, cross_l["k_s"], v,
+                                              cross_l["v_s"])
+            k = (k.float() * cross_l["k_s"]).to(dtype)
+            v = (v.float() * cross_l["v_s"]).to(dtype)
+        elif block_b and q.shape[0] % block_b == 0:
+            return decode_attention_bg(q, k, v, block_b=block_b)
+        return _cross_attention(q, k, v, D, dtype)
 
     k_news, v_news = [], []
     for i in range(cfg.n_text_layers):
@@ -666,7 +713,7 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
         a = _cache_attention(q, layer_index(cross_kv, i), None,
-                             causal=False, q_offset=0, dtype=dtype)
+                             causal=False, q_offset=0, cfg=cfg, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
