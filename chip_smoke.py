@@ -134,6 +134,15 @@ NO_DECODE = {"decode_attention_bh": 0, "decode_attention_bg": 0,
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the flash kernel's bf16 timings (B, T, H, S): a turbo and a tiny b32
+# encoder layer (tiny's is the tail's attention), the tiny engine fill's
+# cross read at p_pad 128, and the "pallas" tiny prefill's cross read
+FLASH_TIME = {"turbo_layer": (BATCH, 1500, 20, 1500),
+              "tiny_layer": (BATCH, 1500, 6, 1500),
+              "tiny_fill_cross": (BATCH, 128, 6, 1500),
+              "tiny_prefill_cross": (BATCH, 4, 6, 1500)}
+# the bf16 flash kernel's symbol (both causal instantiations)
+FLASH_BF16_KERNEL = "2tc12flash_kernel"
 
 
 def emit(obj: dict) -> None:
@@ -603,9 +612,9 @@ def flash_checks(card: str) -> dict:
     gives it: turbo's (H=20, D=64) in the greedy path, and every read that
     the engines' fills route to it (tiny's 32 slots at H=6, turbo's 8 at
     H=20: the prefill's cross reads at p_pad 32 and 128, turbo's encoder
-    over 8 slots on views of the fused QKV). Then one turbo b32 encoder
-    layer timed against the plain version. Returns the kernels-line
-    numbers (bf16 b32)."""
+    over 8 slots on views of the fused QKV). Then the FLASH_TIME shapes
+    in bf16 and turbo's layer in fp32, timed against the plain version
+    and SDPA. Returns the kernels-line numbers (bf16 b32)."""
     import torch
     import torch.nn.functional as F
 
@@ -682,40 +691,85 @@ def flash_checks(card: str) -> dict:
             del q, k, v, got, want, err
     torch.cuda.empty_cache()
 
-    # one turbo b32 encoder layer, timed in turns; the plain version
-    # materialises 32*20*1500^2*4 B = 5.8 GB of scores
-    for dtype in (torch.bfloat16, torch.float32):
+    # the bf16 shapes of the main paths, each timed in turns against the
+    # plain version, beside its bound and SDPA; fp32 at turbo's layer.
+    # Below T = 1500 the kernel is short, so each is also timed by replay.
+    shapes = {}
+    for dtype, name in [(torch.bfloat16, n) for n in FLASH_TIME] + [
+            (torch.float32, "turbo_layer")]:
         atol, rtol = FLASH_TOL[str(dtype).split(".")[1]]
-        q, k, v = inputs(BATCH, 1500, H, 1500, dtype)
+        B, T, Hc, S = FLASH_TIME[name]
+        q, k, v = inputs(B, T, Hc, S, dtype)
         got = flash_attention(q, k, v).float()
         want = flash_attention_plain(q, k, v).float()
         err = (got - want).abs()
         max_err = float(err.max())
         require(bool((err <= atol + rtol * want.abs()).all()),
-                f"flash_attention b32 {dtype} max abs err {max_err}")
+                f"flash_attention {name} {dtype} max abs err {max_err}")
         del got, want, err
+        iters = 5 if T == 1500 else 50
         ms, plain_ms = alternate_ms(lambda: flash_attention_plain(q, k, v),
                                     lambda: flash_attention(q, k, v),
-                                    iters=5)
+                                    iters=iters)
+
         # library_time: the one PyTorch call for the same function, on the
         # same q, k, v, with q's transpose to (B, H, T, D) in the timed
         # call. A yardstick only: the port never calls it.
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k, v), iters=5)
-        flops = 4 * BATCH * H * 1500 * 1500 * D
-        emit({"phase": "flash_time", "shape": [BATCH, 1500, H, D],
-              "dtype": str(dtype), "max_abs_err": max_err, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms,
+        def sdpa():
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k, v)
+
+        library_ms = cuda_ms(sdpa, iters=iters)
+        flops = 4 * B * Hc * T * S * D
+        line = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                **bound(2 * (B * T + B * S) * Hc * D * q.element_size(),
+                        flops, str(dtype).split(".")[1])}
+        if T < 1500:
+            line["graph_ms"] = graph_ms(lambda: flash_attention(q, k, v))
+            line["library_graph_ms"] = graph_ms(sdpa)
+        emit({"phase": "flash_time", "case": name, "shape": [B, T, Hc, D],
+              "S": S, "dtype": str(dtype), **line,
               "tf32": torch.backends.cuda.matmul.allow_tf32,
               "tflops": flops / (ms * 1e9), "card": card})
-        if dtype == torch.bfloat16:     # the main path's dtype
-            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms,
-                   **bound(4 * q.numel() * q.element_size(), flops,
-                           "bfloat16")}
+        if dtype == torch.bfloat16:     # the main paths' dtype
+            shapes[name] = line
         del q, k, v
         torch.cuda.empty_cache()
-    return out
+    # the kernels line: turbo's b32 layer, and every timed bf16 shape
+    return {**shapes["turbo_layer"], "shapes": shapes}
+
+
+def flash_sass(card: str) -> None:
+    """The bf16 flash kernel as built: its HGMMA (wgmma) instructions in
+    the library's SASS, and what -Xptxas -v reported for it (registers,
+    spills, any wgmma serialization)."""
+    from whisper_tpu_torch.ops import _build
+    so, _, log = _build.build()
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hgmma, fn = {}, None
+    for text in sass.splitlines():
+        if "Function : " in text:
+            fn = text.split("Function : ")[1].strip()
+        elif fn and FLASH_BF16_KERNEL in fn:
+            hgmma[fn] = hgmma.get(fn, 0) + ("HGMMA" in text)
+    ptxas, fn = {}, None
+    for text in log.splitlines():
+        if "Compiling entry function" in text:
+            fn = text.split("'")[1] if FLASH_BF16_KERNEL in text else None
+        elif fn:
+            ptxas.setdefault(fn, []).append(text.strip())
+    regs = {f: next((t for t in lines if "registers" in t), None)
+            for f, lines in ptxas.items()}
+    spills = {f: next((t for t in lines if "spill" in t), None)
+              for f, lines in ptxas.items()}
+    serialized = [t for t in log.splitlines()
+                  if "wgmma" in t and "serialized" in t]
+    emit({"phase": "flash_sass", "hgmma": hgmma, "registers": regs,
+          "spills": spills, "wgmma_serialized": serialized, "card": card})
+    require(len(hgmma) == 2 and all(n > 0 for n in hgmma.values()),
+            f"flash_sass: the bf16 flash kernels run no HGMMA ({hgmma})")
 
 
 def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
@@ -1798,6 +1852,7 @@ def main() -> int:
 
     ragged = ragged_checks(card)
     flash = flash_checks(card)
+    flash_sass(card)
     q8 = q8_checks(card)
     decode_err = decode_checks(card)
     decode = decode_time(card)
@@ -2166,7 +2221,8 @@ def main() -> int:
          "launches": turbo_launches["flash_attention"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]},
+         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+         "shapes": flash["shapes"]},
         {"name": "cache_append_rows_ragged", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:133",

@@ -34,6 +34,9 @@ _CASES = {
     "causal_offset": (1, 40, 256, 2, 140, 100, True),
     "T_not_tile_multiple": (2, 70, 200, 2, 150, 20, True),
     "kv_len_0": (1, 5, 64, 2, 0, 0, False),
+    # one past two 64-row blocks and four 64-key tiles of the bf16 kernel
+    "tile_straddle": (1, 129, 257, 2, None, 0, False),
+    "tile_straddle_causal": (1, 129, 257, 2, 250, 100, True),
 }
 
 
@@ -132,6 +135,53 @@ def test_check_refuses_what_the_kernel_does_not_take(q, k, kv_len, q_offset,
                                                     err, match):
     with pytest.raises(err, match=match):
         _check(q, k, k, kv_len, q_offset)
+
+
+def _strided(shape, strides, dtype=torch.bfloat16):
+    return torch.empty(0, dtype=dtype, device="meta").as_strided(shape,
+                                                                  strides)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("dim", [0, 1, 2])
+def test_check_refuses_bf16_strides_off_8(which, dim):
+    """The bf16 kernel copies 16 bytes at a time: a stride that is not a
+    whole number of 8 elements is refused, in q, k or v and in any of the
+    three outer dims; fp32 takes the same strides."""
+    base = {"q": ((2, 4, 3, 64), [832, 200, 64, 1]),
+            "k": ((2, 3, 8, 64), [1600, 520, 64, 1]),
+            "v": ((2, 3, 8, 64), [1600, 520, 64, 1])}
+    args = {}
+    for name, (shape, strides) in base.items():
+        if name == which:
+            strides = list(strides)
+            strides[dim] += 1
+        args[name] = _strided(shape, strides)
+    with pytest.raises(ValueError, match=f"{which}'s strides"):
+        _check(args["q"], args["k"], args["v"], 8, 0)
+    fp32 = {n: _strided(t.shape, t.stride(), torch.float32)
+            for n, t in args.items()}
+    with pytest.raises(ValueError, match="q is on meta"):
+        _check(fp32["q"], fp32["k"], fp32["v"], 8, 0)
+
+
+@pytest.mark.parametrize("model", ["tiny", "base", "small", "medium",
+                                   "large-v3-turbo"])
+def test_check_takes_the_encoders_bf16_views(model):
+    """q, k and v as the encoder hands them over at each width: head
+    views of one fused (B, T, 3d) QKV projection. They pass every check
+    of the bf16 kernel but the device (meta here)."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.models.whisper import split_heads, split_heads_hm
+    cfg = get_config(model)
+    H, d, T = cfg.n_heads, cfg.d_model, cfg.n_audio_ctx
+    qkv = torch.empty((2, T, 3 * d), dtype=torch.bfloat16, device="meta")
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = split_heads(q, H), split_heads_hm(k, H), split_heads_hm(v, H)
+    assert q.shape == (2, T, H, 64) and k.shape == (2, H, T, 64)
+    assert all(t.storage_offset() % 8 == 0 for t in (q, k, v))
+    with pytest.raises(ValueError, match="q is on meta"):
+        _check(q, k, v, T, 0)
 
 
 def test_flash_refuses_non_cuda_devices():

@@ -318,6 +318,74 @@ def test_flash_kernel_reads_strided_views(dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [127, 128, 129])
+@pytest.mark.parametrize("S", [127, 128, 129])
+def test_flash_kernel_tile_edges_match_plain(dev, dtype, T, S):
+    """q and key counts one under, at and one over two of the bf16
+    kernel's 64-row blocks and 64-key tiles."""
+    q, k, v = _flash_args(2, T, S, 3, dtype, dev, seed=T + S)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v).float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal", [
+    (2, 1500, 1500, 6, None, 0, False),   # one tiny encoder layer, b2
+    (2, 129, 300, 2, 200, 70, True),      # kv_len and diagonal inside tiles
+    (1, 257, 448, 2, 331, 74, True),      # three q blocks, q_offset 74
+])
+def test_flash_kernel_long_and_causal_match_plain(dev, dtype, B, T, S, H,
+                                                  kv_len, q_offset, causal):
+    q, k, v = _flash_args(B, T, S, H, dtype, dev, seed=7)
+    got = flash_attention(q, k, v, kv_len, q_offset, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, kv_len, q_offset, causal=causal)
+    atol, rtol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("S", [64, 1500])
+def test_flash_kernel_one_hot_rows_are_v_rows(dev, S):
+    """Each query is a large multiple of one key, the keys orthonormal (S =
+    64) or random unit vectors (S = 1500): p is one-hot to far below a bf16
+    ulp, so every output row is exactly one V row. A layout or swizzle
+    error in either product shows as a permuted row, not a small error."""
+    B, T, H = 2, 300, 3
+    g = torch.Generator(device="cpu").manual_seed(S)
+    keys = torch.randn((B, H, S, 64), generator=g, dtype=torch.float64)
+    if S == 64:
+        keys = torch.linalg.qr(keys)[0].transpose(-1, -2)   # orthonormal rows
+    keys = keys / keys.norm(dim=-1, keepdim=True)
+    pick = torch.randint(0, S, (B, H, T), generator=g)
+    q = 1000 * torch.gather(keys, 2, pick[..., None].expand(B, H, T, 64))
+    v = torch.randn((B, H, S, 64), generator=g)
+    q, k, v = (x.to(dev, torch.bfloat16) for x in (q.transpose(1, 2), keys, v))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = torch.gather(v, 2, pick.to(dev)[..., None].expand(B, H, T, 64))
+    assert torch.equal(got, want.transpose(1, 2))
+
+
+def test_flash_kernel_refuses_misaligned_bf16_views(dev):
+    """The bf16 kernel copies 16 bytes at a time: a view one element past
+    a 16-byte boundary raises before any launch."""
+    n = 2 * 8 * 2 * 64
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    q = buf[1:n + 1].view(2, 8, 2, 64)
+    k = torch.zeros((2, 2, 8, 64), dtype=torch.bfloat16, device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="q does not start on a 16-byte"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="k does not start on a 16-byte"):
+        flash_attention(k.transpose(1, 2), q.transpose(1, 2), k)
+    assert flash_attention.launches == before
+
+
 def test_flash_kernel_refuses_head_dim_32(dev):
     q = torch.zeros((1, 4, 2, 32), device=dev)
     k = torch.zeros((1, 2, 8, 32), device=dev)

@@ -85,13 +85,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
     if not 0 <= q_offset < 2 ** 30:
         raise ValueError(f"flash_attention: q_offset {q_offset} outside "
                          f"[0, 2**30)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    tensors = (("q", q), ("k", k), ("v", v))
+    for name, t in tensors:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim is not "
                              f"contiguous (stride {t.stride(-1)})")
+        # the bf16 kernel moves 16 bytes at a time (cp.async)
+        if t.dtype == torch.bfloat16 and any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name}'s strides "
+                             f"{t.stride()} are not multiples of 8 elements")
+    for name, t in tensors:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}; "
                              f"the kernel takes tensors on one CUDA device")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} does not start on a "
+                             f"16-byte boundary")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -102,7 +111,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Args:
       q: (B, T, H, D); k, v: (B, H, S, D) head-major, cast to q's dtype.
-        Any strides with D contiguous: the kernel reads views in place.
+        Any strides with D contiguous: the kernel reads views in place. In
+        bf16 the strides are multiples of 8 elements and each tensor
+        starts on a 16-byte boundary (every view the port hands over).
       kv_len: number of valid keys (default S); keys past it are never
         read.
       q_offset: absolute position of q[:, 0] for the causal mask.
