@@ -27,7 +27,10 @@ and the unfused tokens, and turbo b32 bf16 with the fused step at full
 width and depth. Then the attention backend switch (cfg.attn_backend):
 the fp32/bf16 decode kernel's three wrappers (decode_attention_bh,
 decode_attention_bg, decode_attention) against their plain versions with
-NaN in the dead rows and timed beside the bound and SDPA; tiny and turbo
+NaN in the dead rows and timed beside the bound and SDPA, and the reads
+its plan splits (B=1 and B=4 cross reads, a long cache) timed split and
+in one block beside SDPA, and the wall time of a decode wrapper's call;
+tiny and turbo
 b32 bf16 under "pallas" with WHISPER_TPU_IP_CROSS=bg8 (every cross read
 of the loop one decode_attention_bg launch) timed against the default
 path in turns; tiny b32 bf16 with kv_cache_quant under "pallas" (every
@@ -37,14 +40,13 @@ against the CPU; and the tiny engine under "pallas".
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
-`--profile` adds the kernels' build timed serial against parallel, and
-after each greedy main path (of the "pallas" ones, tiny's): the wall of
-five more main-path runs, the
-peak device memory, and one main-path run under torch.profiler (device
-time by kernel); for tiny also the fp32 tail
-against its plain version at b32, the append's device time under
-CUDA-graph replay, and one more drive of the tiny engine's traffic under
-torch.profiler.
+`--profile` adds the kernels' build timed serial against parallel, the
+names of SDPA's fp32 kernels, the decode kernel by replay at forced split
+counts, and after each greedy main path (of the "pallas" ones, tiny's):
+the wall of five more main-path runs, the peak device memory, and one
+main-path run under torch.profiler (device time by kernel); for tiny
+also the append's device time under CUDA-graph replay, and one more
+drive of the tiny engine's traffic under torch.profiler.
 
 Every line but the last is one JSON object per phase (plus the card's
 `nvidia-smi` name and power limit on a line of its own). The line before
@@ -127,6 +129,18 @@ DECODE_CASES = {"tiny_self": (BATCH, 6, 448, (0, 1, 93, 448)),
 DECODE_TIME = {"tiny_cross": (BATCH, 6, 1500, 1500),
                "turbo_cross": (BATCH, 20, 1500, 1500),
                "tiny_self_93": (BATCH, 6, 448, 93)}
+# the split counts decode_split_sweep forces
+SPLIT_SWEEP = (1, 2, 3, 4, 5, 6, 8)
+# (B, H, S, kv_len) of the reads whose B*H rows leave SMs without a
+# block, which decode_split_ab times split by the plan and in one block:
+# bf16 cross reads at B=1 (a one-file transcription's cross reads and its
+# detect_language under "pallas") and B=4 (turbo's 80 rows the plan does
+# not split), and the long cache
+SPLIT_AB = {"tiny_cross_b1": (1, 6, 1500, 1500),
+            "tiny_cross_b4": (4, 6, 1500, 1500),
+            "turbo_cross_b1": (1, 20, 1500, 1500),
+            "turbo_cross_b4": (4, 20, 1500, 1500),
+            "long_cache": (4, 6, 8192, 8000)}
 IP_CROSS_BG8 = {"WHISPER_TPU_IP_CROSS": "bg8"}
 # every greedy run but the "pallas" ones launches none of these
 NO_DECODE = {"decode_attention_bh": 0, "decode_attention_bg": 0,
@@ -141,8 +155,11 @@ FLASH_TIME = {"turbo_layer": (BATCH, 1500, 20, 1500),
               "tiny_layer": (BATCH, 1500, 6, 1500),
               "tiny_fill_cross": (BATCH, 128, 6, 1500),
               "tiny_prefill_cross": (BATCH, 4, 6, 1500)}
-# the bf16 flash kernel's symbol (both causal instantiations)
+# fp32 flash timings (B, T, H, S): a turbo and a tiny b32 encoder layer
+FLASH_TIME_FP32 = ("turbo_layer", "tiny_layer")
+# the bf16 and fp32 flash kernels' symbols (both causal instantiations)
 FLASH_BF16_KERNEL = "2tc12flash_kernel"
+FLASH_FP32_KERNEL = "4simt12flash_kernel"
 
 
 def emit(obj: dict) -> None:
@@ -251,27 +268,12 @@ def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
-def profile_kernels(cfg, card: str, append_args) -> None:
-    """The tiny kernel measurements behind PERF.md, each on its own line."""
-    import torch
-
+def profile_append(card: str, append_args) -> None:
+    """The append's device time by replay, for PERF.md."""
     from whisper_tpu_torch.ops.cache_append import (
         cache_append_rows,
         cache_append_rows_plain,
     )
-    from whisper_tpu_torch.ops.encoder_layer import (
-        encoder_block_tail,
-        encoder_block_tail_plain,
-    )
-
-    args = tail_inputs(cfg, BATCH, torch.float32, seed=2)
-    ms, plain_ms = alternate_ms(lambda: encoder_block_tail_plain(*args),
-                                lambda: encoder_block_tail(*args), iters=5)
-    emit({"phase": "profile_tail_fp32", "shape": [BATCH, cfg.n_audio_ctx,
-                                                  cfg.n_heads, cfg.head_dim],
-          "ms": ms, "plain_ms": plain_ms, "card": card})
-    del args
-    torch.cuda.empty_cache()
 
     for dtype, (ck, cv, kn, vn) in append_args.items():
         emit({"phase": "profile_append_graph", "dtype": str(dtype),
@@ -607,14 +609,15 @@ def tail_gate(card: str) -> None:
             "tiny and base must take the tail, small and up must not")
 
 
-def flash_checks(card: str) -> dict:
+def flash_checks(card: str, profile: bool = False) -> dict:
     """The flash kernel against its plain version at the shapes the port
     gives it: turbo's (H=20, D=64) in the greedy path, and every read that
     the engines' fills route to it (tiny's 32 slots at H=6, turbo's 8 at
     H=20: the prefill's cross reads at p_pad 32 and 128, turbo's encoder
     over 8 slots on views of the fused QKV). Then the FLASH_TIME shapes
-    in bf16 and turbo's layer in fp32, timed against the plain version
-    and SDPA. Returns the kernels-line numbers (bf16 b32)."""
+    in bf16 and FLASH_TIME_FP32's in fp32, timed against the plain version
+    and SDPA (with `profile`, SDPA's fp32 kernels by name). Returns the
+    kernels-line numbers (bf16 b32, fp32 beside them)."""
     import torch
     import torch.nn.functional as F
 
@@ -692,11 +695,12 @@ def flash_checks(card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the bf16 shapes of the main paths, each timed in turns against the
-    # plain version, beside its bound and SDPA; fp32 at turbo's layer.
-    # Below T = 1500 the kernel is short, so each is also timed by replay.
+    # plain version, beside its bound and SDPA; fp32 at turbo's and tiny's
+    # layers. Each is also timed by replay against SDPA by replay (fewer
+    # launches a graph at T = 1500).
     shapes = {}
     for dtype, name in [(torch.bfloat16, n) for n in FLASH_TIME] + [
-            (torch.float32, "turbo_layer")]:
+            (torch.float32, n) for n in FLASH_TIME_FP32]:
         atol, rtol = FLASH_TOL[str(dtype).split(".")[1]]
         B, T, Hc, S = FLASH_TIME[name]
         q, k, v = inputs(B, T, Hc, S, dtype)
@@ -724,52 +728,109 @@ def flash_checks(card: str) -> dict:
                 "library_ms": library_ms,
                 **bound(2 * (B * T + B * S) * Hc * D * q.element_size(),
                         flops, str(dtype).split(".")[1])}
-        if T < 1500:
-            line["graph_ms"] = graph_ms(lambda: flash_attention(q, k, v))
-            line["library_graph_ms"] = graph_ms(sdpa)
+        if T < 1500 or dtype == torch.float32:
+            n = (100, 20) if T < 1500 else (5, 4)
+            line["graph_ms"] = graph_ms(lambda: flash_attention(q, k, v), *n)
+            line["library_graph_ms"] = graph_ms(sdpa, *n)
         emit({"phase": "flash_time", "case": name, "shape": [B, T, Hc, D],
               "S": S, "dtype": str(dtype), **line,
               "tf32": torch.backends.cuda.matmul.allow_tf32,
               "tflops": flops / (ms * 1e9), "card": card})
-        if dtype == torch.bfloat16:     # the main paths' dtype
-            shapes[name] = line
+        # the main paths' dtype, bf16; fp32 (the parity mode) beside it
+        shapes[name if dtype == torch.bfloat16 else f"{name}_fp32"] = line
+        if profile and dtype == torch.float32 and name == "turbo_layer":
+            sdpa_kernels(sdpa, card)
         del q, k, v
         torch.cuda.empty_cache()
     # the kernels line: turbo's b32 layer, and every timed bf16 shape
     return {**shapes["turbo_layer"], "shapes": shapes}
 
 
-def flash_sass(card: str) -> None:
-    """The bf16 flash kernel as built: its HGMMA (wgmma) instructions in
-    the library's SASS, and what -Xptxas -v reported for it (registers,
-    spills, any wgmma serialization)."""
-    from whisper_tpu_torch.ops import _build
-    so, _, log = _build.build()
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    hgmma, fn = {}, None
+def sdpa_kernels(sdpa, card: str) -> None:
+    """flash_sdpa_kernels: the device kernels of one SDPA call (the fp32
+    yardstick, TF32 off) by name, from torch.profiler."""
+    import torch
+    sdpa()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sdpa()
+        torch.cuda.synchronize()
+    kernels, device_ms = device_kernels(prof)
+    emit({"phase": "flash_sdpa_kernels", "dtype": "torch.float32",
+          "kernels": [{"kernel": e.key[:160],
+                       "device_ms": e.self_device_time_total / 1e3,
+                       "count": e.count} for e in kernels[:5]],
+          "device_ms": device_ms, "card": card})
+
+
+def sass_counts(sass: str, symbol: str, opcodes: tuple) -> dict:
+    """{function: {opcode: count}} over the SASS functions whose name
+    holds `symbol`."""
+    counts, fn = {}, None
     for text in sass.splitlines():
         if "Function : " in text:
             fn = text.split("Function : ")[1].strip()
-        elif fn and FLASH_BF16_KERNEL in fn:
-            hgmma[fn] = hgmma.get(fn, 0) + ("HGMMA" in text)
+            fn = fn if symbol in fn else None
+            if fn:
+                counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn:
+            # "/*0010*/  @P0 FFMA R2, R3, R4, R2 ;  /* encoding */"
+            ops = [t for t in text.split("*/", 1)[-1].split(";")[0].split()
+                   if not t.startswith("@")]
+            op = ops[0].split(".")[0] if ops else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
+
+
+def ptxas_lines(log: str, symbol: str) -> tuple[dict, dict]:
+    """({function: registers line}, {function: spills line}) from the
+    -Xptxas -v log for the functions whose name holds `symbol`."""
     ptxas, fn = {}, None
     for text in log.splitlines():
         if "Compiling entry function" in text:
-            fn = text.split("'")[1] if FLASH_BF16_KERNEL in text else None
+            fn = text.split("'")[1] if symbol in text else None
         elif fn:
             ptxas.setdefault(fn, []).append(text.strip())
     regs = {f: next((t for t in lines if "registers" in t), None)
             for f, lines in ptxas.items()}
     spills = {f: next((t for t in lines if "spill" in t), None)
               for f, lines in ptxas.items()}
+    return regs, spills
+
+
+def flash_sass(card: str) -> None:
+    """The flash kernels as built. bf16: its HGMMA (wgmma) instructions in
+    the library's SASS, and what -Xptxas -v reported for it (registers,
+    spills, any wgmma serialization). fp32: its FFMA count, and no tensor-
+    core instruction (HMMA, HGMMA): the parity mode's products stay on the
+    CUDA cores."""
+    from whisper_tpu_torch.ops import _build
+    so, _, log = _build.build()
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hgmma = {f: c["HGMMA"] for f, c in sass_counts(
+        sass, FLASH_BF16_KERNEL, ("HGMMA",)).items()}
+    regs, spills = ptxas_lines(log, FLASH_BF16_KERNEL)
     serialized = [t for t in log.splitlines()
                   if "wgmma" in t and "serialized" in t]
-    emit({"phase": "flash_sass", "hgmma": hgmma, "registers": regs,
-          "spills": spills, "wgmma_serialized": serialized, "card": card})
+    emit({"phase": "flash_sass", "dtype": "torch.bfloat16", "hgmma": hgmma,
+          "registers": regs, "spills": spills,
+          "wgmma_serialized": serialized, "card": card})
     require(len(hgmma) == 2 and all(n > 0 for n in hgmma.values()),
             f"flash_sass: the bf16 flash kernels run no HGMMA ({hgmma})")
+    fp32 = sass_counts(sass, FLASH_FP32_KERNEL,
+                       ("FFMA", "HMMA", "HGMMA", "LDS", "MUFU"))
+    regs, spills = ptxas_lines(log, FLASH_FP32_KERNEL)
+    emit({"phase": "flash_sass", "dtype": "torch.float32", "counts": fp32,
+          "registers": regs, "spills": spills, "card": card})
+    require(len(fp32) == 2 and all(
+        c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
+        for c in fp32.values()),
+            f"flash_sass: the fp32 flash kernels must run FFMA and no "
+            f"tensor-core instruction ({fp32})")
 
 
 def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
@@ -1170,7 +1231,9 @@ def q8_checks(card: str) -> dict:
                     **bnd, "library_ms": None}
             emit({"phase": "q8_time", "wrapper": name, "model": model,
                   "shape": [B, 1, H, 64], "S": 1500, "dtype": "float32",
-                  **line, "bound_share": bnd["bound_ms"] / ms, "card": card})
+                  **decode_plan(B, H, 1500, 1), **line,
+                  "graph_ms": graph_ms(lambda: fn(*args)),
+                  "bound_share": bnd["bound_ms"] / ms, "card": card})
             if model == "tiny":
                 out[name] = line
         del args
@@ -1252,13 +1315,25 @@ def decode_checks(card: str) -> dict:
     return err
 
 
+def decode_plan(B: int, H: int, kv_len: int, kv_bytes: int) -> dict:
+    """The decode wrappers' plan for this read here: split count and
+    warps a block."""
+    import torch
+
+    from whisper_tpu_torch.ops import decode_attention as da
+    n, _, warps = da._split_plan(B * H, kv_len, da._sm_count(
+        torch.device("cuda", torch.cuda.current_device())), kv_bytes)
+    return {"n_split": n, "warps": warps}
+
+
 def decode_time(card: str) -> dict:
     """decode_time: each wrapper at DECODE_TIME's shapes in bf16, the
     kernel and its plain version in turns (CUDA events), the kernel by
     CUDA-graph replay, and the one PyTorch call for the same function
     (scaled_dot_product_attention over k[:, :, :kv_len], timed here and
-    never called by the port) beside the bound. Returns the kernels-line
-    numbers by wrapper (tiny b32 bf16 cross read)."""
+    never called by the port) by events and by replay, beside the bound
+    and the split count the plan took. Returns the kernels-line numbers by
+    wrapper (tiny b32 bf16 cross read)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cpu").manual_seed(11)
@@ -1268,8 +1343,12 @@ def decode_time(card: str) -> dict:
         k, v = (torch.randn((B, H, S, 64), generator=g).to(
             "cuda", torch.bfloat16) for _ in range(2))
         qt, ks, vs = q.transpose(1, 2), k[:, :, :kv_len], v[:, :, :kv_len]
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, ks, vs), iters=50)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, ks, vs)
+
+        library_ms = cuda_ms(sdpa, iters=50)
+        library_graph_ms = graph_ms(sdpa)
         # K/V's live rows read once, q read and the output written once;
         # 4 FLOP per live key and dim
         bnd = bound(2 * B * H * kv_len * 64 * 2 + 2 * q.numel() * 2,
@@ -1283,13 +1362,158 @@ def decode_time(card: str) -> dict:
                     "library_ms": library_ms}
             emit({"phase": "decode_time", "wrapper": name, "case": case,
                   "shape": [B, 1, H, 64], "S": S, "kv_len": kv_len,
-                  "dtype": "bfloat16", **line, "graph_ms": replay_ms,
+                  "dtype": "bfloat16", **decode_plan(B, H, kv_len, 2),
+                  **line, "graph_ms": replay_ms,
+                  "library_graph_ms": library_graph_ms,
                   "bound_share": bnd["bound_ms"] / replay_ms, "card": card})
             if case == "tiny_cross":
                 out[name] = line
         del q, k, v, qt, ks, vs
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def forced_plan(n_split: int, warps: int):
+    """The decode wrappers' plan replaced by n_split splits of
+    ceil(kv_len / n_split) keys with `warps` warps a block."""
+    from whisper_tpu_torch.ops import decode_attention as da
+    plan = da._split_plan
+    da._split_plan = (lambda bh, kv_len, sms, kv_bytes=2:
+                      (n_split, -(-kv_len // n_split), warps))
+    da._launch_plan.cache_clear()
+    try:
+        yield
+    finally:
+        da._split_plan = plan
+        da._launch_plan.cache_clear()
+
+
+def decode_split_ab(card: str) -> None:
+    """decode_split_ab: decode_attention_bh in bf16 at SPLIT_AB's reads:
+    its output against the plain version (NaN past kv_len), then by
+    replay, in turns, the read as the plan launches it, the same read in
+    one split with 8 and with WIDE_WARPS warps a block, and SDPA over
+    k[:, :, :kv_len] (timed here, never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.ops import decode_attention as da
+    g = torch.Generator(device="cpu").manual_seed(13)
+    atol, rtol = DECODE_TOL["bfloat16"]
+    for case, (B, H, S, kv_len) in SPLIT_AB.items():
+        q = torch.randn((B, 1, H, 64), generator=g).to("cuda", torch.bfloat16)
+        k, v = (torch.randn((B, H, S, 64), generator=g).to(
+            "cuda", torch.bfloat16) for _ in range(2))
+        k[:, :, kv_len:] = float("nan")
+        v[:, :, kv_len:] = float("nan")
+        plan = decode_plan(B, H, kv_len, 2)
+        want = da.decode_attention_bh_plain(q, k, v, kv_len).float()
+        got = da.decode_attention_bh(q, k, v, kv_len).float()
+        e = (got - want).abs()
+        ok = bool(torch.isfinite(got).all()
+                  and (e <= atol + rtol * want.abs()).all())
+        qt, ks, vs = q.transpose(1, 2), k[:, :, :kv_len], v[:, :, :kv_len]
+
+        def read():
+            return da.decode_attention_bh(q, k, v, kv_len)
+
+        def one_split(warps):
+            with forced_plan(1, warps):
+                return graph_ms(read)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, ks, vs)
+
+        first = [graph_ms(read), one_split(8), one_split(da.WIDE_WARPS),
+                 graph_ms(sdpa)]
+        last = [graph_ms(sdpa), one_split(da.WIDE_WARPS), one_split(8),
+                graph_ms(read)][::-1]
+        (split_ms, one8_ms, one_wide_ms, library_ms) = (
+            (x + y) / 2 for x, y in zip(first, last))
+        emit({"phase": "decode_split_ab", "case": case,
+              "shape": [B, 1, H, 64], "S": S, "kv_len": kv_len, **plan,
+              "max_abs_err": float(e.max()), "atol": atol, "rtol": rtol,
+              "ok": ok, "graph_ms": split_ms,
+              "one_split_graph_ms": {8: one8_ms, da.WIDE_WARPS: one_wide_ms},
+              "library_graph_ms": library_ms,
+              "one_split_over_split": min(one8_ms, one_wide_ms) / split_ms,
+              "readings": {"split": [first[0], last[0]],
+                           "library": [first[3], last[3]]},
+              **bound(2 * B * H * kv_len * 64 * 2 + 2 * q.numel() * 2,
+                      4 * B * H * kv_len * 64, "bfloat16"), "card": card})
+        require(ok, f"decode_split_ab {case}: the split read disagrees with "
+                    f"its plain version (max abs err {float(e.max())})")
+        del q, k, v, qt, ks, vs, want, got
+    torch.cuda.empty_cache()
+
+
+def decode_wall(card: str) -> None:
+    """decode_wall: the wall time per call of decode_attention_bh at tiny
+    b32's bf16 self read (93 of 448 keys, ~3.5 us on the card) and of
+    decode_attention_q8_bh at tiny b32's fp32 int8 cross read, 500 calls
+    back to back between two synchronizations, the median and least of
+    seven such runs. Where the card's time is below the host's, this is
+    the wrapper's own cost on the host."""
+    import torch
+
+    from whisper_tpu_torch.ops import decode_attention as da
+    g = torch.Generator(device="cpu").manual_seed(14)
+    q = torch.randn((BATCH, 1, 6, 64), generator=g).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((BATCH, 6, 448, 64), generator=g).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    q8 = q8_inputs(BATCH, 6, 1500, torch.float32, g)
+    calls = {"decode_attention_bh": lambda: da.decode_attention_bh(
+                 q, k, v, 93),
+             "decode_attention_q8_bh": lambda: da.decode_attention_q8_bh(
+                 *q8)}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
+        runs = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(500):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / 500 * 1e6)
+        emit({"phase": "decode_wall", "wrapper": name,
+              "us_median": sorted(runs)[3], "us_min": min(runs),
+              "runs_us": runs, "card": card})
+    del q, k, v, q8
+    torch.cuda.empty_cache()
+
+
+def decode_split_sweep(card: str) -> None:
+    """decode_split_sweep: decode_attention_bh in bf16 at the b32 cross
+    reads and the long cache (B=4, 8000 of 8192 keys) by replay with 8 and
+    WIDE_WARPS warps a block and the split count forced to each of
+    SPLIT_SWEEP in turn (the plan's own choice marked), to check the plan
+    against the choices it did not make."""
+    import torch
+
+    from whisper_tpu_torch.ops import decode_attention as da
+    g = torch.Generator(device="cpu").manual_seed(12)
+    for case in ("tiny_cross", "turbo_cross", "long_cache"):
+        B, H, S, kv_len = DECODE_TIME.get(case) or (
+            DECODE_CASES[case][:3] + DECODE_CASES[case][3])
+        q = torch.randn((B, 1, H, 64), generator=g).to("cuda", torch.bfloat16)
+        k, v = (torch.randn((B, H, S, 64), generator=g).to(
+            "cuda", torch.bfloat16) for _ in range(2))
+        times = {}
+        for warps in (8, da.WIDE_WARPS):
+            times[warps] = {}
+            for n in SPLIT_SWEEP:
+                with forced_plan(n, warps):
+                    times[warps][n] = graph_ms(
+                        lambda: da.decode_attention_bh(q, k, v, kv_len))
+        emit({"phase": "decode_split_sweep", "case": case,
+              "shape": [B, 1, H, 64], "S": S, "kv_len": kv_len,
+              "graph_ms_by_warps_and_n_split": times,
+              "plan": decode_plan(B, H, kv_len, 2), "card": card})
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def append_int8_checks(card: str) -> None:
@@ -1801,6 +2025,17 @@ def main() -> int:
                                           cfg.n_heads, cfg.head_dim],
           "dtype": "bfloat16", "max_abs_err": main_tail_err,
           "ms": tail_ms, "plain_ms": tail_plain_ms, "card": card})
+    # beside it the fp32 tail (the parity mode), whose attention is the
+    # fp32 flash body
+    args32 = tail_inputs(cfg, BATCH, torch.float32, seed=2)
+    ms32, plain_ms32 = alternate_ms(lambda: encoder_block_tail_plain(*args32),
+                                    lambda: encoder_block_tail(*args32),
+                                    iters=5)
+    emit({"phase": "tail_time", "shape": [BATCH, cfg.n_audio_ctx,
+                                          cfg.n_heads, cfg.head_dim],
+          "dtype": "float32", "ms": ms32, "plain_ms": plain_ms32,
+          "bf16_ms": tail_ms, "card": card})
+    del args32
     B, T, H, D = args[0].shape
     d, ff = cfg.d_model, cfg.d_ff
     # attention, o-projection and MLP products; q, k, v, h in and h out,
@@ -1851,11 +2086,15 @@ def main() -> int:
                          "bfloat16")
 
     ragged = ragged_checks(card)
-    flash = flash_checks(card)
+    flash = flash_checks(card, opts.profile)
     flash_sass(card)
     q8 = q8_checks(card)
     decode_err = decode_checks(card)
     decode = decode_time(card)
+    decode_split_ab(card)
+    decode_wall(card)
+    if opts.profile:
+        decode_split_sweep(card)
     append_int8_checks(card)
     fused_err = fused_checks(card)
     fused = fused_time(card)
@@ -1916,7 +2155,7 @@ def main() -> int:
         profile_path("tiny_pallas_bg8", cfg, card, brun)
     del bpipe, brun
     if opts.profile:
-        profile_kernels(cfg, card, append_args)
+        profile_append(card, append_args)
         profile_path("tiny", cfg, card, run)
     bundled_vocab = pipe.tokenizer.tokens
     del run, append_args

@@ -120,6 +120,133 @@ def test_plain_never_reads_past_kv_len(which):
     assert torch.equal(fn(q, k, v, 130, **kw), clean)
 
 
+# (B*H, kv_len, SMs): the main paths' b32 reads on 132 SMs (tiny's and
+# turbo's cross reads, tiny's 93-of-448 self read), the long cache, edges
+# of the split threshold, and other cards and batches
+_PLAN_GRID = [(bh, kv_len, sms)
+              for bh in (1, 6, 24, 192, 640)
+              for kv_len in (0, 1, 93, 255, 511, 512, 1500, 8000)
+              for sms in (1, 132)]
+
+
+@pytest.mark.parametrize("bh,kv_len,sms", _PLAN_GRID)
+def test_split_plan_covers_the_keys(bh, kv_len, sms):
+    """The splits the kernel reads, [s*chunk, min((s+1)*chunk, kv_len)),
+    cover [0, kv_len) exactly, none is empty, all but the last hold chunk
+    >= SPLIT_MIN_KEYS keys when there is more than one, there is one below
+    2*SPLIT_MIN_KEYS keys, and the plan is a function of its inputs."""
+    n, chunk, warps = decode_attention._split_plan(bh, kv_len, sms)
+    assert (n, chunk, warps) == decode_attention._split_plan(bh, kv_len, sms)
+    assert 1 <= n <= decode_attention.SPLIT_MAX
+    assert warps in (8, decode_attention.WIDE_WARPS)
+    bounds = [(s * chunk, min((s + 1) * chunk, kv_len)) for s in range(n)]
+    keys = [j for a, b in bounds for j in range(a, b)]
+    assert keys == list(range(kv_len))
+    if kv_len:
+        assert all(b > a for a, b in bounds)
+    if n > 1:
+        assert chunk >= decode_attention.SPLIT_MIN_KEYS
+        assert all(b - a == chunk for a, b in bounds[:-1])
+    if kv_len < 2 * decode_attention.SPLIT_MIN_KEYS:
+        assert (n, chunk, warps) == (1, kv_len, 8)
+    if bh >= sms:
+        assert n == 1
+
+
+@pytest.mark.parametrize("bh,kv_len,kv_bytes,want", [
+    (192, 1500, 2, (1, 1500, 12)),  # tiny b32's bf16 cross read: one wave
+    (192, 1500, 1, (1, 1500, 12)),  # its int8 (q8) read
+    (192, 1500, 4, (1, 1500, 8)),   # fp32 K/V: 12 warps would not fit two
+    (640, 1500, 2, (1, 1500, 8)),   # turbo b32's: 640 blocks
+    (192, 93, 2, (1, 93, 8)),       # tiny b32's self read mid-bench
+    (80, 1500, 2, (1, 1500, 12)),   # turbo B=4: 80 rows, not split
+    (24, 8000, 2, (5, 1600, 12)),   # the long cache, B=4, H=6: 120 blocks
+    (6, 1500, 2, (5, 300, 8)),      # tiny B=1's cross read: capped by keys
+    (1, 8000, 2, (8, 1000, 12)),    # one row: capped by the cluster's 8
+])
+def test_split_plan_at_the_main_paths_reads(bh, kv_len, kv_bytes, want):
+    """On 132 SMs: rows that leave fewer than half the SMs idle are not
+    split, fewer rows are split into at most one block an SM; long reads
+    whose grid fits two blocks an SM take 12 warps a block."""
+    assert decode_attention._split_plan(bh, kv_len, 132, kv_bytes) == want
+
+
+def _split_partials(q, k, v, kv_len, chunk, *, cast_kv, p_round):
+    """Each split's partial softmax as the kernel's blocks write it, in
+    torch ops: for split s over keys [s*chunk, min((s+1)*chunk, kv_len)),
+    m_s = max s_j, l_s = sum_j exp(s_j - m_s) and acc_s = sum_j p_j v_j
+    with p_j = exp(s_j - m_s) (rounded to V's dtype under p_round, l
+    unrounded), all fp32. Returns m, l (B, H, n_split) and acc (B, H,
+    n_split, D), n_split = ceil(kv_len / chunk). kv_len > 0."""
+    D = q.shape[-1]
+    if cast_kv:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    qs = q[:, 0].float() * (D ** -0.5)                      # (B, H, D)
+    ms, ls, accs = [], [], []
+    for start in range(0, kv_len, chunk):
+        end = min(start + chunk, kv_len)
+        s = torch.einsum("bhd,bhsd->bhs", qs, k[:, :, start:end].float())
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ls.append(p.sum(dim=-1))
+        if p_round:
+            p = p.to(v.dtype)
+        accs.append(torch.einsum("bhs,bhsd->bhd", p.float(),
+                                 v[:, :, start:end].float()))
+        ms.append(m)
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+def _merge_splits(m, l, acc, dtype):
+    """The merge the cluster's first block runs, in index order:
+    M = max_s m_s, out = sum_s acc_s e^(m_s - M) /
+    max(sum_s l_s e^(m_s - M), 1e-30), cast to `dtype`. Shapes as
+    `_split_partials` returns them; the result is (B, 1, H, D)."""
+    big = m.amax(dim=-1, keepdim=True)
+    a = torch.exp(m - big)                                  # (B, H, n)
+    lt = torch.zeros_like(big[..., 0])
+    ot = torch.zeros_like(acc[:, :, 0])
+    for s in range(m.shape[-1]):
+        lt = lt + l[..., s] * a[..., s]
+        ot = ot + acc[:, :, s] * a[..., s, None]
+    return (ot / lt.clamp_min(1e-30)[..., None])[:, None].to(dtype)
+
+
+# JAX function, cast_kv, p_round of each kernel form
+_SPLIT_FNS = {"bh": (jax_da.decode_attention_bh, True, False),
+              "per_head": (jax_da.decode_attention, False, True)}
+
+
+@pytest.mark.parametrize("n_split,kv_len", [(1, 200), (2, 200), (3, 200),
+                                            (4, 131)])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32"),    # bh rounds K/V to the query's bf16
+    ("float32", "bfloat16"),    # decode_attention rounds p to V's bf16
+])
+@pytest.mark.parametrize("which", sorted(_SPLIT_FNS))
+def test_split_merge_matches_jax_interpret(which, q_dtype, kv_dtype,
+                                           n_split, kv_len):
+    """The split read's math in torch ops (each split's partial (m, l,
+    acc), then the cluster's merge in index order) against the Pallas
+    kernel in interpret mode, at the tolerances of
+    test_plain_matches_jax_interpret: under p_round, p is rounded at each
+    split's max."""
+    jfn, cast_kv, p_round = _SPLIT_FNS[which]
+    (jq, jk, jv), (q, k, v) = _inputs(q_dtype, kv_dtype, seed=5)
+    want = jfn(jq, jk, jv, kv_len, interpret=True)
+    chunk = -(-kv_len // n_split)
+    m, l, acc = _split_partials(
+        q, k, v, kv_len, chunk, cast_kv=cast_kv, p_round=p_round)
+    assert m.shape == l.shape == (8, 3, n_split)
+    assert acc.shape == (8, 3, n_split, 64)
+    got = _merge_splits(m, l, acc, q.dtype)
+    assert got.dtype == q.dtype and tuple(got.shape) == want.shape
+    p_bf16 = p_round and v.dtype == torch.bfloat16
+    tol = _TOL[torch.bfloat16 if p_bf16 else q.dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
 def test_rounding_points_differ_where_jax_does():
     """decode_attention rounds p to bf16 V where decode_attention_bh does
     not, and bh rounds fp32 K/V to a bf16 query where decode_attention

@@ -142,27 +142,50 @@ def _strided(shape, strides, dtype=torch.bfloat16):
                                                                   strides)
 
 
+_STRIDED_BASE = {"q": ((2, 4, 3, 64), [832, 200, 64, 1]),
+                 "k": ((2, 3, 8, 64), [1600, 520, 64, 1]),
+                 "v": ((2, 3, 8, 64), [1600, 520, 64, 1])}
+
+
+def _strided_args(which, dim, step, dtype):
+    """q, k, v meta views with `which`'s stride `dim` moved by `step`."""
+    args = {}
+    for name, (shape, strides) in _STRIDED_BASE.items():
+        if name == which:
+            strides = list(strides)
+            strides[dim] += step
+        args[name] = _strided(shape, strides, dtype)
+    return args
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 @pytest.mark.parametrize("dim", [0, 1, 2])
 def test_check_refuses_bf16_strides_off_8(which, dim):
     """The bf16 kernel copies 16 bytes at a time: a stride that is not a
     whole number of 8 elements is refused, in q, k or v and in any of the
-    three outer dims; fp32 takes the same strides."""
-    base = {"q": ((2, 4, 3, 64), [832, 200, 64, 1]),
-            "k": ((2, 3, 8, 64), [1600, 520, 64, 1]),
-            "v": ((2, 3, 8, 64), [1600, 520, 64, 1])}
-    args = {}
-    for name, (shape, strides) in base.items():
-        if name == which:
-            strides = list(strides)
-            strides[dim] += 1
-        args[name] = _strided(shape, strides)
-    with pytest.raises(ValueError, match=f"{which}'s strides"):
+    three outer dims; fp32, whose 16 bytes are 4 elements, takes a stride
+    off 8 by 4."""
+    args = _strided_args(which, dim, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match=f"{which}'s strides .* 8 elements"):
         _check(args["q"], args["k"], args["v"], 8, 0)
-    fp32 = {n: _strided(t.shape, t.stride(), torch.float32)
-            for n, t in args.items()}
+    args = _strided_args(which, dim, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match=f"{which}'s strides .* 8 elements"):
+        _check(args["q"], args["k"], args["v"], 8, 0)
+    fp32 = _strided_args(which, dim, 4, torch.float32)
     with pytest.raises(ValueError, match="q is on meta"):
         _check(fp32["q"], fp32["k"], fp32["v"], 8, 0)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("dim", [0, 1, 2])
+@pytest.mark.parametrize("step", [1, 2, 3])
+def test_check_refuses_fp32_strides_off_4(which, dim, step):
+    """The fp32 kernel copies 16 bytes (4 elements) at a time: a stride
+    that is not a whole number of 4 elements is refused, in q, k or v and
+    in any of the three outer dims."""
+    args = _strided_args(which, dim, step, torch.float32)
+    with pytest.raises(ValueError, match=f"{which}'s strides .* 4 elements"):
+        _check(args["q"], args["k"], args["v"], 8, 0)
 
 
 @pytest.mark.parametrize("model", ["tiny", "base", "small", "medium",
@@ -180,6 +203,27 @@ def test_check_takes_the_encoders_bf16_views(model):
     q, k, v = split_heads(q, H), split_heads_hm(k, H), split_heads_hm(v, H)
     assert q.shape == (2, T, H, 64) and k.shape == (2, H, T, 64)
     assert all(t.storage_offset() % 8 == 0 for t in (q, k, v))
+    with pytest.raises(ValueError, match="q is on meta"):
+        _check(q, k, v, T, 0)
+
+
+@pytest.mark.parametrize("model", ["tiny", "base", "small", "medium",
+                                   "large-v3-turbo"])
+def test_check_takes_the_encoders_fp32_views(model):
+    """The fp32 analogue: the head views of one fused (B, T, 3d) fp32 QKV
+    projection start 16-byte aligned (d * 4 bytes apart) with strides of
+    whole 4 elements, and pass every check of the fp32 kernel but the
+    device (meta here)."""
+    from whisper_tpu_torch.config import get_config
+    from whisper_tpu_torch.models.whisper import split_heads, split_heads_hm
+    cfg = get_config(model)
+    H, d, T = cfg.n_heads, cfg.d_model, cfg.n_audio_ctx
+    qkv = torch.empty((2, T, 3 * d), dtype=torch.float32, device="meta")
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = split_heads(q, H), split_heads_hm(k, H), split_heads_hm(v, H)
+    assert q.shape == (2, T, H, 64) and k.shape == (2, H, T, 64)
+    assert all(t.storage_offset() % 4 == 0 for t in (q, k, v))
+    assert all(s % 4 == 0 for t in (q, k, v) for s in t.stride()[:3])
     with pytest.raises(ValueError, match="q is on meta"):
         _check(q, k, v, T, 0)
 

@@ -386,6 +386,92 @@ def test_flash_kernel_refuses_misaligned_bf16_views(dev):
     assert flash_attention.launches == before
 
 
+@pytest.mark.parametrize("T", [1, 4, 15, 16, 17, 63, 64, 65])
+@pytest.mark.parametrize("S", [1, 7, 31, 32, 33, 63, 64, 65, 191])
+def test_flash_fp32_kernel_micro_tile_edges_match_plain(dev, T, S):
+    """fp32: query counts around a warp's 16 rows and the block's 64, key
+    counts around the 8-key lane stride and one and two 32-key tiles."""
+    q, k, v = _flash_args(3, T, S, 2, torch.float32, dev, seed=T * 7 + S)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = _FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("T,S,kv_len,q_offset", [
+    (100, 300, 250, 150),     # the diagonal crosses four 32-key tiles
+    (64, 64, 64, 0),          # the diagonal of one whole 64-row block
+    (65, 200, 130, 0),        # a second q block of one row, kv_len inside
+    (1, 448, 93, 92),         # one query at the last visible key
+    (130, 448, 448, 318),     # the last 130 of 448 positions
+])
+def test_flash_fp32_kernel_causal_diagonal_matches_plain(dev, T, S, kv_len,
+                                                         q_offset):
+    q, k, v = _flash_args(2, T, S, 3, torch.float32, dev, seed=T + S)
+    k[:, :, kv_len:] = float("nan")        # never read
+    v[:, :, kv_len:] = float("nan")
+    got = flash_attention(q, k, v, kv_len, q_offset, causal=True)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, kv_len, q_offset, causal=True)
+    atol, rtol = _FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+def test_flash_fp32_kernel_kv_len_0_gives_zeros(dev):
+    q, k, v = _flash_args(2, 70, 130, 2, torch.float32, dev, seed=3)
+    k.fill_(float("nan"))
+    v.fill_(float("nan"))
+    got = flash_attention(q, k, v, 0)
+    torch.cuda.synchronize()
+    assert not got.any()
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 1500, 6), (2, 100, 20)])
+def test_flash_fp32_kernel_reads_fused_qkv_views(dev, B, T, H):
+    """fp32 q, k, v as the encoder hands them over (head views of one
+    fused QKV projection, read in place) against the plain version."""
+    from whisper_tpu_torch.models.whisper import split_heads, split_heads_hm
+    g = torch.Generator(device="cpu").manual_seed(B * T + H)
+    qkv = torch.randn(B, T, 3 * 64 * H, generator=g).to(dev)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q, k, v = split_heads(q, H), split_heads_hm(k, H), split_heads_hm(v, H)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = _FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, flash_attention_plain(q, k, v),
+                               atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_refuses_misaligned_fp32_views(dev):
+    """The fp32 kernel copies 16 bytes at a time too: a view one element
+    past a 16-byte boundary, or with a stride off 4 elements, raises
+    before any launch, and the C entry refuses a misaligned pointer by
+    itself."""
+    from whisper_tpu_torch.ops import _build
+    n = 2 * 8 * 2 * 64
+    buf = torch.zeros(n + 4, device=dev)
+    q = buf[1:n + 1].view(2, 8, 2, 64)
+    k = torch.zeros((2, 2, 8, 64), device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="q does not start on a 16-byte"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="v does not start on a 16-byte"):
+        flash_attention(k.transpose(1, 2), k, q.transpose(1, 2))
+    wide = torch.zeros((2, 2, 8, 66), device=dev)[..., :64]
+    with pytest.raises(ValueError, match="k's strides .* 4 elements"):
+        flash_attention(k.transpose(1, 2), wide, k)
+    assert flash_attention.launches == before
+    lib = _build.load_library()
+    out = torch.empty((2, 8, 2, 64), device=dev)
+    err = lib.wt_flash_attention(
+        q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), 2, 8, 8,
+        2, 64, 8, 0, 0, *q.stride()[:3], *k.stride()[:3], *k.stride()[:3],
+        0, torch.cuda.current_stream(dev).cuda_stream)
+    assert err != 0
+
+
 def test_flash_kernel_refuses_head_dim_32(dev):
     q = torch.zeros((1, 4, 2, 32), device=dev)
     k = torch.zeros((1, 2, 8, 32), device=dev)
@@ -501,6 +587,154 @@ def test_decode_kernel_refuses_what_it_does_not_take(dev, which):
         fn(q, k, v.bfloat16(), **kw)
     with pytest.raises(ValueError, match="is on"):
         fn(q, k.cpu(), v, **kw)
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+@pytest.mark.parametrize("kv_len", [511, 512, 513, 767, 768, 769, 1199,
+                                    1200, 1201, 1499, 1500])
+def test_decode_kernel_at_split_boundaries_matches_plain(dev, which, kv_len):
+    """A bf16 read of 2 x 3 rows, which the plan splits, with kv_len where
+    it changes its split count (512: two splits of 256) and one key either
+    side of split boundaries (3 x 256, 4 x 300); NaN past kv_len."""
+    from whisper_tpu_torch.ops.decode_attention import _split_plan
+    fn, plain, kw = _DECODE[which]
+    q, k, v = _decode_args(2, 3, 1500, torch.bfloat16, torch.bfloat16, dev,
+                           seed=kv_len)
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _split_plan(2 * 3, kv_len, sms)[0] == max(1, kv_len // 256)
+    got = fn(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = _DECODE_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), plain(q, k, v, kv_len, **kw)
+                               .float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,kv_len", [
+    (4, 6, 8192, 8000),          # the long cache: many splits
+    (32, 6, 448, 93),            # one split: the block writes out itself
+    (2, 1, 1500, 1500),          # two rows: as many splits as the plan allows
+])
+def test_decode_kernel_split_reads_never_read_past_kv_len(dev, which, dtype,
+                                                          B, H, S, kv_len):
+    fn, plain, kw = _DECODE[which]
+    q, k, v = _decode_args(B, H, S, dtype, dtype, dev, seed=B + S)
+    k[:, :, kv_len:] = float("nan")
+    v[:, :, kv_len:] = float("nan")
+    got = fn(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    atol, rtol = _DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), plain(q, k, v, kv_len, **kw)
+                               .float(), atol=atol, rtol=rtol)
+
+
+def _graph_of(fn):
+    """fn() captured once in a CUDA graph, after a warm-up on a side
+    stream; returns (graph, the output tensor of the captured call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE) + ["q8_bh", "q8"])
+@pytest.mark.parametrize("B,H,S,kv_len", [(2, 3, 1500, 1500),
+                                          (4, 6, 8192, 8000),
+                                          (32, 6, 1500, 1500),
+                                          (32, 6, 448, 93)])
+def test_decode_kernel_is_deterministic_across_calls_and_replay(
+        dev, which, B, H, S, kv_len):
+    """The split partials are merged in index order whichever block comes
+    last: two calls and a CUDA-graph replay are bitwise equal."""
+    if which.startswith("q8"):
+        fn = decode_attention_q8_bh if which == "q8_bh" else \
+            decode_attention_q8
+        args, kw = _q8_args(B, H, S, torch.bfloat16, dev, seed=4), {}
+    else:
+        fn, _, kw = _DECODE[which]
+        args = _decode_args(B, H, S, torch.bfloat16, torch.bfloat16, dev,
+                            seed=4)
+    first = fn(*args, kv_len, **kw)
+    second = fn(*args, kv_len, **kw)
+    graph, captured = _graph_of(lambda: fn(*args, kv_len, **kw))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE))
+def test_decode_split_reads_on_two_streams_at_once_agree(dev, which):
+    """Split reads share no state: two reads of the same shape over other
+    data, launched over and over on two streams at once, each give their
+    one-stream answer."""
+    fn, _, kw = _DECODE[which]
+    a = _decode_args(4, 6, 1500, torch.bfloat16, torch.bfloat16, dev, seed=1)
+    b = _decode_args(4, 6, 1500, torch.bfloat16, torch.bfloat16, dev, seed=2)
+    want_a, want_b = fn(*a, **kw), fn(*b, **kw)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(50):
+        for s, args in zip(streams, (a, b)):
+            with torch.cuda.stream(s):
+                outs.append(fn(*args, **kw))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, (want_a, want_b)[i % 2])
+
+
+@pytest.mark.parametrize("which", sorted(_DECODE) + ["q8_bh"])
+def test_decode_split_read_first_run_inside_a_graph_capture(dev, which):
+    """A split read of a size never read before may first run inside a
+    CUDA-graph capture: it allocates nothing but its output."""
+    if which == "q8_bh":
+        fn, kw = decode_attention_q8_bh, {}
+        args = _q8_args(3, 1, 1536, torch.bfloat16, dev, seed=6)
+        want = decode_attention_q8_plain(*args)
+        atol, rtol = _Q8_TOL[torch.bfloat16]
+    else:
+        fn, plain, kw = _DECODE[which]
+        args = _decode_args(3, 1, 1536, torch.bfloat16, torch.bfloat16, dev,
+                            seed=6)
+        want = plain(*args, **kw)
+        atol, rtol = _DECODE_TOL[torch.bfloat16]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("which", ["bh", "per_head"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [512, 751, 1500])
+def test_decode_q8_kernel_split_reads_match_plain(dev, which, dtype, kv_len):
+    """The q8 pair takes the same split read with its scales: 2 x 3 rows
+    at split counts 2 to 5, NaN scales past kv_len."""
+    fn = decode_attention_q8_bh if which == "bh" else decode_attention_q8
+    args = _q8_args(2, 3, 1500, dtype, dev, seed=kv_len)
+    want = decode_attention_q8_plain(*args, kv_len)
+    for t in (args[2], args[4]):
+        t[:, :, kv_len:] = float("nan")
+    got = fn(*args, kv_len)
+    torch.cuda.synchronize()
+    atol, rtol = _Q8_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 # ---------------------------------------------------------------------------

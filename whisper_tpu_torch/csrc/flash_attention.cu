@@ -51,10 +51,41 @@
 // SM fill the gaps.
 //
 // fp32: the CUDA cores. The parity mode (the JAX kernel runs fp32 at
-// Precision.HIGHEST, :174): one block per (64-query tile, head, batch row),
-// 256 threads as 16 x 16, each owning 4 query rows x 4 keys of a score tile
-// and the same 4 rows x 4 head dims of the output; every product in fp32
-// FMAs (67 TFLOP/s peak; 5.50 ms bound at turbo b32).
+// Precision.HIGHEST, :174), so every product is a true fp32 FMA: no TF32,
+// no split of the operands. What bounds it is operations: 3.69e11 FLOP a
+// turbo b32 layer, 5.50 ms at the 67 TFLOP/s fp32 peak (tiny b32: 1.65
+// ms), against 0.98 GB of q, k, v and output (0.29 ms). An FFMA issues on
+// the four sub-partitions at 4 warp instructions a clock, a shared-memory
+// read at one 128-byte wavefront a clock per SM, so the design feeds many
+// FMAs from each read and keeps the loads off the critical path:
+//   - one block per (64-query tile, head, batch row), 4 warps, three
+//     blocks an SM (59 KB of shared memory and at most 170 registers a
+//     thread); warp w owns query rows 16w..16w+15 through both products
+//     and the softmax;
+//   - register micro-tiles of 4 rows x 4 keys for S = q.k^T and of the same
+//     4 rows x 8 head dims for O += P.V. Per 4 steps of the contraction a
+//     lane reads its operands as 128-bit loads, 4 of q and 4 of k for 64
+//     FMAs, 4 of p and 8 of v for 128, and a warp's loads are broadcasts
+//     or one 128-byte wavefront each: q and K rows are padded to 68
+//     floats, P rows to 36, which puts the rows a warp reads 4 banks
+//     apart. Q and K stay row-major as cp.async lands them (16 contiguous
+//     bytes of one row), read along the head dim 4 values at a time; V is
+//     row-major, read along its head dims;
+//   - K and V tiles of BK = 32 keys in a ring of two stages, fed by 16-byte
+//     cp.async: the next tile is in flight while this one is computed; one
+//     __syncthreads a tile. (A 64-key tile takes 100 KB and about 205
+//     registers, two blocks an SM; the third block hides more of each
+//     warp's softmax and barrier.) Keys at or past key_end land as
+//     zeros through cp.async's source size and are masked, so what lies
+//     there (NaN included) never meets a p of 0;
+//   - p = 2^(s c - m c), c = D^-0.5 log2(e), one FFMA and one ex2.approx
+//     on the raw score (the scale is a power of two, so the scores are the
+//     JAX kernel's q * scale . k to the last bit); p goes to the lanes of
+//     the same warp that read it for P.V through the warp's own rows of a
+//     shared buffer, ordered by __syncwarp;
+//   - both instantiations opt into their shared memory once per device.
+// Every fp32 view is then 16-byte aligned with strides of 4 elements: the
+// C entry refuses others (and ops/flash_attention.py _check before it).
 //
 // Both: a block's keys end at
 //     key_end = min(kv_len, q_offset + last query row of the tile + 1)
@@ -71,6 +102,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "common.cuh"
 
 namespace {
@@ -78,179 +111,320 @@ namespace {
 constexpr int HEAD_DIM = 64;            // every Whisper size has D = 64
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 
+// D^-0.5 * log2(e): p = 2^(s * SCALE_LOG2E - m * SCALE_LOG2E) = e^((s -
+// m) * D^-0.5). It is below 1, so a masked score times it stays finite.
+constexpr float SCALE_LOG2E = 0.125f * 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `bytes` 0 writes 16 zero bytes and reads none
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async moves 16 bytes: every base address 16-byte aligned and every
+// stride a whole number of `vec` elements (16 bytes of the element type)
+bool aligned(const void* q, const void* k, const void* v, const void* out,
+             const long long* st, int vec) {
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  for (int i = 0; i < 9; ++i)
+    if (st[i] % vec != 0) return false;
+  return true;
+}
+
 // ---------------------------------------------------------------------------
-// fp32: SIMT
+// fp32: register tiles on the CUDA cores
 // ---------------------------------------------------------------------------
 
 namespace simt {
 
 constexpr int BQ = 64;                  // query rows per block
-constexpr int BK = 64;                  // keys per shared-memory tile
-constexpr int THREADS = 256;            // 16 x 16: each thread 4 rows x 4 cols
-constexpr int PAD = HEAD_DIM + 1;       // row stride that spreads banks
-constexpr size_t SMEM =
-    (size_t)(2 * BQ * PAD + BK * PAD + BK * HEAD_DIM) * sizeof(float);
+constexpr int BK = 32;                  // keys per shared-memory tile
+constexpr int KJ = BK / 8;              // keys of a score tile per lane
+constexpr int THREADS = 128;            // 4 warps, 16 query rows each
+constexpr int MIN_BLOCKS = 3;           // per SM: at most 170 registers
+constexpr int LD = HEAD_DIM + 4;        // padded row (floats) of Q and K
+constexpr int PLD = BK + 4;             // padded row of P
+constexpr int Q_FLOATS = BQ * LD;
+constexpr int P_FLOATS = BQ * PLD;
+constexpr int K_FLOATS = BK * LD;
+constexpr int STAGE_FLOATS = K_FLOATS + BK * HEAD_DIM;   // K, then V
+// Q, P and a ring of two K/V stages: 59 KB, three blocks per SM
+constexpr size_t SMEM = (size_t)(Q_FLOATS + P_FLOATS + 2 * STAGE_FLOATS) *
+                        sizeof(float);
 
+// rows [r0, r0 + ROWS) of a (rows, 64) fp32 matrix whose rows lie
+// `stride` floats apart, into shared rows of `ld` floats: 16-byte cp.async
+// copies, 16 threads a row. Rows at or past `end` are zero-filled and not
+// read.
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* src, long long stride,
+                                          int r0, int end, int tid) {
+  static_assert(ROWS * 16 % THREADS == 0, "whole 16-byte chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * 16 / THREADS; ++i) {
+    const int chunk = tid + i * THREADS;
+    const int r = chunk >> 4;
+    const int c = chunk & 15;
+    const bool live = r0 + r < end;
+    cp_async16(smem_addr(dst + r * ld + 4 * c),
+               src + (live ? r0 + r : 0) * stride + 4 * c, live ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// Thread layout: warp w owns the block's query rows 16w..16w+15 in both
+// products and in the softmax between them. Lane = 8 rg + c: its rows are
+// 16w + rg + 4i (i < 4), its keys of a score tile c + 8j (j < KJ), its
+// head dims 4c..4c+3 and 32+4c..32+4c+3 of the output. A row's BK scores
+// lie in the 8 lanes of one quarter-warp (3 shuffles reduce it), and p
+// goes from the lanes that computed it to the lanes that read it through
+// the warp's own rows of a shared buffer, ordered by __syncwarp.
 template <bool CAUSAL>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int t_len,
              int n_heads, int kv_len, int q_offset, long long sq_b,
              long long sq_t, long long sq_h, long long sk_b, long long sk_h,
-             long long sk_s, long long sv_b, long long sv_h, long long sv_s,
-             float scale) {
+             long long sk_s, long long sv_b, long long sv_h,
+             long long sv_s) {
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                         // [BQ][PAD], pre-scaled
-  float* Ks = Qs + BQ * PAD;                // [BK][PAD]
-  float* Vs = Ks + BK * PAD;                // [BK][HEAD_DIM]
-  float* Ps = Vs + BK * HEAD_DIM;           // [BQ][PAD] probabilities
+  float* Qs = smem;                         // [BQ][LD], raw q
+  float* Ps = Qs + Q_FLOATS;                // [BQ][PLD], p of this tile
+  float* ring = Ps + P_FLOATS;              // stage st at st * STAGE_FLOATS
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;                  // key / head-dim column group
-  const int ty = tid >> 4;                  // query row group
+  const int lane = tid & 31;
+  const int c = lane & 7;
+  const int row0 = 16 * (tid >> 5) + (lane >> 3);   // and row0 + 4, 8, 12
 
   const int q_last = min(q0 + BQ, t_len) - 1;
   const int key_end = CAUSAL ? min(kv_len, q_offset + q_last + 1) : kv_len;
   const int n_tiles = (key_end + BK - 1) / BK;
+  const float* kb = k + b * sk_b + h * sk_h;
+  const float* vb = v + b * sv_b + h * sv_h;
 
-  // loads: each thread reads head dim `c` of every ROW_STEP-th row
-  constexpr int ROW_STEP = THREADS / HEAD_DIM;
-  const int c = tid % HEAD_DIM;
-  const int r0 = tid / HEAD_DIM;
-  const float* qb = q + b * sq_b + h * sq_h + c;
-  const float* kb = k + b * sk_b + h * sk_h + c;
-  const float* vb = v + b * sv_b + h * sv_h + c;
-  for (int r = r0; r < BQ; r += ROW_STEP) {
-    const int t = q0 + r;
-    Qs[r * PAD + c] = t < t_len ? qb[t * sq_t] * scale : 0.f;
+  // q's tile and the first K/V tile in flight; rows past T are zeros
+  load_rows<BQ>(Qs, LD, q + b * sq_b + h * sq_h, sq_t, q0, t_len, tid);
+  if (n_tiles > 0) {
+    load_rows<BK>(ring, LD, kb, sk_s, 0, key_end, tid);
+    load_rows<BK>(ring + K_FLOATS, HEAD_DIM, vb, sv_s, 0, key_end, tid);
   }
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][4];
+  float o[4][8], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = MASK_VALUE;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
   }
+  const float* qrow = Qs + row0 * LD;
+  float* prow = Ps + row0 * PLD;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int s0 = tile * BK;
-    __syncthreads();  // Q is written (first pass) / the last tile is consumed
-    const float* kr = kb + (s0 + r0) * sk_s;
-    const float* vr = vb + (s0 + r0) * sv_s;
-#pragma unroll
-    for (int n = 0; n < BK / ROW_STEP; ++n) {
-      const int r = r0 + n * ROW_STEP;
-      float kval = 0.f, vval = 0.f;
-      if (s0 + r < key_end) {
-        kval = kr[n * ROW_STEP * sk_s];
-        vval = vr[n * ROW_STEP * sv_s];
-      }
-      Ks[r * PAD + c] = kval;
-      Vs[r * HEAD_DIM + c] = vval;
-    }
+    // this tile has landed; the barrier publishes it and, since every
+    // thread has finished the last tile, frees that tile's stage for the
+    // next copy, which then runs under this tile's products
+    cp_async_wait<0>();
     __syncthreads();
+    if (tile + 1 < n_tiles) {
+      float* dst = ring + ((tile + 1) & 1) * STAGE_FLOATS;
+      load_rows<BK>(dst, LD, kb, sk_s, (tile + 1) * BK, key_end, tid);
+      load_rows<BK>(dst + K_FLOATS, HEAD_DIM, vb, sv_s, (tile + 1) * BK,
+                    key_end, tid);
+    }
+    cp_async_commit();
+    const float* Ks = ring + (tile & 1) * STAGE_FLOATS;
+    const float* Vs = Ks + K_FLOATS;
 
-    // scores for rows ty + 16i, keys tx + 16j
-    float sc[4][4];
+    // S = q.k^T for rows row0 + 4i, keys c + 8j: per 4 head dims, 4 + KJ
+    // 128-bit reads feed 16 KJ FMAs. Rows 1 apart and keys 1 apart land 4
+    // banks apart (LD = 68), so neither read conflicts.
+    float s[4][KJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < HEAD_DIM; ++kk) {
-      float qv[4], kv[4];
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * PAD + kk];
+    for (int kc = 0; kc < HEAD_DIM / 4; ++kc) {
+      float4 qf[4], kf[KJ];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * PAD + kk];
+      for (int i = 0; i < 4; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(qrow + 4 * i * LD + 4 * kc);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Ks + (c + 8 * j) * LD +
+                                                 4 * kc);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+        }
     }
 
-    // online softmax: a row's 64 keys live in the 16 lanes that share ty
-    // (one half-warp), so xor-shuffles over 8, 4, 2, 1 reduce a row. Key 0
-    // is visible to every row, so from the first tile on m is a real
-    // score and a masked key's p is exp(-0.7 FLT_MAX - m) = 0.
+    // masks: keys at or past key_end, and under causal past the row's
+    // diagonal; only a ragged last tile or a diagonal tile has any
+    const int s0 = tile * BK;
+    if (s0 + BK > key_end || (CAUSAL && s0 + BK - 1 > q_offset + q0)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q_pos = q_offset + q0 + row0 + 4 * i;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int key = s0 + c + 8 * j;
+          if (key >= key_end || (CAUSAL && key > q_pos))
+            s[i][j] = MASK_VALUE;
+        }
+      }
+    }
+
+    // online softmax on the raw scores, the scale entering with the
+    // exponent as one FFMA. Key 0 is visible to every row, so from the
+    // first tile on m is a real score and a masked key's p is
+    // 2^(-0.7 FLT_MAX * c - m * c) = 0.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int q_pos = q_offset + q0 + ty + 16 * i;
-      float rmax = MASK_VALUE;
+      float r = s[i][0];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int s = s0 + tx + 16 * j;
-        if (s >= key_end || (CAUSAL && s > q_pos)) sc[i][j] = MASK_VALUE;
-        rmax = fmaxf(rmax, sc[i][j]);
+      for (int j = 1; j < KJ; ++j) r = fmaxf(r, s[i][j]);
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, off));
+      const float mn = fmaxf(m[i], r);
+      const float alpha = exp2_approx((m[i] - mn) * SCALE_LOG2E);
+      const float mc = -mn * SCALE_LOG2E;
+      m[i] = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float p = exp2_approx(fmaf(s[i][j], SCALE_LOG2E, mc));
+        ps += p;
+        prow[4 * i * PLD + c + 8 * j] = p;
       }
+      l[i] = l[i] * alpha + ps;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        rsum += p;
-        Ps[(ty + 16 * i) * PAD + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int e = 0; e < 8; ++e) o[i][e] *= alpha;
     }
-    __syncthreads();
+    __syncwarp();
 
-    // acc[rows ty + 16i][dims tx + 16j] += P . V
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[4];
+    // O += P.V: per 4 keys, 4 128-bit reads of P and 8 of V feed 128 FMAs
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * PAD + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * HEAD_DIM + tx + 16 * j];
+    for (int kc = 0; kc < BK / 4; ++kc) {
+      float4 pf[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(prow + 4 * i * PLD +
+                                                 4 * kc);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = Vs + (4 * kc + e) * HEAD_DIM + 4 * c;
+        const float4 v0 = *reinterpret_cast<const float4*>(vr);
+        const float4 v1 = *reinterpret_cast<const float4*>(vr + 32);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = lane4(pf[i], e);
+          o[i][0] = fmaf(p, v0.x, o[i][0]);
+          o[i][1] = fmaf(p, v0.y, o[i][1]);
+          o[i][2] = fmaf(p, v0.z, o[i][2]);
+          o[i][3] = fmaf(p, v0.w, o[i][3]);
+          o[i][4] = fmaf(p, v1.x, o[i][4]);
+          o[i][5] = fmaf(p, v1.y, o[i][5]);
+          o[i][6] = fmaf(p, v1.z, o[i][6]);
+          o[i][7] = fmaf(p, v1.w, o[i][7]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();    // no copy outlives the block
 
+  // the row sums over the row's 8 lanes, then out = o / max(l, 1e-30);
   // out is (B, T, H, D) contiguous
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= t_len) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* row = out + (((size_t)b * t_len + t) * n_heads + h) * HEAD_DIM;
+    float li = l[i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = acc[i][j] / denom;
+    for (int off = 1; off < 8; off <<= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int t = q0 + row0 + 4 * i;
+    if (t >= t_len) continue;
+    const float d = fmaxf(li, 1e-30f);
+    float* row = out + (((size_t)b * t_len + t) * n_heads + h) * HEAD_DIM +
+                 4 * c;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(o[i][0] / d, o[i][1] / d, o[i][2] / d, o[i][3] / d);
+    *reinterpret_cast<float4*>(row + 32) =
+        make_float4(o[i][4] / d, o[i][5] / d, o[i][6] / d, o[i][7] / d);
   }
+}
+
+// The 59 KB of shared memory (two stages of 32-key K/V tiles, q and p)
+// are above the 48 KB a launch gets without opting in: both
+// instantiations opt in once per device.
+cudaError_t opt_in() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(flash_kernel<false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
 }
 
 template <bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int T_len, int H, int kv_len, int q_offset,
                    const long long* st, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
+  const cudaError_t e = opt_in();
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   flash_kernel<CAUSAL><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), T_len, H,
       kv_len, q_offset, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], 1.0f / sqrtf((float)HEAD_DIM));
+      st[7], st[8]);
   return cudaGetLastError();
 }
 
@@ -277,31 +451,6 @@ constexpr int ATOM_BYTES = 8 * ROW_BYTES;           // 8 rows: a swizzle atom
 // within the 48 KB a launch gets without opting in
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + ATOM_BYTES;
 static_assert(SMEM <= 48 * 1024, "the ring fits the default shared memory");
-// D^-0.5 * log2(e): p = 2^(s * SCALE_LOG2E - m * SCALE_LOG2E) = e^((s -
-// m) * D^-0.5). It is below 1, so a masked score times it stays finite.
-constexpr float SCALE_LOG2E = 0.125f * 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `bytes` 0 writes 16 zero bytes and reads none
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // rows [s0, s0 + BK) of one (b, h)'s K or V into a swizzled tile: row r's
 // 16-byte chunk c lands at chunk c ^ (r % 8) of the tile's row r
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
@@ -372,12 +521,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "n"(TRANS_B), "r"(accumulate));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // two fp32 -> one register of two bf16, the lower column in the low half
@@ -596,18 +739,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// cp.async moves 16 bytes: every base address 16-byte aligned and every
-// stride a whole number of 8 elements
-bool aligned(const void* q, const void* k, const void* v, const void* out,
-             const long long* st) {
-  const void* ptrs[4] = {q, k, v, out};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  for (int i = 0; i < 9; ++i)
-    if (st[i] % 8 != 0) return false;
-  return true;
-}
-
 }  // namespace tc
 
 }  // namespace
@@ -616,8 +747,10 @@ bool aligned(const void* q, const void* k, const void* v, const void* out,
 // (B, T, H, D) with element strides (sq_b, sq_t, sq_h); k and v are
 // (B, H, S, D) with strides (s*_b, s*_h, s*_s); D = 64 is contiguous in
 // all three. out is a contiguous (B, T, H, D) buffer of the same type.
-// 0 <= kv_len <= S and q_offset >= 0. In bf16 the four pointers are
-// 16-byte aligned and the nine strides multiples of 8 elements.
+// 0 <= kv_len <= S and q_offset >= 0. The four pointers are 16-byte
+// aligned and the nine strides multiples of 16 bytes' worth of elements
+// (bf16: 8, fp32: 4): both kernels copy K/V (and fp32 q) 16 bytes at a
+// time.
 extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
                                   void* out, int B, int T_len, int S, int H,
                                   int D, int kv_len, int q_offset, int causal,
@@ -631,13 +764,14 @@ extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {sq_b, sq_t, sq_h, sk_b, sk_h, sk_s,
                            sv_b, sv_h, sv_s};
+  if (!aligned(q, k, v, out, st, is_bf16 ? 8 : 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return (int)(causal ? simt::launch<true>(q, k, v, out, B, T_len, H,
                                              kv_len, q_offset, st, s)
                         : simt::launch<false>(q, k, v, out, B, T_len, H,
                                               kv_len, q_offset, st, s));
-  if (!tc::aligned(q, k, v, out, st)) return (int)cudaErrorInvalidValue;
   return (int)(causal ? tc::launch<true>(q, k, v, out, B, T_len, H, kv_len,
                                          q_offset, st, s)
                       : tc::launch<false>(q, k, v, out, B, T_len, H, kv_len,

@@ -131,13 +131,16 @@ def load_library() -> ctypes.CDLL:
     lib.wt_decode_attention_q8.argtypes = [
         P, P, P, P, P, P,      # q, k, k_scale, v, v_scale, out
         I, I, I, I, I,         # B, H, S, D, kv_len
-        I, P]                  # q_is_bf16, stream
+        I,                     # q_is_bf16
+        I, I, I,               # n_split, chunk, warps
+        P]                     # stream
     lib.wt_decode_attention_q8.restype = I
     lib.wt_decode_attention.argtypes = [
         P, P, P, P,            # q, k, v, out
         I, I, I, I, I,         # B, H, S, D, kv_len
-        I, I, I, I, P]         # q_is_bf16, kv_is_bf16, p_round, cast_kv,
-                               # stream
+        I, I, I, I,            # q_is_bf16, kv_is_bf16, p_round, cast_kv
+        I, I, I,               # n_split, chunk, warps
+        P]                     # stream
     lib.wt_decode_attention.restype = I
     lib.wt_fused_decoder_step.argtypes = [
         P, P, P, P, P, P, P,   # h0, wqkv, wcq, wo, wco, fc1, fc2

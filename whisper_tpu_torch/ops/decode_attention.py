@@ -22,7 +22,12 @@ kv_len == 0 gives zeros, as the Pallas kernels' max(l, 1e-30) does.
 
 CPU tensors take the plain versions, which read only the keys < kv_len;
 CUDA tensors launch the kernel or raise (D != 64, a dtype the kernel does
-not take, anything not contiguous or 16-byte aligned). The paths:
+not take, anything not contiguous or 16-byte aligned). On the card a
+read whose B*H rows fill at most half the SMs is split over the keys
+(flash-decoding): `_split_plan` picks the number of splits from B*H,
+kv_len and the SM count, the splits of one (b, h) run as one thread-block
+cluster, and its first block merges their partial softmaxes in the same
+launch. The paths:
 ops/attention.multi_head_attention sends T==1 reads to
 decode_attention_bh under attn_backend "pallas" (the kv_cache_quant steps,
 the engine's cross reads, detect_language) and from 4096 slots under
@@ -35,6 +40,7 @@ as in the JAX package (tests only).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -42,7 +48,18 @@ import torch
 from whisper_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-
+# the launch plan. A read splits its keys only when its B*H rows fill at
+# most half the SMs, into at most one block an SM; each split keeps
+# at least SPLIT_MIN_KEYS keys (so below twice that a read is one block
+# per (b, h), with no merge), and there are at most SPLIT_MAX (the
+# kernel's MAX_SPLITS, the blocks of a portable cluster). A block has 8
+# warps, or WIDE_WARPS when its read is long (>= 2*SPLIT_MIN_KEYS keys)
+# and the grid fits WIDE_BLOCKS_PER_SM such blocks an SM (1- or 2-byte
+# K/V; fp32 K/V takes too many registers)
+SPLIT_MIN_KEYS = 256
+SPLIT_MAX = 8
+WIDE_WARPS = 12
+WIDE_BLOCKS_PER_SM = 2
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -121,6 +138,45 @@ def _kv_len(k: torch.Tensor, kv_len) -> int:
     return k.shape[2] if kv_len is None else int(kv_len)
 
 
+def _split_plan(bh: int, kv_len: int, sms: int,
+                kv_bytes: int = 2) -> tuple[int, int, int]:
+    """(n_split, chunk, warps) for a read of kv_len keys of `kv_bytes`-byte
+    K/V by each of bh (batch, head) rows on a card of `sms` SMs: split s
+    reads keys [s*chunk, min((s+1)*chunk, kv_len)) with `warps` warps a
+    block. One split when sms // bh < 2 (tiny b32's 192 rows, turbo
+    b32's 640 and turbo B=4's 80 on 132 SMs: splitting them was slower on
+    the H100, PERF.md) or below 2*SPLIT_MIN_KEYS keys; else sms // bh
+    splits of chunk >= SPLIT_MIN_KEYS keys (the last one what the division
+    leaves, never empty), at most SPLIT_MAX (a B=1 cross read of 1500
+    keys: 5 of 300; the 8000-key cache at B=4, H=6: 5 of 1600).
+    WIDE_WARPS warps where the read is long and its bh*n_split blocks fit
+    WIDE_BLOCKS_PER_SM an SM (tiny b32's cross read), else 8 (turbo's,
+    whose 640 blocks would take three waves; the 93-key self read,
+    launch-bound)."""
+    n = min(sms // bh, kv_len // SPLIT_MIN_KEYS, SPLIT_MAX)
+    chunk = kv_len
+    if n > 1:
+        chunk = -(-kv_len // n)
+        n = -(-kv_len // chunk)
+    wide = (kv_bytes <= 2 and chunk >= 2 * SPLIT_MIN_KEYS
+            and bh * max(n, 1) <= WIDE_BLOCKS_PER_SM * sms)
+    return max(n, 1), chunk, WIDE_WARPS if wide else 8
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(bh: int, kv_len: int, device: torch.device,
+                 kv_bytes: int) -> tuple[int, int, int]:
+    """The C entry's (n_split, chunk, warps) for this read on `device`'s
+    card, kept per read shape: a decode wrapper's call is host-bound at
+    the self reads, and a hit costs less than the plan."""
+    return _split_plan(bh, kv_len, _sm_count(device), kv_bytes)
+
+
 def _check_block_b(q: torch.Tensor, block_b: int) -> None:
     if block_b < 1 or q.shape[0] % block_b:
         raise ValueError(f"decode_attention_bg: block_b {block_b} does not "
@@ -185,11 +241,13 @@ def _run(fn, q, k, v, kv_len, *, cast_kv: bool, p_round: bool,
                         f"dtype, got {k.dtype} and {v.dtype}")
     B, _, H, D = q.shape
     lib = _build.load_library()
+    n_split, chunk, warps = _launch_plan(B * H, kv_len, q.device,
+                                         k.element_size())
     err = lib.wt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
         k.shape[2], D, kv_len, int(q.dtype == torch.bfloat16),
         int(k.dtype == torch.bfloat16), int(p_round), int(cast_kv),
-        _stream(q))
+        n_split, chunk, warps, _stream(q))
     _build.check(lib, err, what)
     fn.launches += 1
     return out
@@ -213,10 +271,12 @@ def _run_q8(fn, q, k, k_scale, v, v_scale, kv_len) -> torch.Tensor:
         raise TypeError(f"{what}: the kernel takes fp32 scales")
     B, _, H, D = q.shape
     lib = _build.load_library()
+    n_split, chunk, warps = _launch_plan(B * H, kv_len, q.device,
+                                         k.element_size())
     err = lib.wt_decode_attention_q8(
         q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), B, H, k.shape[2], D, kv_len,
-        int(q.dtype == torch.bfloat16), _stream(q))
+        int(q.dtype == torch.bfloat16), n_split, chunk, warps, _stream(q))
     _build.check(lib, err, what)
     fn.launches += 1
     return out

@@ -90,15 +90,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: int,
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim is not "
                              f"contiguous (stride {t.stride(-1)})")
-        # the bf16 kernel moves 16 bytes at a time (cp.async)
-        if t.dtype == torch.bfloat16 and any(s % 8 for s in t.stride()[:3]):
+        # both kernels move 16 bytes at a time (cp.async): 8 bf16 or 4 fp32
+        vec = 16 // t.element_size()
+        if any(s % vec for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name}'s strides "
-                             f"{t.stride()} are not multiples of 8 elements")
+                             f"{t.stride()} are not multiples of {vec} "
+                             f"elements")
     for name, t in tensors:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}; "
                              f"the kernel takes tensors on one CUDA device")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} does not start on a "
                              f"16-byte boundary")
 
@@ -111,9 +113,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Args:
       q: (B, T, H, D); k, v: (B, H, S, D) head-major, cast to q's dtype.
-        Any strides with D contiguous: the kernel reads views in place. In
-        bf16 the strides are multiples of 8 elements and each tensor
-        starts on a 16-byte boundary (every view the port hands over).
+        Any strides with D contiguous: the kernel reads views in place.
+        The strides are multiples of 16 bytes' worth of elements (bf16: 8,
+        fp32: 4) and each tensor starts on a 16-byte boundary (every view
+        the port hands over).
       kv_len: number of valid keys (default S); keys past it are never
         read.
       q_offset: absolute position of q[:, 0] for the causal mask.
