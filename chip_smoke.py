@@ -160,6 +160,26 @@ FLASH_TIME_FP32 = ("turbo_layer", "tiny_layer")
 # the bf16 and fp32 flash kernels' symbols (both causal instantiations)
 FLASH_BF16_KERNEL = "2tc12flash_kernel"
 FLASH_FP32_KERNEL = "4simt12flash_kernel"
+# the tail's bf16 (wgmma) and fp32 (CUDA-core) MLP kernels, and the fused
+# decoder step's kernel (both element types)
+TAIL_BF16_KERNEL = "2tc10mlp_kernel"
+TAIL_FP32_KERNEL = "4simt10mlp_kernel"
+FUSED_KERNEL = "17fused_step_kernel"
+# the tail against its plain version: fp32 FMAs against cuBLAS fp32 (1e-4);
+# bf16 one bf16 ulp of the O(4) outputs (0.06, rtol 2e-2), where sums in
+# another order land on the other side of a rounding point
+TAIL_TOL = {"float32": (1e-4, 0.0), "bfloat16": (0.06, 2e-2)}
+# the tail_vs_plain cases: (model, batch); tiny and base at T = 1500
+TAIL_CASES = (("tiny", TAIL_CHECK_BATCH), ("base", 2))
+# fused_phases: steps timed per model, and the models (H) at b32 bf16
+FUSED_PHASE_STEPS = 20
+
+
+# --only: the standalone phases (functions of the card line alone), by name
+ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
+        "flash_sass": "flash_sass", "fused_checks": "fused_checks",
+        "fused_time": "fused_time", "fused_phases": "fused_phases",
+        "flash": "flash_checks", "decode_time": "decode_time"}
 
 
 def emit(obj: dict) -> None:
@@ -569,6 +589,93 @@ def fp32_parity(model: str, params, clips: np.ndarray, max_new: int,
     return out
 
 
+def composed_tail(q, k, v, h, wo, fc1, fc2, o_b, fc1_b, fc2_b, g, b,
+                  eps: float = 1e-5):
+    """The tail composed from library calls in the compute dtype: SDPA,
+    three torch.matmul and torch epilogues. A yardstick of speed only (its
+    rounding points are not the kernel's); the port never calls it."""
+    import torch.nn.functional as F
+    B, T, H, D = q.shape
+    dt = h.dtype
+    a = F.scaled_dot_product_attention(q.transpose(1, 2), k, v)
+    a = a.transpose(1, 2).reshape(B, T, H * D)
+    h2 = h + (a @ wo + o_b.to(dt))
+    y = F.layer_norm(h2.float(), (h2.shape[-1],), g, b, eps).to(dt)
+    t = F.gelu(y @ fc1 + fc1_b.to(dt))
+    return h2 + (t @ fc2 + fc2_b.to(dt))
+
+
+def tail_checks(card: str) -> dict:
+    """tail_vs_plain: the kernel against its plain version at tiny (B=4)
+    and base (B=2) widths, T = 1500, fp32 and bf16, and at the main path's
+    b32 bf16. tail_time at tiny b32: bf16 and fp32, each in turns against
+    its plain version and against the tail composed from SDPA, three
+    matmuls and torch epilogues (composed_tail), beside the bf16 bound (on
+    the bf16 peak) and the fp32 bound (on the fp32 peak). Returns the
+    kernels-line numbers (b32 bf16)."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_plain,
+    )
+    for model, B in TAIL_CASES:
+        mcfg = get_config(model)
+        for dtype in (torch.float32, torch.bfloat16):
+            atol, rtol = TAIL_TOL[str(dtype).split(".")[1]]
+            args = tail_inputs(mcfg, B, dtype, seed=1)
+            got = encoder_block_tail(*args).float()
+            want = encoder_block_tail_plain(*args).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            ok = bool((err <= atol + rtol * want.abs()).all())
+            emit({"phase": "tail_vs_plain", "model": model,
+                  "dtype": str(dtype),
+                  "shape": [B, mcfg.n_audio_ctx, mcfg.n_heads,
+                            mcfg.head_dim], "d": mcfg.d_model,
+                  "ff": mcfg.d_ff, "max_abs_err": float(err.max()),
+                  "atol": atol, "rtol": rtol, "ok": ok})
+            require(ok, f"encoder_block_tail {model} {dtype} disagrees with "
+                        f"its plain version (max abs err {float(err.max())})")
+            del args, got, want, err
+    cfg = get_config("tiny")
+    B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
+    d, ff = cfg.d_model, cfg.d_ff
+    flops = 4 * B * H * T * T * D + 2 * B * T * d * d + 4 * B * T * d * ff
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        atol, rtol = TAIL_TOL[name]
+        e = dtype.itemsize
+        args = tail_inputs(cfg, BATCH, dtype, seed=2)
+        got = encoder_block_tail(*args).float()
+        want = encoder_block_tail_plain(*args).float()
+        err = (got - want).abs()
+        max_err = float(err.max())
+        require(bool((err <= atol + rtol * want.abs()).all()),
+                f"encoder_block_tail b32 {name} max abs err {max_err}")
+        del got, want, err
+        ms, plain_ms = alternate_ms(lambda: encoder_block_tail_plain(*args),
+                                    lambda: encoder_block_tail(*args), 5)
+        ms2, composed_ms = alternate_ms(lambda: composed_tail(*args),
+                                        lambda: encoder_block_tail(*args), 5)
+        # q, k, v, h in and h out, the three matrices, the five fp32 vectors
+        moved = 5 * B * T * d * e + (d * d + 2 * d * ff) * e + (4 * d + ff) * 4
+        line = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                **bound(moved, flops, "bfloat16"), "library_ms": None}
+        emit({"phase": "tail_time", "shape": [B, T, H, D], "dtype": name,
+              **line, "ms_beside_composed": ms2,
+              "composed_context_ms": composed_ms,
+              "fp32_bound_ms": bound(moved, flops, "float32")["bound_ms"],
+              "tflops": flops / (ms * 1e9), "card": card})
+        if dtype == torch.bfloat16:
+            out = line
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def tail_gate(card: str) -> None:
     """The encoder's gate (ops/encoder_layer.py tail_fits_smem) against
     the kernel's own answer at every width of the family: the tail kernel
@@ -576,6 +683,7 @@ def tail_gate(card: str) -> None:
     import torch
 
     from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops import _build
     from whisper_tpu_torch.ops.encoder_layer import (
         encoder_block_tail,
         tail_fits_smem,
@@ -595,8 +703,11 @@ def tail_gate(card: str) -> None:
             if "(invalid argument)" not in str(e):
                 raise
             runs = False
-        rows.append({"model": name, "d": cfg.d_model,
-                     "smem_bytes": tail_smem_bytes(cfg.d_model, cfg.d_ff),
+        smem = tail_smem_bytes(cfg.d_model, cfg.d_ff)
+        require(smem == _build.load_library().wt_encoder_tail_smem(
+            cfg.d_model), f"tail_gate: {name}'s shared memory differs "
+                          f"between ops/encoder_layer.py and the kernel")
+        rows.append({"model": name, "d": cfg.d_model, "smem_bytes": smem,
                      "gate_fits": fits, "kernel_runs": runs})
         del args
     ok = all(r["gate_fits"] == r["kernel_runs"] for r in rows)
@@ -831,6 +942,36 @@ def flash_sass(card: str) -> None:
         for c in fp32.values()),
             f"flash_sass: the fp32 flash kernels must run FFMA and no "
             f"tensor-core instruction ({fp32})")
+    # the tail's MLP: HGMMA in bf16; in fp32 FFMA and no tensor-core
+    # instruction; neither spills. The fused step's kernels as built.
+    ops = ("FFMA", "HMMA", "HGMMA", "LDS", "MUFU")
+    for label, symbol in (("tail_mlp", TAIL_BF16_KERNEL),
+                          ("tail_mlp", TAIL_FP32_KERNEL),
+                          ("fused_step", FUSED_KERNEL)):
+        counts = sass_counts(sass, symbol, ops)
+        regs, spills = ptxas_lines(log, symbol)
+        spilled = {f: spill_bytes(t) for f, t in spills.items()}
+        emit({"phase": "flash_sass", "kernel": label, "symbol": symbol,
+              "counts": counts, "registers": regs, "spills": spills,
+              "card": card})
+        require(len(counts) > 0 and all(n == 0 for n in spilled.values()),
+                f"flash_sass: {symbol} missing or spilling ({spilled})")
+        if symbol == TAIL_BF16_KERNEL:
+            require(all(c["HGMMA"] > 0 for c in counts.values()),
+                    f"flash_sass: the bf16 tail MLP runs no HGMMA ({counts})")
+        elif symbol == TAIL_FP32_KERNEL:
+            require(all(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
+                        for c in counts.values()),
+                    f"flash_sass: the fp32 tail MLP must run FFMA and no "
+                    f"tensor-core instruction ({counts})")
+
+
+def spill_bytes(line) -> int:
+    """Spill stores plus loads of a ptxas "N bytes spill stores, M bytes
+    spill loads" line (0 when the line is missing)."""
+    words = (line or "").replace(",", " ").split()
+    return sum(int(words[i - 2]) for i, w in enumerate(words)
+               if w == "spill" and i >= 2 and words[i - 1] == "bytes")
 
 
 def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
@@ -884,9 +1025,13 @@ def fused_layers(args, L: int):
 
 def fused_checks(card: str) -> float:
     """fused_vs_plain: the kernel against its plain version at tiny b32
-    (4 layers), turbo b32 (one layer and four) and tiny B = 1 and 3, fp32
-    and bf16, at pos 0, 4, 48 and 447 of the 448-slot cache; the largest
-    error on h_out, k_new and v_new per case. Returns the largest error of
+    (4 layers), turbo b32 (one layer and four), tiny B = 1, 3 and 33 and
+    turbo B = 1 (one layer), fp32 and bf16, at pos 0, 4, 48 and 447 of the
+    448-slot cache; the largest error on h_out, k_new and v_new per case,
+    and a second call on the same inputs bitwise equal to the first. The
+    tolerance is held against the plain version, and against its
+    fp64-summed form only where the plain version is off that form
+    (fused_close; such elements are counted). Returns the largest error of
     the main path's case (tiny b32 bf16)."""
     import torch
 
@@ -899,34 +1044,59 @@ def fused_checks(card: str) -> float:
         atol, rtol = FUSED_TOL[str(dtype).split(".")[1]]
         for model, H, B, depths in (("tiny", 6, BATCH, (4,)),
                                     ("turbo", 20, BATCH, (1, 4)),
-                                    ("tiny", 6, 1, (4,)), ("tiny", 6, 3, (4,))):
+                                    ("tiny", 6, 1, (4,)), ("tiny", 6, 3, (4,)),
+                                    ("tiny", 6, 33, (4,)),
+                                    ("turbo", 20, 1, (1,))):
             full = fused_inputs(B, 4, H, dtype, seed=B + H)
             for L in depths:
                 args = fused_layers(full, L)
                 for pos in FUSED_POS:
                     got = fused_decoder_step(*args, pos + 1, n_heads=H)
+                    again = fused_decoder_step(*args, pos + 1, n_heads=H)
                     want = fused_decoder_step_plain(*args, pos + 1, n_heads=H)
+                    exact = fused_decoder_step_plain(
+                        *args, pos + 1, n_heads=H, acc_dtype=torch.float64)
                     torch.cuda.synchronize()
-                    errs, ok = {}, True
-                    for name, a, b in zip(("h_out", "k_new", "v_new"), got,
-                                          want):
+                    # a fixed order of every sum: two calls bitwise equal
+                    same = all(torch.equal(x, y) for x, y in zip(got, again))
+                    errs, ok, flips = {}, same, 0
+                    for name, a, b, c in zip(("h_out", "k_new", "v_new"), got,
+                                             want, exact):
                         e = (a.float() - b.float()).abs()
                         errs[name] = float(e.max())
-                        ok = ok and bool((e <= atol + rtol * b.float().abs()
-                                          ).all())
+                        close = fused_close(a, b, c, atol, rtol)
+                        ok = ok and bool(close.all())
+                        flips += int((close & ~within(a, b, atol, rtol)).sum())
                     if (model, B, dtype) == ("tiny", BATCH, torch.bfloat16):
                         main_err = max(main_err, *errs.values())
                     emit({"phase": "fused_vs_plain", "model": model,
                           "dtype": str(dtype), "batch": B, "layers": L,
                           "heads": H, "pos": pos, "max_abs_err": errs,
-                          "atol": atol, "rtol": rtol, "ok": ok})
+                          "atol": atol, "rtol": rtol,
+                          "plain_fp32_near_ties": flips,
+                          "repeat_bitwise_equal": same, "ok": ok})
                     require(ok, f"fused_decoder_step {model} {dtype} B={B} "
                                 f"L={L} pos={pos} disagrees with its plain "
-                                f"version ({errs})")
-                    del got, want
+                                f"version or with itself ({errs}, bitwise "
+                                f"equal: {same})")
+                    del got, again, want, exact
             del full
     torch.cuda.empty_cache()
     return main_err
+
+
+def within(got, ref, atol: float, rtol: float):
+    """Elementwise |got - ref| <= atol + rtol |ref|."""
+    return (got.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()
+
+
+def fused_close(got, want, exact, atol: float, rtol: float):
+    """The kernel's output within the tolerance of the plain version, or,
+    where the plain version's own fp32 sums are outside it of its
+    fp64-summed form (a bf16 near-tie rounded the other way and carried
+    through the layers), within it of that form."""
+    return within(got, want, atol, rtol) | (
+        ~within(want, exact, atol, rtol) & within(got, exact, atol, rtol))
 
 
 def fused_decoder_tree(packed, cfg, dtype, seed: int) -> dict:
@@ -1038,6 +1208,68 @@ def fused_time(card: str) -> dict:
             del args, params, cache, cross, fused
             torch.cuda.empty_cache()
     return out
+
+
+def phase_breakdown(timelines: list) -> dict:
+    """Per-step microseconds by phase kind from the kernel's timelines
+    ((kind, ns) pairs, ended by kind -1): each interval between two stamps
+    is charged to the phase whose barrier closed it (its work and its wait
+    at that barrier); "sync" intervals are back-to-back barriers, their
+    median the cost of one barrier."""
+    from whisper_tpu_torch.ops.decoder_step import PHASES
+    phases, probes, barriers = {}, [], 0
+    for tl in timelines:
+        pairs = tl.reshape(-1, 2)
+        end = int(np.argmax(pairs[:, 0] < 0))
+        for (_, t0), (kind, t1) in zip(pairs[:end - 1], pairs[1:end]):
+            name = PHASES[int(kind)]
+            if name == "sync":
+                probes.append(int(t1 - t0))
+                continue
+            phases[name] = phases.get(name, 0) + int(t1 - t0)
+            barriers += name != "final"
+    n = len(timelines)
+    us = {k: v / n / 1e3 for k, v in phases.items()}
+    step_us = sum(us.values())
+    barrier_us = float(np.median(probes)) / 1e3
+    per_step = barriers / n
+    return {"phase_us": us, "step_us": step_us, "barriers": per_step,
+            "barrier_us": barrier_us,
+            "barrier_share": per_step * barrier_us / step_us}
+
+
+def fused_phases(card: str) -> None:
+    """fused_phases: where one fused decoder step spends its time, at tiny
+    and turbo b32 bf16 (4 layers), pos 48. Block 0's timeline (the
+    kernel's `stamps` buffer) over FUSED_PHASE_STEPS steps, summed by phase
+    kind per step, the cost of one barrier from back-to-back probes, the
+    barriers' share of the step; beside it the step's CUDA-event time with
+    and without the timeline (what the stamps cost)."""
+    import torch
+
+    from whisper_tpu_torch.ops.decoder_step import (
+        fused_decoder_step,
+        stamp_pairs,
+    )
+    pos = FUSED_TIME_POS
+    for model, H in (("tiny", 6), (TURBO, 20)):
+        args = fused_inputs(BATCH, 4, H, torch.bfloat16, seed=11)
+        stamps = torch.empty(2 * stamp_pairs(4), dtype=torch.int64,
+                             device="cuda")
+        timelines = []
+        for _ in range(3 + FUSED_PHASE_STEPS):
+            fused_decoder_step(*args, pos + 1, n_heads=H, stamps=stamps)
+            timelines.append(stamps.cpu().numpy())
+        plain_ms = cuda_ms(lambda: fused_decoder_step(*args, pos + 1,
+                                                      n_heads=H), 20)
+        stamped_ms = cuda_ms(lambda: fused_decoder_step(
+            *args, pos + 1, n_heads=H, stamps=stamps), 20)
+        emit({"phase": "fused_phases", "model": model, "dtype": "bfloat16",
+              "batch": BATCH, "layers": 4, "pos": pos,
+              **phase_breakdown(timelines[3:]), "ms": plain_ms,
+              "ms_with_timeline": stamped_ms, "card": card})
+        del args, stamps
+        torch.cuda.empty_cache()
 
 
 def fused_step_logit_err(params, cfg, clips) -> float:
@@ -1928,6 +2160,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also take the measurements of PERF.md")
+    ap.add_argument("--only", default="",
+                    help="comma-separated standalone phases to run alone "
+                         f"({', '.join(ONLY)}), after the card and build "
+                         f"lines; prints no result line")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1942,10 +2178,7 @@ def main() -> int:
         cache_append_rows_plain,
         cache_append_rows_ragged,
     )
-    from whisper_tpu_torch.ops.encoder_layer import (
-        encoder_block_tail,
-        encoder_block_tail_plain,
-    )
+    from whisper_tpu_torch.ops.encoder_layer import encoder_block_tail
     from whisper_tpu_torch.ops.decode_attention import (
         decode_attention,
         decode_attention_bg,
@@ -1992,60 +2225,15 @@ def main() -> int:
           "library": os.path.relpath(so),
           "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                     if "Used" in ln or "spill" in ln or "Compiling" in ln]})
+    if opts.only:
+        for name in opts.only.split(","):
+            globals()[ONLY[name]](card)
+        return 0
     if opts.profile:
         profile_build(card)
 
     # 3. kernels against their plain versions at the main paths' shapes
-    tail_tol = {torch.float32: (1e-4, 0.0), torch.bfloat16: (0.06, 2e-2)}
-    for dtype, (atol, rtol) in tail_tol.items():
-        args = tail_inputs(cfg, TAIL_CHECK_BATCH, dtype, seed=1)
-        got = encoder_block_tail(*args).float()
-        want = encoder_block_tail_plain(*args).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        ok = bool((err <= atol + rtol * want.abs()).all())
-        emit({"phase": "tail_vs_plain", "dtype": str(dtype),
-              "shape": [TAIL_CHECK_BATCH, cfg.n_audio_ctx, cfg.n_heads,
-                        cfg.head_dim], "max_abs_err": float(err.max()),
-              "atol": atol, "rtol": rtol, "ok": ok})
-        require(ok, f"encoder_block_tail {dtype} disagrees with its plain "
-                    f"version (max abs err {float(err.max())})")
-    # the main path's own shape: b32 bf16
-    args = tail_inputs(cfg, BATCH, torch.bfloat16, seed=2)
-    got = encoder_block_tail(*args).float()
-    want = encoder_block_tail_plain(*args).float()
-    main_tail_err = float((got - want).abs().max())
-    require(bool(((got - want).abs() <= 0.06 + 2e-2 * want.abs()).all()),
-            f"encoder_block_tail b32 bf16 max abs err {main_tail_err}")
-    del got, want
-    tail_ms, tail_plain_ms = alternate_ms(
-        lambda: encoder_block_tail_plain(*args),
-        lambda: encoder_block_tail(*args), iters=5)
-    emit({"phase": "tail_time", "shape": [BATCH, cfg.n_audio_ctx,
-                                          cfg.n_heads, cfg.head_dim],
-          "dtype": "bfloat16", "max_abs_err": main_tail_err,
-          "ms": tail_ms, "plain_ms": tail_plain_ms, "card": card})
-    # beside it the fp32 tail (the parity mode), whose attention is the
-    # fp32 flash body
-    args32 = tail_inputs(cfg, BATCH, torch.float32, seed=2)
-    ms32, plain_ms32 = alternate_ms(lambda: encoder_block_tail_plain(*args32),
-                                    lambda: encoder_block_tail(*args32),
-                                    iters=5)
-    emit({"phase": "tail_time", "shape": [BATCH, cfg.n_audio_ctx,
-                                          cfg.n_heads, cfg.head_dim],
-          "dtype": "float32", "ms": ms32, "plain_ms": plain_ms32,
-          "bf16_ms": tail_ms, "card": card})
-    del args32
-    B, T, H, D = args[0].shape
-    d, ff = cfg.d_model, cfg.d_ff
-    # attention, o-projection and MLP products; q, k, v, h in and h out,
-    # the three matrices in bf16, the five vectors in fp32
-    tail_bound = bound(5 * B * T * d * 2 + (d * d + 2 * d * ff) * 2
-                       + (4 * d + ff) * 4,
-                       4 * B * H * T * T * D + 2 * B * T * d * d
-                       + 4 * B * T * d * ff, "bfloat16")
-    del args
-    torch.cuda.empty_cache()
+    tail = tail_checks(card)
     tail_gate(card)
 
     L, H, S, D = cfg.n_text_layers, cfg.n_heads, 128, cfg.head_dim
@@ -2098,6 +2286,7 @@ def main() -> int:
     append_int8_checks(card)
     fused_err = fused_checks(card)
     fused = fused_time(card)
+    fused_phases(card)
 
     # 4. tiny main path: the bench workload through the pipeline
     params = weights.init_params(cfg, seed=0)
@@ -2444,9 +2633,7 @@ def main() -> int:
         {"name": "encoder_block_tail", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
-         "launches": tiny_launches["encoder_block_tail"],
-         "max_abs_err": main_tail_err, "ms": tail_ms,
-         "plain_ms": tail_plain_ms, **tail_bound, "library_ms": None},
+         "launches": tiny_launches["encoder_block_tail"], **tail},
         {"name": "cache_append_rows", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",

@@ -24,8 +24,11 @@ from whisper_tpu.weights import to_device as jax_to_device
 from whisper_tpu_torch import decode
 from whisper_tpu_torch.decode import greedy_decode
 from whisper_tpu_torch.ops.decoder_step import (
+    PHASES,
     fused_decoder_step,
+    fused_decoder_step_plain,
     pack_decoder_weights,
+    stamp_pairs,
     vec_offsets,
 )
 from whisper_tpu_torch.weights import from_jax_params, to_device
@@ -331,3 +334,69 @@ def test_wrapper_refuses_bad_operands(nano):
     layers["fc1"] = {**layers["fc1"], "w_s": torch.ones(L, cfg.d_ff)}
     with pytest.raises(ValueError, match="int8"):
         pack_decoder_weights(layers, torch.float32)
+
+
+@pytest.mark.parametrize("bad,exc,match", [
+    ("dtype", TypeError, "torch.int64"),
+    ("size", ValueError, "contiguous int64 elements"),
+    ("strided", ValueError, "contiguous int64 elements"),
+    ("cpu", ValueError, "time the CUDA kernel"),
+])
+def test_wrapper_checks_the_stamp_buffer(nano, bad, exc, match):
+    """The timeline keyword is for the CUDA kernel only: a buffer of the
+    wrong dtype or size is refused, and so is any buffer on a call whose
+    tensors lie on the CPU (the plain version has no timeline). Without
+    the keyword the CPU call runs the plain version as before."""
+    cfg, tree = nano
+    L, H, D, d = cfg.n_text_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+    packed = pack_decoder_weights(_port_tree(tree, "float32")[
+        "decoder"]["layers"], torch.float32)
+    sk = torch.zeros(L, 1, H, 8, D)
+    ck = torch.zeros(L, 1, H, 16, D)
+    h0 = torch.zeros(1, d)
+    n = 2 * stamp_pairs(L)
+    stamps = {"dtype": torch.zeros(n, dtype=torch.int32),
+              "size": torch.zeros(n - 2, dtype=torch.int64),
+              "strided": torch.zeros(2 * n, dtype=torch.int64)[::2],
+              "cpu": torch.zeros(n, dtype=torch.int64)}[bad]
+    with pytest.raises(exc, match=match):
+        fused_decoder_step(h0, packed, sk, sk, ck, ck, 3, n_heads=H,
+                           stamps=stamps)
+    out = fused_decoder_step(h0, packed, sk, sk, ck, ck, 3, n_heads=H)
+    assert out[0].shape == (1, d)
+
+
+def test_stamp_buffer_holds_the_phase_kinds():
+    """The timeline's kinds: the phases of a layer, the final rows and
+    the barrier probes, named in the kernel's order; room for 16 barriers
+    a layer."""
+    assert PHASES[0] == "start" and PHASES[-1] == "sync"
+    assert len(set(PHASES)) == len(PHASES) == 12
+    assert stamp_pairs(4) == 80 and stamp_pairs(1) == 32
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 0.06)])
+def test_plain_step_fp64_sums_keep_the_rounding_points(nano, dtype, atol):
+    """acc_dtype=float64 keeps the compute dtype's rounding points and sums
+    in fp64 between them: the reference the card tests adjudicate bf16
+    near-ties with. At nano width it stays within the fused tolerance of
+    the fp32 arithmetic (fp32 1e-4; bf16 one ulp of O(4) values, rtol
+    2e-2), and its outputs are in the compute dtype."""
+    cfg, tree = nano
+    L, H, D, d = cfg.n_text_layers, cfg.n_heads, cfg.head_dim, cfg.d_model
+    tdt = getattr(torch, dtype)
+    packed = pack_decoder_weights(_port_tree(tree, dtype)["decoder"]["layers"],
+                                  tdt)
+    rng = np.random.RandomState(3)
+    h0 = torch.from_numpy(rng.randn(2, d).astype(np.float32)).to(tdt)
+    sk = torch.from_numpy(rng.randn(L, 2, H, 8, D).astype(np.float32)).to(tdt)
+    ck = torch.from_numpy(rng.randn(L, 2, H, 16, D).astype(np.float32)).to(tdt)
+    sv, cv = sk.flip(3), ck.flip(3)
+    want = fused_decoder_step_plain(h0, packed, sk, sv, ck, cv, 6, n_heads=H)
+    exact = fused_decoder_step_plain(h0, packed, sk, sv, ck, cv, 6, n_heads=H,
+                                     acc_dtype=torch.float64)
+    for w, e in zip(want, exact):
+        assert e.dtype == tdt and e.shape == w.shape
+        np.testing.assert_allclose(e.float().numpy(), w.float().numpy(),
+                                   atol=atol, rtol=2e-2 if dtype == "bfloat16"
+                                   else 1e-4)

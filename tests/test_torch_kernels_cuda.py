@@ -92,6 +92,39 @@ def test_encoder_tail_kernel_matches_plain(dev, dtype, atol, rtol, B, T, H,
                                rtol=rtol)
 
 
+# The MLP kernel's edges: base width (4 warpgroups, 230 KB of shared
+# memory), row counts B*T that are no multiple of its 64-row tile, d a
+# multiple of 64 but not of 128 (a warpgroup with 64 dead columns), and
+# ff chunks past ff (ff no multiple of the 64-columns-a-warpgroup chunk).
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.06, 2e-2)])
+@pytest.mark.parametrize("B,T,H,ff", [
+    (2, 1500, 8, 2048),     # Whisper-base's encoder block
+    (1, 1501, 8, 2048),     # base, 1501 rows: a 29-row last tile
+    (3, 37, 6, 1536),       # 111 rows, one full tile and a ragged one
+    (2, 64, 1, 128),        # d = 64: one warpgroup, half its columns dead
+    (1, 100, 3, 320),       # d = 192, ff = 320: a partial last ff chunk
+    (2, 64, 2, 256),        # the nano widths
+])
+def test_encoder_tail_kernel_mlp_edges_match_plain(dev, dtype, atol, rtol,
+                                                   B, T, H, ff):
+    args = _tail_args(B, T, H, ff, dtype, dev, seed=T)
+    got = encoder_block_tail(*args)
+    torch.cuda.synchronize()
+    want = encoder_block_tail_plain(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_tail_kernel_is_deterministic(dev, dtype):
+    """Fixed summation orders: two calls on the same inputs are bitwise
+    equal (tiny width, a ragged last tile)."""
+    args = _tail_args(1, 1500, 6, 1536, dtype, dev, seed=9)
+    assert torch.equal(encoder_block_tail(*args), encoder_block_tail(*args))
+
+
 def test_encoder_tail_kernel_refuses_noncontiguous(dev):
     args = _tail_args(1, 64, 2, 256, torch.float32, dev)
     args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
@@ -993,6 +1026,58 @@ def test_fused_step_kernel_matches_plain(dev, dtype, B, pos):
         assert a.dtype == dtype and a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                    rtol=rtol, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 5, 33])
+def test_fused_step_kernel_batches_match_plain_and_repeat(dev, dtype, B):
+    """Batches that fill no tile evenly, at tiny width, pos 48: the plain
+    version's values, and a second call bitwise equal to the first (every
+    sum in a fixed order). The plain version's own fp32 sums can round a
+    bf16 near-tie the other way and carry it through the layers (B=33 here:
+    0.078 from its fp64-summed form at one element, where the kernel sits
+    on that form), so where the plain version is outside the tolerance of
+    its fp64-summed form, the kernel is held to that form instead, at the
+    same tolerance."""
+    args = _fused_args(B, 4, 6, 1536, 448, 1500, dtype, dev, seed=B)
+    got = fused_decoder_step(*args, 49, n_heads=6)
+    again = fused_decoder_step(*args, 49, n_heads=6)
+    torch.cuda.synchronize()
+    want = fused_decoder_step_plain(*args, 49, n_heads=6)
+    exact = fused_decoder_step_plain(*args, 49, n_heads=6,
+                                     acc_dtype=torch.float64)
+    atol, rtol = _FUSED_TOL[dtype]
+
+    def within(x, ref):
+        return (x.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()
+
+    for name, a, a2, b, e in zip(("h_out", "k_new", "v_new"), got, again,
+                                 want, exact):
+        assert torch.equal(a, a2), name
+        ok = within(a, b) | (~within(b, e) & within(a, e))
+        assert bool(ok.all()), (name, float((a.float() - b.float()).abs().max()))
+
+
+def test_fused_step_kernel_timeline(dev):
+    """The stamp buffer: a timeline of known phase kinds with increasing
+    times, ended by -1; the step's outputs bitwise those of a call
+    without it."""
+    from whisper_tpu_torch.ops.decoder_step import PHASES, stamp_pairs
+    args = _fused_args(4, 2, 6, 1536, 448, 1500, torch.bfloat16, dev, seed=3)
+    stamps = torch.full((2 * stamp_pairs(2),), -7, dtype=torch.int64,
+                        device=dev)
+    got = fused_decoder_step(*args, 10, n_heads=6, stamps=stamps)
+    want = fused_decoder_step(*args, 10, n_heads=6)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    pairs = stamps.view(-1, 2).cpu()
+    end = int((pairs[:, 0] < 0).nonzero()[0])
+    kinds = [PHASES[int(k)] for k in pairs[:end, 0]]
+    assert kinds[0] == "start" and kinds[-1] == "sync" and "final" in kinds
+    assert bool((pairs[1:end, 1] >= pairs[:end - 1, 1]).all())
+    with pytest.raises(ValueError, match="stamps are on"):
+        fused_decoder_step(*args, 10, n_heads=6, stamps=stamps.cpu())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -189,13 +189,14 @@ def test_to_device_fuses_self_attention_qkv_once(nano):
     assert "cross_attn" in again["decoder"]["layers"]
 
 
-# Shared memory of the tail kernel's MLP tile, 16 * (2d + ff) * 4 bytes,
-# against the 232,448 B that one sm_90 block may opt into.
-_TAIL_SMEM = {"tiny": 147_456, "tiny.en": 147_456, "base": 196_608,
-              "base.en": 196_608, "small": 294_912, "small.en": 294_912,
-              "medium": 393_216, "medium.en": 393_216,
-              "large-v2": 491_520, "large-v3": 491_520,
-              "large-v3-turbo": 491_520}
+# Shared memory of the tail kernel's MLP launch (the larger of its bf16
+# and fp32 forms: a ring of weight stages, the 64-row A tile and a t1
+# chunk), against the 232,448 B that one sm_90 block may opt into.
+_TAIL_SMEM = {"tiny": 222_208, "tiny.en": 222_208, "base": 230_400,
+              "base.en": 230_400, "small": 345_088, "small.en": 345_088,
+              "medium": 459_776, "medium.en": 459_776,
+              "large-v2": 574_464, "large-v3": 574_464,
+              "large-v3-turbo": 574_464}
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -207,6 +208,18 @@ def test_encoder_tail_gate_table(name):
         == _TAIL_SMEM[name]
     want = "tail" if name.split(".")[0] in ("tiny", "base") else "off"
     assert tm._encoder_tail_mode(cfg, torch.device("cpu")) == want
+
+
+@pytest.mark.parametrize("d", range(64, 1281, 64))
+def test_encoder_tail_smem_by_width(d):
+    """The MLP launch's shared memory: one warpgroup per 128 columns of d,
+    at most four (d <= 512) fit the sm_90 opt-in limit and every wider
+    width does not; ff streams in chunks and does not enter."""
+    need = encoder_layer.tail_smem_bytes(d, 4 * d)
+    assert need == encoder_layer.tail_smem_bytes(d, 64)
+    assert (need <= encoder_layer.SM90_SMEM_OPTIN) == (d <= 512)
+    wg = -(-d // 128)
+    assert need >= 64 * d * 4 + 2 * 8 * 128 * wg * 4    # fp32 A tile + ring
 
 
 @pytest.mark.parametrize("backend", ["reference", "pallas_interpret"])

@@ -105,6 +105,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -115,26 +116,10 @@ constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 // m) * D^-0.5). It is below 1, so a masked score times it stays finite.
 constexpr float SCALE_LOG2E = 0.125f * 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `bytes` 0 writes 16 zero bytes and reads none
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using wt::cp_async16;
+using wt::cp_async_commit;
+using wt::cp_async_wait;
+using wt::smem_addr;
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -437,6 +422,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 namespace tc {
 
 using bf16 = __nv_bfloat16;
+using wt::ATOM_BYTES;
+using wt::fence_regs;
+using wt::pack_bf16;
+using wt::sw128_desc;
+using wt::wgmma_commit;
+using wt::wgmma_fence;
+using wt::wgmma_wait;
 
 constexpr int BQ = 64;                  // query rows per block
 constexpr int BK = 64;                  // keys per shared-memory tile
@@ -446,7 +438,7 @@ constexpr int MIN_BLOCKS = 4;           // per SM: at most 128 registers
 constexpr int ROW_BYTES = HEAD_DIM * 2;             // 128: one swizzle row
 constexpr int TILE_BYTES = BK * ROW_BYTES;          // one K or V tile
 constexpr int STAGE_BYTES = 2 * TILE_BYTES;         // K then V
-constexpr int ATOM_BYTES = 8 * ROW_BYTES;           // 8 rows: a swizzle atom
+static_assert(wt::ATOM_BYTES == 8 * ROW_BYTES, "8 rows: a swizzle atom");
 // + one atom, to align the ring to the 1024-byte atom the swizzle assumes;
 // within the 48 KB a launch gets without opting in
 constexpr size_t SMEM = (size_t)STAGES * STAGE_BYTES + ATOM_BYTES;
@@ -467,66 +459,6 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
     cp_async16(dst + r * ROW_BYTES + ((c ^ (r & 7)) << 4),
                src + (live ? s : 0) * stride + c * 8, live ? 16 : 0);
   }
-}
-
-// Shared-memory matrix descriptor of a tile of 128-byte rows in the
-// 128-byte swizzle: start address, leading and stride byte offsets (in 16
-// bytes) and the layout type. The stride byte offset steps over 8 rows (one
-// swizzle atom); the leading byte offset is unused for K-major tiles whose
-// k-extent lies in one atom, and for the MN-major V tile, whose 64 dims are
-// one atom wide, it is given the same 8-row step.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(ATOM_BYTES >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product (it cannot see that wait_group writes
-// them).
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64 fp32, this thread's 32) = a (64 x 16 bf16, registers) . B
-// (16 x 64 bf16, shared memory), plus d unless `accumulate` is 0; TRANS_B
-// 0: B is K-major (k's rows), 1: MN-major (v's rows).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc_b,
-                                                int accumulate) {
-  asm volatile(
-      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, acc, 1, 1, %37;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "n"(TRANS_B), "r"(accumulate));
-}
-
-// two fp32 -> one register of two bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Fragment layout (per warp w of a warpgroup, lane = 4 g + t4): the
@@ -600,7 +532,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // ago); the barrier publishes it and, since every thread has finished
     // the last tile's products, frees that tile's stage for the next copy
     cp_async_wait<STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wt::fence_proxy_async();
     __syncthreads();
     {
       const int next = tile + STAGES - 1;
@@ -620,7 +552,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      wgmma_m64n64k16<0>(s, qa[j], sw128_desc(ks + 32 * j, 0), j);
+      wt::wgmma_m64n64k16_rs<0>(s, qa[j], sw128_desc(ks + 32 * j, 0), j);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -697,7 +629,7 @@ flash_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      wgmma_m64n64k16<1>(o, pa[j], sw128_desc(vs + 2 * ATOM_BYTES * j,
+      wt::wgmma_m64n64k16_rs<1>(o, pa[j], sw128_desc(vs + 2 * ATOM_BYTES * j,
                                               ATOM_BYTES), 1);
     wgmma_commit();
     wgmma_wait();

@@ -107,6 +107,8 @@ def load_library() -> ctypes.CDLL:
         I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
         F, I, P]               # eps, is_bf16, stream
     lib.wt_encoder_tail.restype = I
+    lib.wt_encoder_tail_smem.argtypes = [I]                   # d
+    lib.wt_encoder_tail_smem.restype = ctypes.c_longlong
     lib.wt_cache_append.argtypes = [
         P, P, P, P,            # cache_k, cache_v, k_new, v_new
         ctypes.c_longlong,     # rows = L*B*H
@@ -150,7 +152,9 @@ def load_library() -> ctypes.CDLL:
         P, L,                  # scratch (fp32) and its length
         I, I, I, I, I, I,      # L, B, H, D, d, ff
         I, I, I,               # S_self, S_cross, kv_len
-        F, I, P]               # eps, is_bf16, stream
+        F, I,                  # eps, is_bf16
+        P, I,                  # stamps (int64 pairs, or None), their count
+        P]                     # stream
     lib.wt_fused_decoder_step.restype = I
     lib.wt_fused_decoder_step_scratch.argtypes = [I, I, I, I]   # B, H, d, ff
     lib.wt_fused_decoder_step_scratch.restype = L

@@ -49,6 +49,19 @@ from whisper_tpu_torch.ops import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# The kinds of the kernel's optional timeline (csrc/decoder_step.cu Phase):
+# block 0 stamps %globaltimer as it leaves each grid barrier, naming the
+# phase that barrier closed; "sync" stamps close back-to-back barriers
+# timed alone after the step.
+PHASES = ("start", "rows", "qkv", "self", "o", "cq", "cross", "co", "fc1",
+          "fc2", "final", "sync")
+
+
+def stamp_pairs(n_layers: int) -> int:
+    """(kind, ns) pairs a timeline buffer holds for an n_layers step: room
+    for 16 barriers a layer and the probes after it."""
+    return 16 * n_layers + 16
+
 
 class PackedDecoder(NamedTuple):
     """The decoder's per-step operands (`pack_decoder_weights`)."""
@@ -111,12 +124,15 @@ def _ln(x, g, b, eps: float):
 
 def fused_decoder_step_plain(h0, packed: PackedDecoder, self_k, self_v,
                              cross_k, cross_v, kv_len: int, *, n_heads: int,
-                             eps: float = 1e-5):
+                             eps: float = 1e-5, acc_dtype=torch.float32):
     """The JAX kernel's arithmetic as a plain loop over the layers, fp32
     with the compute dtype's rounding at JAX's points. Shapes as
-    `fused_decoder_step`."""
+    `fused_decoder_step`. `acc_dtype=torch.float64` keeps the rounding
+    points but takes the arithmetic between them in fp64: a reference
+    whose sums round nowhere else, for telling which of two fp32 orders a
+    bf16 near-tie went the right way in."""
     dtype = h0.dtype
-    f32 = torch.float32
+    f32 = acc_dtype
     B, d = h0.shape
     L = packed.wqkv.shape[0]
     H = n_heads
@@ -217,6 +233,25 @@ def _check(h0, packed: PackedDecoder, self_k, self_v, cross_k, cross_v,
                          f"{kv_len - 1}) outside a {S}-slot self cache")
 
 
+def _check_stamps(stamps: torch.Tensor, h0: torch.Tensor, L: int) -> None:
+    """The timeline buffer: int64, contiguous, room for stamp_pairs(L)
+    pairs, on h0's CUDA device. The plain version has no timeline, so a
+    call on CPU tensors that asks for one is refused."""
+    if stamps.dtype != torch.int64:
+        raise TypeError(f"fused_decoder_step: stamps are {stamps.dtype}, "
+                        f"not torch.int64")
+    if not stamps.is_contiguous() or stamps.numel() < 2 * stamp_pairs(L):
+        raise ValueError(f"fused_decoder_step: stamps need "
+                         f"{2 * stamp_pairs(L)} contiguous int64 elements, "
+                         f"got {stamps.numel()}")
+    if h0.device.type != "cuda":
+        raise ValueError("fused_decoder_step: stamps time the CUDA kernel; "
+                         f"h0 is on {h0.device}")
+    if stamps.device != h0.device:
+        raise ValueError(f"fused_decoder_step: stamps are on "
+                         f"{stamps.device}, h0 on {h0.device}")
+
+
 @functools.lru_cache(maxsize=None)
 def _scratch_floats(B: int, H: int, d: int, ff: int) -> int:
     """fp32 scratch the kernel needs, as its C side counts it."""
@@ -227,7 +262,8 @@ def _scratch_floats(B: int, H: int, d: int, ff: int) -> int:
 def fused_decoder_step(h0: torch.Tensor, packed: PackedDecoder,
                        self_k: torch.Tensor, self_v: torch.Tensor,
                        cross_k: torch.Tensor, cross_v: torch.Tensor,
-                       kv_len: int, *, n_heads: int, eps: float = 1e-5
+                       kv_len: int, *, n_heads: int, eps: float = 1e-5,
+                       stamps: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One T==1 decode step through every decoder layer (:320).
 
@@ -239,6 +275,10 @@ def fused_decoder_step(h0: torch.Tensor, packed: PackedDecoder,
         not yet written; only rows < kv_len - 1 are read.
       cross_k, cross_v: (L, B, H, S_cross, D).
       kv_len: valid self length INCLUDING the current token (pos + 1).
+      stamps: for measurement only, a CUDA int64 tensor of at least
+        2 * stamp_pairs(L) elements that receives the kernel's timeline:
+        (kind, ns) pairs, kind an index into PHASES, ended by a kind of
+        -1. None (every normal call) records nothing.
     Returns:
       h_out (B, d) in h0's dtype (before the final LayerNorm), and
       k_new, v_new (L, B, H, D) in the cache's dtype: each layer's row for
@@ -247,6 +287,8 @@ def fused_decoder_step(h0: torch.Tensor, packed: PackedDecoder,
     """
     kv_len = int(kv_len)
     _check(h0, packed, self_k, self_v, cross_k, cross_v, kv_len, n_heads)
+    if stamps is not None:
+        _check_stamps(stamps, h0, packed.wqkv.shape[0])
     if h0.device.type == "cpu":
         return fused_decoder_step_plain(h0, packed, self_k, self_v, cross_k,
                                         cross_v, kv_len, n_heads=n_heads,
@@ -289,6 +331,8 @@ def fused_decoder_step(h0: torch.Tensor, packed: PackedDecoder,
         h_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         scratch.data_ptr(), scratch.numel(), L, B, H, D, d, ff, S,
         cross_k.shape[3], kv_len, float(eps), int(dtype == torch.bfloat16),
+        None if stamps is None else stamps.data_ptr(),
+        0 if stamps is None else stamps.numel() // 2,
         torch.cuda.current_stream(h0.device).cuda_stream)
     _build.check(lib, err, "fused_decoder_step")
     fused_decoder_step.launches += 1

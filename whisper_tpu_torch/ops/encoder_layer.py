@@ -25,14 +25,32 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Shared memory one block may opt into on sm_90 (H100): the CPU takes this
 # figure, so that both devices pick the same encoder branch for a model.
 SM90_SMEM_OPTIN = 232_448
-TAIL_MLP_ROWS = 16          # csrc/encoder_tail.cu MLP_RM
+# csrc/encoder_tail.cu: rows a block, o-projection/fc2 columns a
+# warpgroup, fc1-chunk columns a warpgroup and k-rows of a weight stage
+# (bf16, fp32), the swizzle atom the bf16 tiles are aligned to
+TAIL_ROWS, TAIL_WG_COLS, TAIL_ATOM = 64, 128, 1024
+TAIL_WG_FF = {"bf16": 64, "fp32": 32}
+TAIL_KS = {"bf16": 64, "fp32": 8}
 
 
 def tail_smem_bytes(d: int, ff: int) -> int:
-    """Shared memory of the kernel's MLP launch: TAIL_MLP_ROWS rows of the
-    attention output, h2 and the GeLU intermediate in fp32
-    (csrc/encoder_tail.cu launch_tail, the same formula)."""
-    return TAIL_MLP_ROWS * (2 * d + ff) * 4
+    """Shared memory of the kernel's MLP launch at width d, the larger of
+    its bf16 and fp32 forms (csrc/encoder_tail.cu tail_smem_bytes, the same
+    formula; wt_encoder_tail_smem gives the C side's). bf16: a ring of
+    weight stages of 64 k-rows by 128 columns a warpgroup (three stages up
+    to three warpgroups, else two), the 64 attention rows (then y), a
+    64-column t1 slice a warpgroup, and one swizzle atom of alignment;
+    fp32: two 8-row stages, the same A tile and 32-column t1 slices. ff
+    streams in chunks and does not enter."""
+    del ff
+    wg = -(-d // TAIL_WG_COLS)                  # warpgroups
+
+    def need(form: str, stages: int, size: int) -> int:
+        return (stages * TAIL_KS[form] * TAIL_WG_COLS * wg + TAIL_ROWS * d
+                + TAIL_ROWS * TAIL_WG_FF[form] * wg) * size
+
+    return max(need("bf16", 3 if wg <= 3 else 2, 2) + TAIL_ATOM,
+               need("fp32", 2, 4))
 
 
 def tail_fits_smem(d: int, ff: int, device: torch.device) -> bool:
@@ -40,8 +58,8 @@ def tail_fits_smem(d: int, ff: int, device: torch.device) -> bool:
     tile within the card's opt-in shared memory per block (on CUDA read
     from the card, elsewhere SM90_SMEM_OPTIN). The counterpart of the JAX
     package's tail_fits_vmem (ops/encoder_layer.py:229), whose VMEM
-    budgets are TPU calibration and are not ported. Tiny and base fit;
-    small and every wider model do not."""
+    budgets are TPU calibration and are not ported. Tiny (217 KB) and base
+    (225 KB) fit; small and every wider model do not."""
     limit = SM90_SMEM_OPTIN
     if device.type == "cuda":
         limit = torch.cuda.get_device_properties(
@@ -108,8 +126,9 @@ def _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs) -> None:
     if D != 64 or d != H * D:
         raise ValueError(f"encoder_block_tail: the kernel takes head_dim 64 "
                          f"and d = H*64; got D={D}, d={d}, H={H}")
-    if ff % 4:
-        raise ValueError(f"encoder_block_tail: ff={ff} is not a multiple of 4")
+    if ff % 64:
+        raise ValueError(f"encoder_block_tail: ff={ff} is not a multiple of "
+                         f"64")
     for name, t in (("o_b", vecs[0]), ("fc1_b", vecs[1]), ("fc2_b", vecs[2]),
                     ("ln2_g", vecs[3]), ("ln2_b", vecs[4])):
         n = ff if name == "fc1_b" else d
@@ -124,6 +143,9 @@ def _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs) -> None:
                              f"h_in on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"encoder_block_tail: {name} is not contiguous")
+        if name in want and t.data_ptr() % 16:     # cp.async's 16 bytes
+            raise ValueError(f"encoder_block_tail: {name} is not 16-byte "
+                             f"aligned")
 
 
 def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
