@@ -35,7 +35,14 @@ b32 bf16 under "pallas" with WHISPER_TPU_IP_CROSS=bg8 (every cross read
 of the loop one decode_attention_bg launch) timed against the default
 path in turns; tiny b32 bf16 with kv_cache_quant under "pallas" (every
 T==1 step read one decode_attention_bh launch) and its fp32 tokens
-against the CPU; and the tiny engine under "pallas".
+against the CPU; and the tiny engine under "pallas". Then beam search and
+sampling: tiny b32 and turbo b8 x beam 5 (bf16, 89 tokens) through the
+pipeline, with beam 1 against greedy on the card; tiny fp32 x beam 5 on
+the card against the CPU, also with the int8 cross cache (every cross
+read one decode_attention_q8_bh launch); temperature sampling through
+the pipeline (seeded, no masked token drawn) and the engine (a request's
+draws independent of its companions); and the CLI with --beam and
+--temperature from a checkpoint that the port's save_npz wrote.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
@@ -89,6 +96,14 @@ RAGGED_SHAPES = {"tiny": (4, 32, 6, 448, 64), "turbo": (4, 8, 20, 448, 64)}
 ENGINE_REQUESTS, ENGINE_MAX_NEW = 96, 88               # tiny, 32 slots
 TURBO_ENGINE_REQUESTS, TURBO_ENGINE_MAX_NEW = 16, 24   # turbo, 8 slots
 ARRIVALS = 2          # engine requests arriving before every second step
+# beam search and sampling: beam width, turbo's audio rows under beam (40
+# decode rows), the fp32 parity decode, the sampling temperatures (the
+# pipeline's, the engine's) and the sampling engine's traffic
+BEAM, BEAM_TURBO_BATCH, BEAM_PARITY_TOKENS = 5, 8, 24
+SAMPLE_T, ENGINE_SAMPLE_T = 0.7, 1.0
+SAMPLE_ENGINE_REQUESTS, SAMPLE_ENGINE_MAX_NEW = 40, 24
+# fp32 beam sums of 23 picks, GPU against CPU: the fp32 logits' tolerance
+BEAM_LOGPROB_ATOL = 1e-3
 # the int8 decode kernel against its plain version: fp32 an online
 # against a two-pass softmax, summed in other orders; bf16 about one bf16
 # ulp of the output
@@ -289,19 +304,26 @@ def graph_ms(fn, launches: int = 100, replays: int = 20) -> float:
 
 
 def profile_append(card: str, append_args) -> None:
-    """The append's device time by replay, for PERF.md."""
+    """The append's device time by replay, for PERF.md, beside the launch
+    floor: the replay time of a one-element in-place add, the least one
+    graph node costs on the card."""
+    import torch
+
     from whisper_tpu_torch.ops.cache_append import (
         cache_append_rows,
         cache_append_rows_plain,
     )
 
+    one = torch.zeros(1, device="cuda")
+    floor_ms = graph_ms(lambda: one.add_(1.0))
     for dtype, (ck, cv, kn, vn) in append_args.items():
+        ms = graph_ms(lambda: cache_append_rows(ck, cv, kn, vn, 63))
         emit({"phase": "profile_append_graph", "dtype": str(dtype),
               "shape": list(ck.shape),
               "plain_ms": graph_ms(
                   lambda: cache_append_rows_plain(ck, cv, kn, vn, 63)),
-              "ms": graph_ms(lambda: cache_append_rows(ck, cv, kn, vn, 63)),
-              "card": card})
+              "ms": ms, "launch_floor_ms": floor_ms,
+              "over_floor_us": 1e3 * (ms - floor_ms), "card": card})
 
 
 def profile_build(card: str) -> None:
@@ -2136,6 +2158,328 @@ def device_kernels(prof) -> tuple[list, float]:
     return kernels, sum(e.self_device_time_total for e in kernels) / 1e3
 
 
+def beam_options(cfg, width: int):
+    """Beam search with EOT suppressed by the rules: fixed work, as the
+    bench's logit bias gives greedy (beam search takes no logit bias)."""
+    from whisper_tpu_torch.decode_rules import DecodeOptions
+    return DecodeOptions(beam_size=width, suppress_blank=False,
+                         suppress_tokens=(cfg.eot_token,))
+
+
+def beam_main_path(pipe, kernels: dict, batch: int, encoder: dict,
+                   card: str, profile: bool = False) -> dict:
+    """Beam search (width BEAM) over `batch` bench clips through
+    pipe.transcribe_batch, GEN_TOKENS tokens: a warm-up, then three runs,
+    each with every launch count set to 0 just before it; the counts of
+    the last, the median wall and the peak device memory. Fails unless the
+    counts are the path's: `encoder`'s (the tail or flash per encoder
+    layer), the prefill's flash reads over batch x BEAM rows where the
+    size gate sends them, one append per loop step, no fused step and no
+    decode kernel; and unless the output is sane. Then beam 1
+    (beam_decode) must give greedy_decode's tokens bit for bit on the same
+    encoder output. With `profile`, one more run under torch.profiler
+    (device time by kernel). Returns the phase line."""
+    import torch
+
+    from whisper_tpu_torch.decode import beam_decode, greedy_decode
+    cfg = pipe.cfg
+    audio = bench_audio(cfg, batch)
+    opts, max_new, P = beam_options(cfg, BEAM), GEN_TOKENS - 1, 4
+
+    def run():
+        res = pipe.transcribe_batch(audio, max_new=max_new, opts=opts)
+        torch.cuda.synchronize()
+        return res
+
+    run()                               # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = run()
+        walls.append(time.perf_counter() - t0)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    rows = batch * BEAM
+    prefill_flash = cfg.n_text_layers * sum(
+        routed(cfg, rows, P, S, "flash") for S in (P, cfg.n_audio_ctx))
+    expect = {"encoder_block_tail": encoder.get("encoder_block_tail", 0),
+              "flash_attention": encoder.get("flash_attention", 0)
+              + prefill_flash,
+              "cache_append_rows": max_new, "cache_append_rows_ragged": 0,
+              "fused_decoder_step": 0, "decode_attention_q8_bh": 0,
+              "decode_attention_q8": 0, **NO_DECODE}
+    toks = res.tokens.cpu()
+    gen = toks[:, P:]
+    median = float(np.median(walls))
+    line = {"phase": "beam_main_path", "model": cfg.name,
+            "dtype": cfg.compute_dtype, "batch": batch, "beam": BEAM,
+            "decode_rows": rows, "gen_tokens": GEN_TOKENS, "walls_s": walls,
+            "median_wall_s": median,
+            "audio_s_per_wall_s": batch * cfg.chunk_length_s / median,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "expected": expect, "card": card}
+    for name, n in expect.items():
+        require(launches[name] == n,
+                f"beam {cfg.name}: {name} launches {launches[name]} != {n}")
+    require(tuple(toks.shape) == (batch, P + GEN_TOKENS),
+            f"beam tokens shape {tuple(toks.shape)}")
+    require(bool((gen != cfg.eot_token).all()), "beam: EOT while suppressed")
+    require(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+            "beam: token ids outside the vocab")
+    require(bool(torch.isfinite(res.sum_logprobs).all()),
+            "beam: non-finite sum_logprobs")
+
+    # beam 1 against greedy, on one encoder output
+    with torch.inference_mode():
+        enc = pipe._encode_audio(audio)
+        prompt = pipe.prompt(batch)
+        one = beam_options(cfg, 1)
+        g = greedy_decode(pipe.params, cfg, enc, prompt, max_new=max_new,
+                          opts=one)
+        b1 = beam_decode(pipe.params, cfg, enc, prompt, beam_size=1,
+                         max_new=max_new, opts=one)
+    line["beam1_equals_greedy"] = bool(torch.equal(g.tokens, b1.tokens))
+    line["beam1_sum_logprob_max_abs_diff"] = float(
+        (g.sum_logprobs - b1.sum_logprobs).abs().max())
+    line["best_beam_minus_greedy_sum_logprob_mean"] = float(
+        (res.sum_logprobs - g.sum_logprobs).mean())
+    emit(line)
+    require(line["beam1_equals_greedy"],
+            f"beam {cfg.name}: beam 1 differs from greedy on the card")
+    if profile:
+        model = f"{cfg.name}_beam{BEAM}"
+        events, device_ms = device_kernels(profiled(run))
+        emit({"phase": "profile_device_time", "model": model,
+              "device_ms": device_ms, "unprofiled_median_wall_ms":
+              1e3 * median, "device_busy_share": device_ms / (1e3 * median),
+              "card": card})
+        for e in events[:20]:
+            emit({"phase": "profile_kernel", "model": model,
+                  "kernel": e.key[:120],
+                  "device_ms": e.self_device_time_total / 1e3,
+                  "count": e.count})
+    return line
+
+
+def beam_fp32_parity(params, clips: np.ndarray, kernels: dict,
+                     card: str) -> None:
+    """Tiny fp32, len(clips) clips x beam BEAM, BEAM_PARITY_TOKENS tokens,
+    on the card and on the CPU (plain versions) from the same params: the
+    tokens identical, the best beams' sum_logprobs within
+    BEAM_LOGPROB_ATOL. Then the same with the int8 cross cache, where
+    every layer's cross read at every loop step is one
+    decode_attention_q8_bh launch."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    max_new = BEAM_PARITY_TOKENS - 1
+    for quant in (False, True):
+        cfg = get_config("tiny").replace(cross_kv_quant=quant)
+        opts = beam_options(cfg, BEAM)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            pipe = WhisperPipeline.from_params(params, cfg, dtype="float32",
+                                               device=device, quant="off")
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = pipe.transcribe_batch(clips, max_new=max_new, opts=opts)
+            runs[device] = (res.tokens.cpu(), res.sum_logprobs.cpu(),
+                            time.perf_counter() - t0,
+                            {n: fn.launches for n, fn in kernels.items()})
+            del pipe, res
+            torch.cuda.empty_cache()
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        launches = gpu[3]
+        line = {"phase": "beam_fp32_parity", "quant": quant_flags(cfg),
+                "batch": len(clips), "beam": BEAM, "max_new": max_new,
+                "tokens_identical": bool(torch.equal(gpu[0], cpu[0])),
+                "tokens": gpu[0].tolist(),
+                "sum_logprobs_max_abs_err": float(
+                    (gpu[1] - cpu[1]).abs().max()),
+                "sum_logprob_atol": BEAM_LOGPROB_ATOL,
+                "gpu_s": gpu[2], "cpu_s": cpu[2], "launches": launches,
+                "card": card}
+        emit(line)
+        require(line["tokens_identical"],
+                f"beam fp32 {quant_flags(cfg)}: tokens differ GPU vs CPU")
+        require(line["sum_logprobs_max_abs_err"] < BEAM_LOGPROB_ATOL,
+                f"beam fp32 sum_logprobs differ by "
+                f"{line['sum_logprobs_max_abs_err']}")
+        q8 = cfg.n_text_layers * max_new if quant else 0
+        require(launches["decode_attention_q8_bh"] == q8
+                and launches["cache_append_rows"] == max_new,
+                f"beam fp32 {quant_flags(cfg)}: launches {launches}")
+
+
+def sampling(pipe, params, kernels: dict, card: str) -> None:
+    """Temperature sampling on the card. (a) Tiny b32 bf16 at SAMPLE_T
+    through transcribe_batch with the non-speech suppression and EOT
+    banned: the same generator seed gives the same tokens twice, another
+    seed other tokens, and no drawn token is one whose logit the bias or
+    the rules masked. (b) The tiny engine with BATCH slots at
+    ENGINE_SAMPLE_T over SAMPLE_ENGINE_REQUESTS requests, each with its
+    own seed, EOT and the non-speech set suppressed: a request's tokens
+    equal its run alone in an engine of the same slots (the same GEMM
+    shapes), another seed gives others, no generated token is masked, and
+    the engine's noise is finite over the run's (seed, position) rows at
+    the full vocabulary and at every uniform its hash can give."""
+    import torch
+
+    from whisper_tpu_torch.decode import gumbel_noise
+    from whisper_tpu_torch.decode_rules import DecodeOptions
+    from whisper_tpu_torch.serving_continuous import (
+        ContinuousBatcher,
+        hashed_gumbel,
+    )
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = pipe.cfg
+    audio = bench_audio(cfg, BATCH)
+    bias = torch.zeros(cfg.vocab_size, device="cuda")
+    bias[cfg.eot_token] = -1e9
+    opts = pipe.make_options(suppress_nonspeech=True, temperature=SAMPLE_T)
+
+    def run(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        res = pipe.transcribe_batch(audio, max_new=GEN_TOKENS - 1,
+                                    logit_bias=bias, opts=opts, generator=g)
+        torch.cuda.synchronize()
+        return res.tokens.cpu()
+
+    a = run(0)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    b = run(0)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    c = run(1)
+    gen = a[:, 4:]
+    masked = torch.tensor(sorted(set(opts.suppress_tokens)
+                                 | {cfg.eot_token}))
+    drawn_masked = int(torch.isin(gen, masked).sum()
+                       + (gen >= cfg.timestamp_begin).sum()
+                       + (gen[:, 0] == 220).sum())
+    line = {"phase": "sampling", "model": cfg.name,
+            "dtype": cfg.compute_dtype, "batch": BATCH,
+            "temperature": SAMPLE_T, "gen_tokens": GEN_TOKENS,
+            "same_seed_identical": bool(torch.equal(a, b)),
+            "other_seed_differs": not torch.equal(a, c),
+            "other_seed_token_agreement": float(
+                (a[:, 4:] == c[:, 4:]).float().mean()),
+            "masked_tokens_drawn": drawn_masked,
+            "distinct_tokens": int(gen.unique().numel()), "wall_s": wall,
+            "launches": launches, "card": card}
+    emit(line)
+    require(line["same_seed_identical"], "sampling: seed 0 twice differs")
+    require(line["other_seed_differs"], "sampling: seeds 0 and 1 agree")
+    require(drawn_masked == 0, f"sampling: {drawn_masked} masked draws")
+    require(launches["cache_append_rows"] == GEN_TOKENS - 1
+            and launches["encoder_block_tail"] == cfg.n_audio_layers,
+            f"sampling: launches {launches}")
+
+    ecfg = cfg.replace(compute_dtype="bfloat16")
+    banned = set(opts.suppress_tokens) | {cfg.eot_token}
+    eopts = DecodeOptions(temperature=ENGINE_SAMPLE_T, suppress_blank=False,
+                          suppress_tokens=tuple(sorted(banned)))
+    clips = bench_audio(cfg, SAMPLE_ENGINE_REQUESTS)
+
+    def engine():
+        return ContinuousBatcher(params, ecfg, max_slots=BATCH,
+                                 max_new=SAMPLE_ENGINE_MAX_NEW, opts=eopts)
+
+    crowd = engine()
+    for fn in kernels.values():
+        fn.launches = 0
+    rids = [crowd.submit(clip, seed=1000 + i) for i, clip in enumerate(clips)]
+    t0 = time.perf_counter()
+    out = crowd.run_until_idle()
+    torch.cuda.synchronize()
+    crowd_wall = time.perf_counter() - t0
+    ragged = kernels["cache_append_rows_ragged"].launches
+    del crowd
+    P = len(build_prompt(cfg))
+    gen = [out[r][P:] for r in rids]
+    engine_masked = sum(len(banned & set(g)) + sum(t > cfg.eot_token
+                                                   for t in g) for g in gen)
+    seeds = torch.arange(1000, 1000 + SAMPLE_ENGINE_REQUESTS, device="cuda")
+    noise_finite = all(
+        bool(torch.isfinite(hashed_gumbel(
+            seeds, torch.full_like(seeds, p), cfg.vocab_size)).all())
+        for p in range(P, P + SAMPLE_ENGINE_MAX_NEW + 1))
+    u = torch.arange(1 << 24, device="cuda", dtype=torch.int32).float()
+    grid_finite = bool(torch.isfinite(gumbel_noise(u * 2.0 ** -24)).all())
+    del u
+    solo_same, solo_other = [], []
+    solo = engine()
+    for i in (0, SAMPLE_ENGINE_REQUESTS - 1):   # the first and a late joiner
+        for seed, same in ((1000 + i, True), (7, False)):
+            r = solo.submit(clips[i], seed=seed)      # alone in the engine
+            got = solo.run_until_idle()[r]
+            (solo_same if same else solo_other).append(
+                (got == out[rids[i]]) == same)
+    del solo
+    line = {"phase": "sampling_engine", "model": cfg.name,
+            "dtype": "bfloat16", "slots": BATCH,
+            "requests": SAMPLE_ENGINE_REQUESTS,
+            "max_new": SAMPLE_ENGINE_MAX_NEW, "temperature": ENGINE_SAMPLE_T,
+            "wall_s": crowd_wall, "ragged_launches": ragged,
+            "solo_equals_crowd": solo_same, "other_seed_differs": solo_other,
+            "masked_tokens_drawn": engine_masked,
+            "gen_lengths": sorted({len(g) for g in gen}),
+            "noise_finite": noise_finite, "uniform_grid_finite": grid_finite,
+            "card": card}
+    emit(line)
+    require(engine_masked == 0,
+            f"sampling engine: {engine_masked} masked draws")
+    require(line["gen_lengths"] == [SAMPLE_ENGINE_MAX_NEW + 1],
+            f"sampling engine: EOT banned, lengths {line['gen_lengths']}")
+    require(noise_finite and grid_finite,
+            "sampling engine: non-finite Gumbel noise on the card")
+    require(all(solo_same), "sampling engine: a request's tokens depend on "
+                            "its companions")
+    require(all(solo_other), "sampling engine: another seed, same tokens")
+    require(ragged > 0, "sampling engine: no ragged append launched")
+    torch.cuda.empty_cache()
+
+
+def cli_beam(clip: np.ndarray, card: str) -> None:
+    """The CLI from an npz that the port's save_npz wrote (tiny, seed 7):
+    beam search with the timestamp and suppression rules, then sampling
+    with a seed. Prints each run's tokens; fails unless both exit 0."""
+    import io
+
+    from whisper_tpu_torch import cli, get_config, weights
+    cfg = get_config("tiny")
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "tiny_seed7.npz")
+        weights.save_npz(npz, weights.init_params(cfg, 7))
+        wav_path = os.path.join(tmp, "clip.wav")
+        x = (clip[:cfg.sample_rate * 5] * 32000).astype(np.int16)
+        with wave.open(wav_path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(cfg.sample_rate)
+            w.writeframes(x.tobytes())
+        for flags in (["--beam", str(BEAM), "--timestamps",
+                       "--suppress-nonspeech"],
+                      ["--temperature", str(SAMPLE_T), "--seed", "3"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["--weights", npz, "--audio", wav_path,
+                               "--max-new", "24", *flags])
+            tokens = [ln.split(":", 1)[1].strip()
+                      for ln in out.getvalue().splitlines()
+                      if ln.startswith("tokens:")]
+            emit({"phase": "cli_beam", "flags": flags, "rc": rc,
+                  "tokens": tokens[0] if tokens else None, "card": card})
+            require(rc == 0 and tokens, f"cli {flags} returned {rc}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2300,6 +2644,14 @@ def main() -> int:
     tiny_launches = line["launches"]
     main_path_stages(pipe, audio, bias, card)
 
+    # 4-beam. tiny b32 x beam 5 (160 decode rows) through the pipeline,
+    # beam 1 against greedy; then sampling through the pipeline and the
+    # engine
+    beam_main_path(pipe, kernels, BATCH,
+                   {"encoder_block_tail": cfg.n_audio_layers}, card,
+                   opts.profile)
+    sampling(pipe, params, kernels, card)
+
     # 4'. the same workload with the fused decoder step: one
     # fused_decoder_step and one append launch per loop step
     fpipe = WhisperPipeline.from_params(params, cfg.replace(fused_step=True),
@@ -2412,6 +2764,7 @@ def main() -> int:
     del p16
     parity = fp32_parity("tiny", params, clips, 12, tok16)
     emit({"phase": "fp32_parity", **parity})
+    beam_fp32_parity(params, clips, kernels, card)
 
     # 5a. tiny fp32 with the fused step: the card against the CPU, and
     # against the card's unfused tokens above
@@ -2493,6 +2846,7 @@ def main() -> int:
                          "--self-kv-quant"])
     emit({"phase": "cli", "rc": rc, "rc_quant_flags": rc_q})
     require(rc == 0 and rc_q == 0, f"cli returned {rc}, {rc_q}")
+    cli_beam(clips[0], card)
     del params
     torch.cuda.empty_cache()
 
@@ -2518,6 +2872,10 @@ def main() -> int:
                             "cache_append_rows_ragged": 0, **no_q8}, card)
         turbo_launches, turbo_peak = line["launches"], line["peak_mem_gb"]
         main_path_stages(pipe, audio, bias, card)
+        # 7-beam. turbo b8 x beam 5 (40 decode rows), on the same pipeline
+        beam_main_path(pipe, kernels, BEAM_TURBO_BATCH,
+                       {"flash_attention": tcfg.n_audio_layers}, card,
+                       opts.profile)
 
         # 7'. turbo with the fused step, on the same device params
         fpipe = WhisperPipeline.from_params(

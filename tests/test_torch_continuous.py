@@ -394,10 +394,10 @@ def test_bf16_engine_runs_on_cpu(nano):
 
 
 def test_refuses_what_is_not_ported(nano):
+    """The int8 caches are not ported; sampling is (and is accepted)."""
     cfg, _, params = nano
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ContinuousBatcher(params, cfg, device="cpu",
-                          opts=DecodeOptions(temperature=1.0))
+    ContinuousBatcher(params, cfg, device="cpu",
+                      opts=DecodeOptions(temperature=1.0))
     for flag in ("kv_cache_quant", "cross_kv_quant", "self_kv_quant"):
         with pytest.raises(NotImplementedError, match="int8"):
             ContinuousBatcher(params, cfg.replace(**{flag: True}),

@@ -169,7 +169,8 @@ def test_cli_rejects_flags_outside_the_slice_and_absent_cuda(tmp_path):
     wav = tmp_path / "clip.wav"
     _write_wav(wav, seconds=0.5)
     with pytest.raises(SystemExit) as e:
-        cli.main(["--random-weights", "--audio", str(wav), "--beam", "2"])
+        cli.main(["--random-weights", "--audio", str(wav),
+                  "--word-timestamps"])
     assert e.value.code != 0
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit) as e:

@@ -5,6 +5,8 @@ the JAX package on the CPU.
 The JAX decode stages are jitted on the config: this file's nano config
 has a name of its own, so no other test's traced stages are reused."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +22,8 @@ from whisper_tpu.decode_rules import non_speech_tokens as jax_non_speech
 from whisper_tpu.models.whisper import init_params as jax_init_params
 from whisper_tpu.tokenizer import Tokenizer as JaxTokenizer
 from whisper_tpu.tokenizer import build_prompt
-from whisper_tpu_torch.decode import detect_language, greedy_decode, \
-    transcribe_tokens
+from whisper_tpu_torch.decode import beam_decode, detect_language, \
+    greedy_decode, transcribe_tokens
 from whisper_tpu_torch.decode_rules import DecodeOptions, apply_rules, \
     non_speech_tokens
 from whisper_tpu_torch.pipeline import WhisperPipeline
@@ -153,16 +155,18 @@ def test_greedy_with_opts_matches_jax(nano, name):
             assert not (gen == t).any()
 
 
-@pytest.mark.parametrize("opts,match", [
-    (DecodeOptions(temperature=0.5), "temperature"),
-    (DecodeOptions(beam_size=2), "beam"),
+@pytest.mark.parametrize("decode,match", [
+    (greedy_decode, "Generator"),
+    (functools.partial(beam_decode, beam_size=2), "beam"),
 ])
-def test_greedy_refuses_strategies_not_ported(nano, opts, match):
+def test_greedy_refuses_strategies_not_ported(nano, decode, match):
+    """The strategy combinations the JAX package refuses: sampling
+    without a random stream, beam search with a temperature."""
     _, tparams = nano
-    with pytest.raises(NotImplementedError, match=match):
-        greedy_decode(tparams, CFG, torch.zeros(1, CFG.n_audio_ctx,
-                                                CFG.d_model),
-                      torch.tensor([build_prompt(CFG)]), max_new=2, opts=opts)
+    with pytest.raises(ValueError, match=match):
+        decode(tparams, CFG, torch.zeros(1, CFG.n_audio_ctx, CFG.d_model),
+               torch.tensor([build_prompt(CFG)]), max_new=2,
+               opts=DecodeOptions(temperature=0.5))
 
 
 def test_pipeline_make_options_and_timestamps(nano):

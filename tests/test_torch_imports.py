@@ -61,6 +61,25 @@ print(len(names))
 """
 
 
+# the checkpoint loaders and the decoding strategies: importable where
+# neither jax nor safetensors is installed (safetensors is imported by
+# from_safetensors alone, when it is called)
+_PROBE_STRATEGIES = _BLOCK + r"""
+sys.modules["safetensors"] = None
+from whisper_tpu_torch.weights import (
+    from_hf_state_dict, from_safetensors, load_npz, param_shapes, save_npz,
+    to_flat_bin)
+from whisper_tpu_torch.decode import (
+    beam_decode, decode_from_encoder, sample_gumbel, transcribe_tokens)
+from whisper_tpu_torch.pipeline import (
+    FALLBACK_TEMPERATURES, WhisperPipeline, compression_ratio)
+from whisper_tpu_torch.serving_continuous import hashed_gumbel
+import whisper_tpu_torch.cli
+check_nothing_blocked_loaded()
+print(WhisperPipeline.from_npz.__name__)
+"""
+
+
 def _run(probe: str) -> str:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     r = subprocess.run([sys.executable, "-c", probe], cwd=_REPO, env=env,
@@ -80,3 +99,7 @@ def test_port_imports_without_jax():
 def test_chip_smoke_imports_without_jax():
     out = _run(_PROBE_SMOKE)
     assert int(out.split()[-1]) >= 10, out
+
+
+def test_loaders_and_strategies_import_without_jax_or_safetensors():
+    assert _run(_PROBE_STRATEGIES).split()[-1] == "from_npz"

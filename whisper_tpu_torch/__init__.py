@@ -7,15 +7,17 @@ its counterpart's name, public function names and tensor layouts (q is
 weights are stored (in, out)), so a reader can put the two side by side.
 
 Covered so far, for every model of the family (tiny to large-v3-turbo),
-in fp32 (token-parity mode) and bf16, greedy decoding also with the int8
-serving stack (weight-only int8, int8 cross/self/full KV caches, the
-serving policy):
+in fp32 (token-parity mode) and bf16, greedy, beam-search and sampled
+decoding, also with the int8 serving stack (weight-only int8, int8
+cross/self/full KV caches, the serving policy):
   - config.py        <- whisper_tpu/config.py (WhisperConfig, CONFIGS)
   - tokenizer.py     <- whisper_tpu/tokenizer.py, with its own copy of the
                         bundled table (assets/vocab.txt)
   - audio.py         <- whisper_tpu/audio.py (log-mel frontend, 80 or 128
                         bins)
-  - weights.py       <- whisper_tpu/weights.py + models/whisper.py init
+  - weights.py       <- whisper_tpu/weights.py (HF state_dict,
+                        safetensors, npz, flat-bin) + models/whisper.py
+                        init
   - models/whisper.py<- whisper_tpu/models/whisper.py (encoder with the
                         fused tail or the tail-off branch, prefill, the
                         in-place T==1 decode step, the ragged step)
@@ -28,11 +30,12 @@ serving policy):
                         dispatch
   - decode_rules.py  <- whisper_tpu/decode_rules.py (suppression and
                         timestamp rules)
-  - decode.py        <- whisper_tpu/decode.py (greedy with the rules,
+  - decode.py        <- whisper_tpu/decode.py (greedy and temperature
+                        sampling with the rules, beam search,
                         detect_language)
   - serving_continuous.py <- whisper_tpu/serving_continuous.py (the
-                        continuous-batching engine)
-  - pipeline.py, cli.py
+                        continuous-batching engine, seeded sampling)
+  - pipeline.py, cli.py (one window, with the temperature fallback)
 
 The package imports torch, and neither jax nor anything of whisper_tpu.
 """

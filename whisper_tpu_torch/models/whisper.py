@@ -695,7 +695,7 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
         raise NotImplementedError(
             "decoder_step_ragged: int8 caches (k_s/v_s scales) in the "
             "continuous engine, with the ragged int8 append, are not ported "
-            "(ROADMAP Queue 1 item 8)")
+            "(ROADMAP Queue 1 item 6)")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     D = cfg.head_dim

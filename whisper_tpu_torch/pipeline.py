@@ -1,8 +1,10 @@
 """End-to-end transcription on one device (whisper_tpu/pipeline.py:64
-WhisperPipeline, the single-window greedy part, with the decode rules).
+WhisperPipeline, the single-window part: greedy, beam search and
+sampling with the decode rules, language detection, and openai/whisper's
+temperature fallback with its gates).
 
 The pipeline owns the params on its device in the compute dtype and runs
-mel -> encoder -> prefill -> greedy loop. It defaults to `cuda` and
+mel -> encoder -> prefill -> decode loop. It defaults to `cuda` and
 raises when CUDA is absent: only an explicit `device="cpu"` runs the
 plain CPU versions of the kernels.
 
@@ -12,7 +14,7 @@ rows) and gives exactly the config the JAX pipeline would; `quant="off"`
 runs the config as given, quant flags included. The port's default is
 "off", where the JAX pipeline's is "auto": every gate of that policy was
 set by TPU measurements, and the port's own policy waits for the H100's
-A/Bs (ROADMAP Queue 1 item 8). With `weight_quant` the decoder weights
+A/Bs (ROADMAP Queue 1 item 6). With `weight_quant` the decoder weights
 are quantized after the cast to the compute dtype, as in JAX.
 """
 
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,15 +32,43 @@ from whisper_tpu_torch.config import (
     apply_serving_quant,
     get_config,
 )
-from whisper_tpu_torch.tokenizer import Tokenizer, build_prompt
+from whisper_tpu_torch.tokenizer import (
+    LANGUAGES,
+    Tokenizer,
+    build_prompt,
+    split_segments,
+)
 from whisper_tpu_torch import weights as weights_lib
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
-from whisper_tpu_torch.decode import DecodeResult, encode, greedy_decode
+from whisper_tpu_torch.decode import (
+    DecodeResult,
+    decode_from_encoder,
+    detect_language,
+    encode,
+)
 from whisper_tpu_torch.decode_rules import DecodeOptions, non_speech_tokens
 from whisper_tpu_torch.models.whisper import (
     compute_dtype,
     quantize_weights_wq,
 )
+
+# openai/whisper fallback thresholds (:40-43): a decode is rejected, and
+# retried at the next temperature, when its text is degenerate-repetitive
+# (gzip compression ratio > 2.4) or the model is unconfident (mean
+# chosen-token logprob < -1.0)
+COMPRESSION_RATIO_THRESHOLD = 2.4
+LOGPROB_THRESHOLD = -1.0
+NO_SPEECH_THRESHOLD = 0.6
+FALLBACK_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+
+
+def compression_ratio(text: str) -> float:
+    """Degenerate-repetition detector (:46, openai/whisper semantics)."""
+    import zlib
+    data = text.encode("utf-8")
+    if not data:
+        return 0.0
+    return len(data) / len(zlib.compress(data))
 
 
 @dataclasses.dataclass
@@ -46,6 +76,7 @@ class Transcription:
     text: str
     tokens: list[int]
     timings: dict[str, float]
+    segments: Optional[list] = None    # [{start, end, text}] with timestamps
 
 
 def resolve_device(device) -> torch.device:
@@ -102,6 +133,16 @@ class WhisperPipeline:
                    tokenizer, quant, batch_hint)
 
     @classmethod
+    def from_npz(cls, path: str, model="tiny", dtype: str = "float32",
+                 device="cuda", vocab_path: Optional[str] = None,
+                 quant: str = "off", batch_hint: Optional[int] = None
+                 ) -> "WhisperPipeline":
+        """Load an npz written by either package's save_npz (:121)."""
+        cfg = cls._config(model, dtype)
+        return cls(cfg, weights_lib.load_npz(path, cfg), device,
+                   Tokenizer(vocab_path, config=cfg), quant, batch_hint)
+
+    @classmethod
     def from_random(cls, model="tiny", seed: int = 0, dtype: str = "float32",
                     device="cuda", vocab_path: Optional[str] = None,
                     quant: str = "off", batch_hint: Optional[int] = None
@@ -125,65 +166,145 @@ class WhisperPipeline:
 
     # ---- decode options ----
     def make_options(self, timestamps: bool = False,
-                     suppress_nonspeech: bool = False) -> DecodeOptions:
-        """The standard rule stack for greedy decoding (:142); sampling and
-        beam options come with their strategies (ROADMAP Queue 1 item 9)."""
+                     suppress_nonspeech: bool = False,
+                     temperature: float = 0.0, beam_size: int = 1,
+                     length_penalty: Optional[float] = None
+                     ) -> DecodeOptions:
+        """The standard rule stack with the strategy's options (:142)."""
         suppress = (non_speech_tokens(self.cfg, self.tokenizer)
                     if suppress_nonspeech else ())
-        return DecodeOptions(suppress_tokens=suppress,
-                             suppress_blank=suppress_nonspeech,
-                             timestamps=timestamps)
+        return DecodeOptions(
+            suppress_tokens=suppress, suppress_blank=suppress_nonspeech,
+            timestamps=timestamps, temperature=temperature,
+            beam_size=beam_size, length_penalty=length_penalty)
 
     # ---- inference ----
+    def detect_language(self, enc_out: torch.Tensor) -> str:
+        """The most probable language code for the first row of an
+        encoder output (:157)."""
+        probs = detect_language(self.params, self.cfg, enc_out)
+        return LANGUAGES[int(probs[0].argmax())]
+
     def prompt(self, batch: int, language: str = "en",
-               task: str = "transcribe", timestamps: bool = False
-               ) -> torch.Tensor:
-        ids = build_prompt(self.cfg, language, task, timestamps=timestamps)
+               task: str = "transcribe", timestamps: bool = False,
+               prev_tokens: Sequence[int] = ()) -> torch.Tensor:
+        ids = build_prompt(self.cfg, language, task, timestamps=timestamps,
+                           prev_tokens=prev_tokens)
         return torch.tensor([ids] * batch, dtype=torch.long,
                             device=self.device)
+
+    def _encode_audio(self, audio: np.ndarray) -> torch.Tensor:
+        """(B, n_samples) fp32 audio -> encoder output on the device."""
+        wav = torch.from_numpy(np.ascontiguousarray(audio)).to(self.device)
+        return encode(self.params, self.cfg,
+                      log_mel_spectrogram(wav, self.cfg))
 
     def transcribe_batch(self, audio: np.ndarray, language: str = "en",
                          max_new: Optional[int] = None,
                          logit_bias: Optional[torch.Tensor] = None,
-                         opts: Optional[DecodeOptions] = None
+                         opts: Optional[DecodeOptions] = None,
+                         generator: Optional[torch.Generator] = None
                          ) -> DecodeResult:
         """audio: (B, n_samples) fp32, one 30 s window per row (pad_or_trim
-        first); opts: the rule stack (make_options). Returns the
-        DecodeResult on the pipeline's device."""
+        first); opts: the rule stack and the strategy (make_options):
+        beam search when opts.beam_size > 1 (which takes no logit_bias),
+        sampling from `generator` (on the pipeline's device) when
+        opts.temperature > 0. Returns the DecodeResult on the pipeline's
+        device."""
         audio = np.asarray(audio, dtype=np.float32)
         if audio.ndim != 2 or audio.shape[1] != self.cfg.n_samples:
             raise ValueError(f"transcribe_batch takes (B, {self.cfg.n_samples})"
                              f" audio, got {audio.shape}")
-        wav = torch.from_numpy(audio).to(self.device)
-        mel = log_mel_spectrogram(wav, self.cfg)
-        enc_out = encode(self.params, self.cfg, mel)
+        enc_out = self._encode_audio(audio)
         timestamps = bool(opts and opts.timestamps)
-        return greedy_decode(self.params, self.cfg, enc_out,
-                             self.prompt(audio.shape[0], language,
-                                         timestamps=timestamps),
-                             max_new=max_new, logit_bias=logit_bias,
-                             opts=opts)
+        return decode_from_encoder(
+            self.params, self.cfg, enc_out,
+            self.prompt(audio.shape[0], language, timestamps=timestamps),
+            max_new=max_new, opts=opts,
+            beam_size=opts.beam_size if opts is not None else 1,
+            generator=generator, logit_bias=logit_bias)
 
     def transcribe_window(self, audio: np.ndarray, language: str = "en",
-                          max_new: Optional[int] = None) -> Transcription:
-        """Greedy transcription of one <= 30 s window."""
+                          task: str = "transcribe",
+                          max_new: Optional[int] = None,
+                          opts: Optional[DecodeOptions] = None,
+                          prev_tokens: tuple = (),
+                          seed: int = 0,
+                          fallback_temperatures: Sequence[float] = (),
+                          no_speech_threshold: Optional[float] = None,
+                          word_timestamps: bool = False,
+                          window_offset_s: float = 0.0) -> Transcription:
+        """Transcribe one <= 30 s window (:163): language="auto" detects
+        the language first; with `fallback_temperatures`, openai/whisper's
+        protocol retries at each temperature in turn until the text passes
+        the compression-ratio and avg-logprob gates. Beam search
+        (opts.beam_size) runs only at temperature 0; temperature i of the
+        list samples from a generator seeded seed + i. The silence gate
+        drops the text when P(no speech) > no_speech_threshold and the
+        avg logprob is below LOGPROB_THRESHOLD."""
+        if word_timestamps:
+            raise NotImplementedError(
+                "word timestamps (alignment.py) are not ported yet (ROADMAP "
+                "Queue 1 item 5)")
+        cfg = self.cfg
         t0 = time.perf_counter()
-        wav = pad_or_trim(audio, self.cfg.n_samples)[None]
-        mel = log_mel_spectrogram(torch.from_numpy(wav).to(self.device),
-                                  self.cfg)
-        enc_out = encode(self.params, self.cfg, mel)
+        enc_out = self._encode_audio(pad_or_trim(audio, cfg.n_samples)[None])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
-        res = greedy_decode(self.params, self.cfg, enc_out,
-                            self.prompt(1, language), max_new=max_new)
-        ids = res.tokens[0, :int(res.lengths[0])].tolist()
+
+        if language == "auto":
+            language = self.detect_language(enc_out)
+        prompt = self.prompt(1, language, task,
+                             timestamps=bool(opts and opts.timestamps),
+                             prev_tokens=prev_tokens)
+        P = prompt.shape[1]
+        beam = opts.beam_size if opts is not None else 1
+        base = opts or DecodeOptions()
+        temps = tuple(fallback_temperatures) or (base.temperature,)
+
+        def strip_prev(ids_full: list) -> list:
+            """Drop the <|startofprev|> region (:197): the gates and the
+            text read this window's tokens only."""
+            if prev_tokens and cfg.sot_token in ids_full:
+                return ids_full[ids_full.index(cfg.sot_token):]
+            return ids_full
+
+        ids: list[int] = []
+        res = None
+        for ti, temp in enumerate(temps):
+            generator = None
+            if temp > 0:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(seed + ti)
+            res = decode_from_encoder(
+                self.params, cfg, enc_out, prompt, max_new=max_new,
+                opts=base._replace(temperature=float(temp)),
+                beam_size=beam if temp == 0 else 1, generator=generator)
+            ids = strip_prev(res.tokens[0, :int(res.lengths[0])].tolist())
+            if len(temps) == 1:
+                break
+            avg_lp = float(res.avg_logprob(P)[0])
+            if (compression_ratio(self.tokenizer.decode(ids))
+                    <= COMPRESSION_RATIO_THRESHOLD
+                    and avg_lp >= LOGPROB_THRESHOLD):
+                break
         t2 = time.perf_counter()
+        if (no_speech_threshold is not None
+                and float(res.no_speech_prob[0]) > no_speech_threshold
+                and float(res.avg_logprob(P)[0]) < LOGPROB_THRESHOLD):
+            ids = []
         text = self.tokenizer.decode(ids)
+        segments = None
+        if opts is not None and opts.timestamps and ids:
+            segments = split_segments(cfg, ids, self.tokenizer,
+                                      window_offset_s=window_offset_s)
         t3 = time.perf_counter()
-        return Transcription(text=text, tokens=ids,
-                             timings={"mel_s": t1 - t0, "decode_s": t2 - t1,
-                                      "detok_s": t3 - t2, "total_s": t3 - t0})
+        return Transcription(
+            text=text, tokens=ids,
+            timings={"mel_s": t1 - t0, "decode_s": t2 - t1,
+                     "detok_s": t3 - t2, "total_s": t3 - t0},
+            segments=segments)
 
 
 def load_wav(path: str, target_rate: int = 16_000) -> np.ndarray:

@@ -25,8 +25,13 @@ Differences from the JAX engine, all deliberate:
     full slot batch and copies only the joining rows into the state's
     cache: the port's decoder_forward writes the cache it is given in
     place, where JAX computes a new cache and merges it.
-  * Not ported yet: temperature sampling (per-slot random streams, ROADMAP
-    Queue 1 item 9) and the int8 caches; both raise NotImplementedError.
+  * Sampling (opts.temperature > 0) adds Gumbel noise that is a hash of
+    (the request's seed, its position, the token id) in integer ops on
+    the device (`hashed_gumbel`), where JAX folds the position into a
+    per-slot PRNG key: the same distribution, another stream, and still
+    a function of the request alone, never of its slot or companions.
+  * Not ported yet: the int8 caches (ROADMAP Queue 1 item 6); they raise
+    NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 from whisper_tpu_torch import weights as weights_lib
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
 from whisper_tpu_torch.config import WhisperConfig, get_config
-from whisper_tpu_torch.decode import detect_language, encode
+from whisper_tpu_torch.decode import detect_language, encode, gumbel_noise
 from whisper_tpu_torch.decode_rules import DecodeOptions, apply_rules
 from whisper_tpu_torch.models.whisper import (
     compute_dtype,
@@ -76,6 +81,31 @@ def _prefill_join(params, cfg: WhisperConfig, cache: dict, cross: dict,
             1, slots, scratch[name].index_select(1, slots))
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash (two xor-shift-multiply rounds and
+    a final xor-shift) of int64 values in [0, 2**32). The multiplier is
+    below 2**31, so no int64 product overflows."""
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _MASK32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _MASK32
+    return (x >> 16) ^ x
+
+
+def hashed_gumbel(seed: torch.Tensor, pos: torch.Tensor, vocab: int
+                  ) -> torch.Tensor:
+    """(B, vocab) fp32 Gumbel noise, element (b, t) a pure function of
+    (seed[b], pos[b], t): a counter-based stream, so a request's draws do
+    not depend on its slot or on the other rows. The top 24 bits of the
+    hash give U = k * 2**-24, exact in fp32 and at most 1 - 2**-24; G is
+    decode.gumbel_noise(U), finite at every k."""
+    row = _mix32(_mix32(seed & _MASK32) ^ pos)                 # (B,)
+    tok = _mix32(torch.arange(vocab, device=seed.device))       # (vocab,)
+    h = _mix32(row[:, None] ^ tok[None, :])
+    return gumbel_noise((h >> 8).float() * (1.0 / (1 << 24)))
+
+
 def _engine_step_impl(params, cfg: WhisperConfig, state: dict,
                       opts: Optional[DecodeOptions] = None) -> dict:
     """One lockstep token for every active slot (:72), in place.
@@ -87,12 +117,15 @@ def _engine_step_impl(params, cfg: WhisperConfig, state: dict,
       cap (B,) int64           per-row stop position (prompt + 1 + max_new)
       active (B,) bool         slot holds a live request
       finished (B,) bool       slot hit EOT or its cap (awaiting harvest)
+      seed (B,) int64          per-slot sampling seed (temperature > 0)
       rows (B,) int64          0..B-1, kept for indexing
       cache {k, v}             (L, B, H, n_text_ctx, D) self-attention cache
       cross {k, v}             (L, B, H, n_audio_ctx, D) per-slot cross K/V
 
     The same rule stack as greedy_decode runs on the logits when `opts` is
-    given, with per-row pos and prompt length."""
+    given, with per-row pos and prompt length; at opts.temperature > 0
+    the pick is argmax(l / T + hashed_gumbel(seed, pos)), the row's draw
+    from softmax(l / T) keyed by its own seed and position (:107-114)."""
     tokens, pos, rows = state["tokens"], state["pos"], state["rows"]
     run = state["active"] & ~state["finished"]
     # inactive rows still flow through the math (masked out below); clamp
@@ -105,6 +138,9 @@ def _engine_step_impl(params, cfg: WhisperConfig, state: dict,
     lg = logits[:, -1, :]
     if opts is not None:
         lg = apply_rules(lg, tokens, pos, state["forced_len"], cfg, opts)
+    if opts is not None and opts.temperature > 0:
+        lg = lg.float() / opts.temperature + hashed_gumbel(
+            state["seed"], pos, lg.shape[-1])
     nxt_model = lg.argmax(dim=-1)
 
     in_prompt = pos < state["forced_len"]
@@ -161,10 +197,6 @@ class ContinuousBatcher:
                  device="cuda"):
         self.cfg = get_config(cfg) if isinstance(cfg, str) else cfg
         cfg = self.cfg
-        if opts is not None and opts.temperature > 0:
-            raise NotImplementedError(
-                "temperature sampling in the continuous engine is not ported "
-                "yet (ROADMAP Queue 1 item 9)")
         self.device = resolve_device(device)
         dtype = compute_dtype(cfg)
         self.params = weights_lib.to_device(
@@ -189,7 +221,7 @@ class ContinuousBatcher:
         self.state = self._fresh_state()
         self._slots: list[Optional[_Slot]] = [None] * self.B
         # queue entries: (rid, audio, (language, task), callback, on_token,
-        #                 prev, t_submit)
+        #                 seed, prev, t_submit)
         self._queue: list[tuple] = []
         self._next_id = 0
         self._results: dict[int, list[int]] = {}
@@ -208,7 +240,7 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 "int8 caches in the continuous engine (decoder_step_ragged "
                 "with the ragged int8 append) are not ported (ROADMAP "
-                "Queue 1 item 8)")
+                "Queue 1 item 6)")
         dev, B = self.device, self.B
         dtype = compute_dtype(cfg)
         cache = init_kv_cache(cfg, B, dtype, cfg.n_text_ctx, dev)
@@ -226,6 +258,7 @@ class ContinuousBatcher:
             "cap": full(self.total, torch.long),
             "active": full(False, torch.bool),
             "finished": full(False, torch.bool),
+            "seed": full(0, torch.long),
             "rows": torch.arange(B, device=dev),
             "cache": cache,
             "cross": {"k": torch.zeros(cross_shape, dtype=dtype, device=dev),
@@ -272,12 +305,14 @@ class ContinuousBatcher:
                task: str = "transcribe",
                callback: Optional[Callable] = None,
                on_token: Optional[Callable] = None,
+               seed: Optional[int] = None,
                prev_tokens: Optional[list] = None,
                admitted: bool = False) -> int:
         """Queue a request; returns its id (:314). Final tokens go to
         callback(request_id, token_ids) and run_until_idle()'s dict;
         on_token(request_id, token_id) streams each generated token as it
-        is committed. `prev_tokens` prepends <|startofprev|> conditioning
+        is committed. `seed` fixes this request's sampling stream when
+        opts.temperature > 0 (default: the request id). `prev_tokens` prepends <|startofprev|> conditioning
         (one batched prefill at slot fill, whatever its length). Raises
         QueueFull when max_queue is set and the wait line is at the bound,
         except for `admitted` submits (follow-up windows of a file already
@@ -293,7 +328,8 @@ class ContinuousBatcher:
         if len(prev) > self.max_prev:
             prev = prev[-self.max_prev:]
         self._queue.append((rid, np.asarray(audio, np.float32),
-                            (language, task), callback, on_token, prev,
+                            (language, task), callback, on_token,
+                            rid if seed is None else int(seed), prev,
                             time.monotonic()))
         return rid
 
@@ -349,7 +385,7 @@ class ContinuousBatcher:
         del self._queue[:len(take)]
         now = time.monotonic()
         for req in take:
-            w = now - req[6]
+            w = now - req[7]
             self._waits.append(w)
             self._max_wait_s = max(self._max_wait_s, w)
         if len(self._waits) > 1024:          # bounded telemetry window
@@ -372,7 +408,8 @@ class ContinuousBatcher:
             rows_np = np.full((n, self.total), cfg.eot_token, np.int64)
             pos_v = np.zeros((n,), np.int64)
             cap_v = np.zeros((n,), np.int64)
-            for i, (rid, _, (language, task), cb, on_tok, prev,
+            seed_v = np.zeros((n,), np.int64)
+            for i, (rid, _, (language, task), cb, on_tok, seed, prev,
                     _t) in enumerate(take):
                 if language == "auto":
                     language = LANGUAGES[int(lang_probs[i].argmax())]
@@ -386,6 +423,7 @@ class ContinuousBatcher:
                 # recomputes position P-1 and emits the first token
                 pos_v[i] = P
                 cap_v[i] = min(self.total, P + 1 + self.max_new)
+                seed_v[i] = seed & _MASK32
                 self._slots[slots[i]] = _Slot(rid, cb, on_tok, emitted=P)
 
             s = self.state
@@ -395,6 +433,7 @@ class ContinuousBatcher:
             s["pos"].index_copy_(0, idx, pos_t)
             s["forced_len"].index_copy_(0, idx, pos_t)
             s["cap"].index_copy_(0, idx, self._to_device(cap_v))
+            s["seed"].index_copy_(0, idx, self._to_device(seed_v))
             s["active"].index_fill_(0, idx, True)
             s["finished"].index_fill_(0, idx, False)
             for name in ("k", "v"):

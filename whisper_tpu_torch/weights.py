@@ -1,5 +1,6 @@
 """Parameters for the port: conversion from the JAX params tree, the
-reference flat-bin reader, seeded random init, and device placement.
+checkpoint loaders (HF state_dict, safetensors, npz, the reference
+flat-bin reader and writer), seeded random init, and device placement.
 
 The params are the JAX package's nested dict, unchanged in structure and
 layout, with torch tensors at the leaves (whisper_tpu/weights.py and
@@ -14,7 +15,8 @@ q/k/v linears with one fused (d, 3d) `qkv` linear.
 
 from __future__ import annotations
 
-from typing import Any
+import io
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -42,6 +44,177 @@ def from_jax_params(tree) -> Params:
     return _tree_map(leaf, tree)
 
 
+def _np32(x) -> np.ndarray:
+    """A torch tensor or an array-like as an fp32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# HF state_dict and safetensors (whisper_tpu/weights.py:36-112, :261-273)
+# ---------------------------------------------------------------------------
+
+def _lin(get, prefix: str, has_bias: bool = True) -> dict:
+    w = get(prefix + ".weight")          # (out, in)
+    b = (get(prefix + ".bias") if has_bias
+         else np.zeros((w.shape[0],), np.float32))
+    return {"w": np.ascontiguousarray(w.T), "b": b}
+
+
+def _ln(get, prefix: str) -> dict:
+    return {"g": get(prefix + ".weight"), "b": get(prefix + ".bias")}
+
+
+def _attn(get, prefix: str) -> dict:
+    return {"q": _lin(get, prefix + ".q_proj"),
+            "k": _lin(get, prefix + ".k_proj", has_bias=False),
+            "v": _lin(get, prefix + ".v_proj"),
+            "o": _lin(get, prefix + ".out_proj")}
+
+
+def from_hf_state_dict(state: Mapping[str, Any], cfg: WhisperConfig
+                       ) -> Params:
+    """A HF WhisperForConditionalGeneration state_dict (torch tensors or
+    numpy arrays, `model.`-prefixed keys) -> the port's params tree of
+    fp32 CPU tensors, the tree from_jax_params gives for the JAX
+    package's from_hf_state_dict (:61)."""
+    def get(name: str) -> np.ndarray:
+        return _np32(state[name])
+
+    def enc_layer(i: int) -> dict:
+        p = f"model.encoder.layers.{i}"
+        return {"attn": _attn(get, p + ".self_attn"),
+                "attn_ln": _ln(get, p + ".self_attn_layer_norm"),
+                "fc1": _lin(get, p + ".fc1"), "fc2": _lin(get, p + ".fc2"),
+                "mlp_ln": _ln(get, p + ".final_layer_norm")}
+
+    def dec_layer(i: int) -> dict:
+        p = f"model.decoder.layers.{i}"
+        return {"attn": _attn(get, p + ".self_attn"),
+                "attn_ln": _ln(get, p + ".self_attn_layer_norm"),
+                "cross_attn": _attn(get, p + ".encoder_attn"),
+                "cross_ln": _ln(get, p + ".encoder_attn_layer_norm"),
+                "fc1": _lin(get, p + ".fc1"), "fc2": _lin(get, p + ".fc2"),
+                "mlp_ln": _ln(get, p + ".final_layer_norm")}
+
+    return from_jax_params({
+        "encoder": {
+            "conv1": {"w": get("model.encoder.conv1.weight"),
+                      "b": get("model.encoder.conv1.bias")},
+            "conv2": {"w": get("model.encoder.conv2.weight"),
+                      "b": get("model.encoder.conv2.bias")},
+            "pos_emb": get("model.encoder.embed_positions.weight"),
+            "layers": _stack([enc_layer(i)
+                              for i in range(cfg.n_audio_layers)]),
+            "ln_post": _ln(get, "model.encoder.layer_norm"),
+        },
+        "decoder": {
+            "tok_emb": get("model.decoder.embed_tokens.weight"),
+            "pos_emb": get("model.decoder.embed_positions.weight"),
+            "layers": _stack([dec_layer(i)
+                              for i in range(cfg.n_text_layers)]),
+            "ln": _ln(get, "model.decoder.layer_norm"),
+        },
+    })
+
+
+def from_safetensors(path: str, cfg: WhisperConfig) -> Params:
+    """An HF `model.safetensors` of WhisperForConditionalGeneration, with
+    `model.`-prefixed or bare keys (:261), read through safetensors'
+    numpy API."""
+    try:
+        from safetensors.numpy import load_file
+    except ImportError:
+        raise ImportError("from_safetensors needs the 'safetensors' "
+                          "package, which is not installed") from None
+    state = dict(load_file(path))
+    if not any(k.startswith("model.") for k in state):
+        state = {f"model.{k}": v for k, v in state.items()}
+    return from_hf_state_dict(state, cfg)
+
+
+# ---------------------------------------------------------------------------
+# named storage: npz keyed by JAX keystr paths (:314-327)
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: WhisperConfig) -> dict:
+    """The params tree for cfg with each leaf's shape in place of the
+    leaf: the tree of init_params and of every loader."""
+    d, ff, La, Lt = cfg.d_model, cfg.d_ff, cfg.n_audio_layers, \
+        cfg.n_text_layers
+
+    def lin(L: int, d_in: int, d_out: int) -> dict:
+        return {"w": (L, d_in, d_out), "b": (L, d_out)}
+
+    def ln(*lead: int) -> dict:
+        return {"g": (*lead, d), "b": (*lead, d)}
+
+    def layer(L: int, cross: bool) -> dict:
+        attn = {n: lin(L, d, d) for n in ("q", "k", "v", "o")}
+        p = {"attn": attn, "attn_ln": ln(L), "fc1": lin(L, d, ff),
+             "fc2": lin(L, ff, d), "mlp_ln": ln(L)}
+        if cross:
+            p["cross_attn"] = {n: lin(L, d, d) for n in ("q", "k", "v", "o")}
+            p["cross_ln"] = ln(L)
+        return p
+
+    return {
+        "encoder": {"conv1": {"w": (d, cfg.n_mels, 3), "b": (d,)},
+                    "conv2": {"w": (d, d, 3), "b": (d,)},
+                    "pos_emb": (cfg.n_audio_ctx, d),
+                    "layers": layer(La, False), "ln_post": ln()},
+        "decoder": {"tok_emb": (cfg.vocab_size, d),
+                    "pos_emb": (cfg.n_text_ctx, d),
+                    "layers": layer(Lt, True), "ln": ln()},
+    }
+
+
+def _keystr_leaves(tree, prefix: str = ""):
+    """(path, leaf) pairs in jax.tree_util's order (dict keys sorted),
+    each path spelled as jax.tree_util.keystr spells a dict path:
+    "['decoder']['layers']['attn']['k']['w']"."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _keystr_leaves(tree[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, tree
+
+
+def save_npz(path: str, params: Params) -> None:
+    """Write a params tree (before to_device: separate q/k/v linears) as
+    an npz whose keys are the JAX package's (:314), so either package
+    loads the other's file. int8 leaves stay int8, the rest fp32."""
+    def arr(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu()
+            return x.numpy() if x.dtype == torch.int8 else x.float().numpy()
+        return np.asarray(x)
+    np.savez(path, **{k: arr(v) for k, v in _keystr_leaves(params)})
+
+
+def load_npz(path: str, cfg: WhisperConfig) -> Params:
+    """Read an npz written by either package's save_npz (:318) into a
+    params tree of CPU tensors, holding every array to cfg's shape."""
+    with np.load(path) as data:
+        def leaf(key, shape):
+            if key not in data:
+                raise ValueError(f"{path}: no array {key} for {cfg.name!r}")
+            a = data[key]
+            if a.shape != shape:
+                raise ValueError(f"{path}: {key} has shape {a.shape}, "
+                                 f"{cfg.name!r} needs {shape}")
+            return a
+
+        def walk(tree, prefix=""):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{prefix}[{k!r}]")
+                        for k, v in tree.items()}
+            return leaf(prefix, tree)
+
+        return from_jax_params(walk(param_shapes(cfg)))
+
+
 # ---------------------------------------------------------------------------
 # reference flat-binary reader (whisper_tpu/weights.py:156, numpy only)
 # ---------------------------------------------------------------------------
@@ -50,6 +223,12 @@ def _stack(trees: list) -> Any:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return np.stack(trees)
+
+
+def _map_leaves(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def from_flat_bin(data, cfg: WhisperConfig) -> Params:
@@ -118,6 +297,50 @@ def from_flat_bin(data, cfg: WhisperConfig) -> Params:
     })
 
 
+def to_flat_bin(params: Params, cfg: WhisperConfig) -> bytes:
+    """Inverse of from_flat_bin (:218): the reference's byte stream, from
+    a params tree before to_device (torch or numpy leaves)."""
+    out = io.BytesIO()
+
+    def w32(a):
+        out.write(np.ascontiguousarray(_np32(a), dtype="<f4").tobytes())
+
+    def lin(p: dict, bias: bool = True):
+        w32(_np32(p["w"]).T)             # back to (out, in)
+        if bias:
+            w32(p["b"])
+
+    def ln(p: dict):
+        w32(p["g"])
+        w32(p["b"])
+
+    def attn(p: dict):
+        lin(p["q"])
+        lin(p["k"], bias=False)
+        lin(p["v"])
+        lin(p["o"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    for name in ("conv1", "conv2"):
+        w32(enc[name]["w"])
+        w32(enc[name]["b"])
+    w32(enc["pos_emb"])
+    for i in range(cfg.n_audio_layers):
+        lp = _tree_map(lambda x: x[i], enc["layers"])
+        attn(lp["attn"]); ln(lp["attn_ln"])
+        lin(lp["fc1"]); lin(lp["fc2"]); ln(lp["mlp_ln"])
+    ln(enc["ln_post"])
+    w32(dec["tok_emb"])
+    w32(dec["pos_emb"])
+    for i in range(cfg.n_text_layers):
+        lp = _tree_map(lambda x: x[i], dec["layers"])
+        attn(lp["attn"]); ln(lp["attn_ln"])
+        attn(lp["cross_attn"]); ln(lp["cross_ln"])
+        lin(lp["fc1"]); lin(lp["fc2"]); ln(lp["mlp_ln"])
+    ln(dec["ln"])
+    return out.getvalue()
+
+
 def from_flat_bin_path(path: str, cfg: WhisperConfig) -> Params:
     """Read a flat-bin file through a read-only memmap."""
     try:
@@ -142,45 +365,26 @@ def init_params(cfg: WhisperConfig, seed: int) -> Params:
     from whisper_tpu_torch.models.whisper import sinusoidal_positions
 
     rng = np.random.RandomState(seed)
-    d, ff = cfg.d_model, cfg.d_ff
 
-    def normal(*shape: int, scale: float = 0.02) -> np.ndarray:
-        return (rng.standard_normal(shape) * scale).astype(np.float32)
+    def draw(tree, key: str = ""):
+        """Draw a shape tree's leaves in its key order, a stacked "layers"
+        tree one layer at a time: "g" ones, "b" zeros, else normal * 0.02."""
+        if key == "layers":
+            one = _map_leaves(lambda s: s[1:], tree)
+            n = next(_keystr_leaves(tree))[1][0]
+            return _stack([draw(one) for _ in range(n)])
+        if isinstance(tree, dict):
+            return {k: draw(v, k) for k, v in tree.items()}
+        if key in ("g", "b"):
+            return np.full(tree, 1.0 if key == "g" else 0.0, np.float32)
+        return (rng.standard_normal(tree) * 0.02).astype(np.float32)
 
-    def lin(d_in: int, d_out: int) -> dict:
-        return {"w": normal(d_in, d_out), "b": np.zeros((d_out,), np.float32)}
-
-    def ln() -> dict:
-        return {"g": np.ones((d,), np.float32), "b": np.zeros((d,), np.float32)}
-
-    def attn() -> dict:
-        return {n: lin(d, d) for n in ("q", "k", "v", "o")}
-
-    def enc_layer() -> dict:
-        return {"attn": attn(), "attn_ln": ln(), "fc1": lin(d, ff),
-                "fc2": lin(ff, d), "mlp_ln": ln()}
-
-    def dec_layer() -> dict:
-        p = enc_layer()
-        p["cross_attn"] = attn()
-        p["cross_ln"] = ln()
-        return p
-
+    shapes = param_shapes(cfg)
+    enc = shapes["encoder"]
     tree = {
-        "encoder": {
-            "conv1": {"w": normal(d, cfg.n_mels, 3),
-                      "b": np.zeros((d,), np.float32)},
-            "conv2": {"w": normal(d, d, 3), "b": np.zeros((d,), np.float32)},
-            "pos_emb": sinusoidal_positions(cfg.n_audio_ctx, d).numpy(),
-            "layers": _stack([enc_layer() for _ in range(cfg.n_audio_layers)]),
-            "ln_post": ln(),
-        },
-        "decoder": {
-            "tok_emb": normal(cfg.vocab_size, d),
-            "pos_emb": normal(cfg.n_text_ctx, d),
-            "layers": _stack([dec_layer() for _ in range(cfg.n_text_layers)]),
-            "ln": ln(),
-        },
+        "encoder": {k: (sinusoidal_positions(*v).numpy() if k == "pos_emb"
+                        else draw(v, k)) for k, v in enc.items()},
+        "decoder": draw(shapes["decoder"]),
     }
     return from_jax_params(tree)
 
