@@ -42,12 +42,25 @@ the card against the CPU, also with the int8 cross cache (every cross
 read one decode_attention_q8_bh launch); temperature sampling through
 the pipeline (seeded, no masked token drawn) and the engine (a request's
 draws independent of its companions); and the CLI with --beam and
---temperature from a checkpoint that the port's save_npz wrote.
+--temperature from a checkpoint that the port's save_npz wrote. Then the
+rest of int8: the tail kernel's int8 form (encoder_block_tail_q8) and the
+ragged append on int8 rows against their plain versions, timed beside
+their bounds; tiny b32 bf16 through the pipeline with the encoder's int8
+tail (encoder_mlp_quant + encoder_qkv_quant: one int8 tail launch a
+layer) and with encoder_quant (no tail launch), each against the
+unquantized path in turns and its logits against the CPU; and the engine
+on int8 caches: tiny (32 slots, 96 requests) and medium at full width and
+depth (8 slots, 16 requests; its int8 self cache takes one int8 ragged
+append a step) under quant="auto" as the JAX server builds the engine,
+and tiny fp32 with the int8 cross cache under "pallas_interpret" (every
+cross read one decode_attention_q8_bh launch; tokens equal to the CPU
+engine's), each request's tokens equal to its solo run.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--profile` adds the kernels' build timed serial against parallel, the
+int8 engines under torch.profiler, the
 names of SDPA's fp32 kernels, the decode kernel by replay at forced split
 counts, and after each greedy main path (of the "pallas" ones, tiny's):
 the wall of five more main-path runs, the peak device memory, and one
@@ -163,6 +176,7 @@ NO_DECODE = {"decode_attention_bh": 0, "decode_attention_bg": 0,
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+H100_INT8_OPS = 1979e12         # dense int8 tensor-core peak
 # the flash kernel's bf16 timings (B, T, H, S): a turbo and a tiny b32
 # encoder layer (tiny's is the tail's attention), the tiny engine fill's
 # cross read at p_pad 128, and the "pallas" tiny prefill's cross read
@@ -180,18 +194,42 @@ FLASH_FP32_KERNEL = "4simt12flash_kernel"
 TAIL_BF16_KERNEL = "2tc10mlp_kernel"
 TAIL_FP32_KERNEL = "4simt10mlp_kernel"
 FUSED_KERNEL = "17fused_step_kernel"
+TAIL_Q8_KERNEL = "2q810mlp_kernel"    # the tail's int8 form (mma.sync s8)
 # the tail against its plain version: fp32 FMAs against cuBLAS fp32 (1e-4);
 # bf16 one bf16 ulp of the O(4) outputs (0.06, rtol 2e-2), where sums in
 # another order land on the other side of a rounding point
 TAIL_TOL = {"float32": (1e-4, 0.0), "bfloat16": (0.06, 2e-2)}
 # the tail_vs_plain cases: (model, batch); tiny and base at T = 1500
 TAIL_CASES = (("tiny", TAIL_CHECK_BATCH), ("base", 2))
+# the tail's int8 form against its plain version, bf16, (atol, rtol).
+# "same_attention": against the plain MLP fed the kernel's own attention
+# rows. The int32 sums are exact and the GeLU is torch's formula, so only
+# LN2's sums in another order (and the kernel's contracted multiply-adds)
+# move a value across a bf16 rounding point; in the rows where one does
+# (TAIL_Q8_ROWS_DIFFERING at most: a systematic fault would reach every
+# row), h2 may move by one bf16 ulp (0.0625 at |h2| in [8, 16)) and y's and
+# t1's quantization by one int8 step each, whose products add up over the
+# row: 0.15, rtol 2e-2. "plain": against the whole plain version, whose
+# attention sums in another order and so reaches nearly every row's
+# quantization: 0.25, rtol 2e-2.
+TAIL_Q8_TOL = {"same_attention": (0.15, 2e-2), "plain": (0.25, 2e-2)}
+TAIL_Q8_ROWS_DIFFERING = 0.15
+TAIL_Q8_CASES = (("tiny", BATCH), ("base", BATCH))
+# the engine's int8 phases: medium (the smallest model whose serving
+# default adds the int8 self cache) and the fp32 int8-cross engine
+MEDIUM_ENGINE_REQUESTS, MEDIUM_ENGINE_MAX_NEW = 16, 24   # 8 slots
+Q8_ENGINE_REQUESTS, Q8_ENGINE_MAX_NEW = 16, 24           # 8 slots
+# logits of the int8 encoder paths on the card against the CPU: 3% of
+# the largest |logit|, the CPU tests' bound for the int8 encoders against
+# JAX (tests/test_torch_int8_encoder.py)
+INT8_LOGITS_REL = 0.03
 # fused_phases: steps timed per model, and the models (H) at b32 bf16
 FUSED_PHASE_STEPS = 20
 
 
 # --only: the standalone phases (functions of the card line alone), by name
 ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
+        "tail_int8": "tail_int8_checks", "ragged_int8": "ragged_int8_checks",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time"}
@@ -708,6 +746,7 @@ def tail_gate(card: str) -> None:
     from whisper_tpu_torch.ops import _build
     from whisper_tpu_torch.ops.encoder_layer import (
         encoder_block_tail,
+        encoder_block_tail_q8,
         tail_fits_smem,
         tail_smem_bytes,
     )
@@ -726,20 +765,246 @@ def tail_gate(card: str) -> None:
                 raise
             runs = False
         smem = tail_smem_bytes(cfg.d_model, cfg.d_ff)
-        require(smem == _build.load_library().wt_encoder_tail_smem(
-            cfg.d_model), f"tail_gate: {name}'s shared memory differs "
-                          f"between ops/encoder_layer.py and the kernel")
+        smem8 = tail_smem_bytes(cfg.d_model, cfg.d_ff, q8=True)
+        lib = _build.load_library()
+        require(smem == lib.wt_encoder_tail_smem(cfg.d_model, cfg.d_ff, 0)
+                and smem8 == lib.wt_encoder_tail_smem(cfg.d_model,
+                                                      cfg.d_ff, 1),
+                f"tail_gate: {name}'s shared memory differs between "
+                f"ops/encoder_layer.py and the kernel")
+        fits8 = tail_fits_smem(cfg.d_model, cfg.d_ff, dev, q8=True)
+        try:
+            encoder_block_tail_q8(*tail_q8_inputs(cfg, 1, seed=4, o_q=True))
+            torch.cuda.synchronize()
+            runs8 = True
+        except ValueError:              # the wrapper's refusal: d > 512
+            runs8 = False
         rows.append({"model": name, "d": cfg.d_model, "smem_bytes": smem,
-                     "gate_fits": fits, "kernel_runs": runs})
+                     "gate_fits": fits, "kernel_runs": runs,
+                     "int8_smem_bytes": smem8, "int8_gate_fits": fits8,
+                     "int8_kernel_runs": runs8})
         del args
-    ok = all(r["gate_fits"] == r["kernel_runs"] for r in rows)
+    ok = all(r["gate_fits"] == r["kernel_runs"]
+             and r["int8_gate_fits"] == r["int8_kernel_runs"] for r in rows)
     emit({"phase": "tail_gate", "smem_optin": torch.cuda.get_device_properties(
         dev).shared_memory_per_block_optin, "widths": rows, "ok": ok,
           "card": card})
     require(ok, "the tail gate disagrees with the tail kernel")
-    require([r["gate_fits"] for r in rows] == [True, True, False, False,
-                                               False],
-            "tiny and base must take the tail, small and up must not")
+    for key in ("gate_fits", "int8_gate_fits"):
+        require([r[key] for r in rows] == [True, True, False, False, False],
+                f"tiny and base must take the tail, small and up must not "
+                f"({key})")
+
+
+def tail_q8_inputs(cfg, B: int, seed: int, o_q: bool):
+    """The int8 form's operands at cfg's width: tail_inputs in bf16, fc1
+    and fc2 (and wo under o_q, else wo in bf16) quantized per output
+    column as the encoder quantizes them, K-major."""
+    import torch
+
+    from whisper_tpu_torch.models.whisper import _quant_cols
+    q, k, v, h, wo, fc1, fc2, *vecs = tail_inputs(cfg, B, torch.bfloat16,
+                                                  seed)
+    f1q, f1s = _quant_cols(fc1)
+    f2q, f2s = _quant_cols(fc2)
+    wo_s = None
+    if o_q:
+        wo, wo_s = _quant_cols(wo)
+    return [q, k, v, h, wo.t().contiguous(), f1q.t().contiguous(),
+            f2q.t().contiguous(), *vecs, f1s, f2s, wo_s]
+
+
+def composed_tail_q8(q, k, v, h, wo_t, fc1_t, fc2_t, o_b, fc1_b, fc2_b, g, b,
+                     fc1_s, fc2_s, wo_s, eps: float = 1e-5):
+    """The int8 form composed from library calls: SDPA, then per product a
+    torch row quantization, torch._int_mm and its rescale, and torch
+    epilogues. A yardstick of speed only (its rounding points are not the
+    kernel's); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    B, T, H, D = q.shape
+    dt = h.dtype
+
+    def q8mm(x, w_t, w_s):
+        x2 = x.float().reshape(-1, x.shape[-1])
+        sx = (x2.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-10)
+        xq = (x2 / sx).round().clamp(-127, 127).to(torch.int8)
+        y = torch._int_mm(xq, w_t.t()).float() * (sx * w_s)
+        return y.to(dt).reshape(*x.shape[:-1], -1)
+
+    a = F.scaled_dot_product_attention(q.transpose(1, 2), k, v)
+    a = a.transpose(1, 2).reshape(B, T, H * D)
+    o = q8mm(a, wo_t, wo_s) if wo_s is not None else a @ wo_t.t()
+    h2 = h + (o + o_b.to(dt))
+    y = F.layer_norm(h2.float(), (h2.shape[-1],), g, b, eps).to(dt)
+    t = F.gelu(q8mm(y, fc1_t, fc1_s) + fc1_b.to(dt))
+    return h2 + (q8mm(t, fc2_t, fc2_s) + fc2_b.to(dt))
+
+
+def tail_q8_bound(B: int, T: int, H: int, D: int, d: int, ff: int) -> dict:
+    """The int8 form's bound: its bytes (q, k, v, h in and the output in
+    bf16, the int8 matrices, the fp32 vectors and scales) over the memory
+    rate, against its operations: the attention's bf16 FLOP at the bf16
+    peak plus the o-projection's and the MLP's int8 operations at the int8
+    peak."""
+    moved = 5 * B * T * d * 2 + (d * d + 2 * d * ff) + (6 * d + 2 * ff) * 4
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = (4 * B * H * T * T * D / H100_FLOPS["bfloat16"]
+             + 2 * B * T * (d * d + 2 * d * ff) / H100_INT8_OPS) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tail_int8_checks(card: str) -> dict:
+    """tail_int8_vs_plain: the int8 form's kernel (encoder_block_tail_q8)
+    at tiny b32 and base b32, with the int8 o-projection and without it
+    (WHISPER_TPU_ENC_I8O=0): against the plain MLP fed the kernel's own
+    attention rows (tail_q8_mlp after the flash kernel) and against the
+    whole plain version, at TAIL_Q8_TOL. tail_int8_time at tiny b32 (the
+    encoder's form, o_q): the kernel in turns against its plain version,
+    beside the bf16 tail kernel at the same shape, the composed library
+    calls (composed_tail_q8) and the bound. Returns the kernels-line
+    numbers."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_q8,
+        encoder_block_tail_q8_plain,
+        tail_q8_mlp,
+    )
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    max_err = 0.0
+    for model, B in TAIL_Q8_CASES:
+        mcfg = get_config(model)
+        for o_q in (True, False):
+            args = tail_q8_inputs(mcfg, B, seed=1, o_q=o_q)
+            got = encoder_block_tail_q8(*args).float()
+            att = flash_attention(args[0], args[1], args[2])
+            same = tail_q8_mlp(att.reshape(args[3].shape), *args[3:]).float()
+            del att
+            line = {"phase": "tail_int8_vs_plain", "model": model,
+                    "batch": B, "o_q": o_q, "d": mcfg.d_model,
+                    "ff": mcfg.d_ff, "card": card}
+            for name, want in (("same_attention", same), ("plain", None)):
+                if want is None:
+                    want = encoder_block_tail_q8_plain(*args).float()
+                atol, rtol = TAIL_Q8_TOL[name]
+                err = (got - want).abs()
+                rows = err.reshape(-1, mcfg.d_model).amax(-1) > 0
+                line[name] = {
+                    "max_abs_err": float(err.max()), "atol": atol,
+                    "rtol": rtol,
+                    "ok": bool((err <= atol + rtol * want.abs()).all()),
+                    "rows_differing": float(rows.float().mean())}
+                del want, err
+            torch.cuda.synchronize()
+            emit(line)
+            for name in TAIL_Q8_TOL:
+                require(line[name]["ok"],
+                        f"encoder_block_tail_q8 {model} o_q={o_q} disagrees "
+                        f"with its plain version ({name}: "
+                        f"{line[name]['max_abs_err']})")
+            require(line["same_attention"]["rows_differing"]
+                    <= TAIL_Q8_ROWS_DIFFERING,
+                    f"encoder_block_tail_q8 {model} o_q={o_q}: "
+                    f"{line['same_attention']['rows_differing']:.3f} of the "
+                    f"rows differ from the plain MLP on the same attention")
+            max_err = max(max_err, line["plain"]["max_abs_err"])
+            del args, got, same
+            torch.cuda.empty_cache()
+    cfg = get_config("tiny")
+    B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
+    args = tail_q8_inputs(cfg, B, seed=2, o_q=True)
+    ms, plain_ms = alternate_ms(lambda: encoder_block_tail_q8_plain(*args),
+                                lambda: encoder_block_tail_q8(*args), 5)
+    ms2, composed_ms = alternate_ms(lambda: composed_tail_q8(*args),
+                                    lambda: encoder_block_tail_q8(*args), 5)
+    bargs = tail_inputs(cfg, B, torch.bfloat16, seed=2)
+    bf16_ms = cuda_ms(lambda: encoder_block_tail(*bargs), 5)
+    out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+           **tail_q8_bound(B, T, H, D, cfg.d_model, cfg.d_ff),
+           "library_ms": None}
+    emit({"phase": "tail_int8_time", "shape": [B, T, H, D], **out,
+          "ms_beside_composed": ms2, "composed_context_ms": composed_ms,
+          "bf16_tail_ms": bf16_ms, "card": card})
+    del args, bargs
+    torch.cuda.empty_cache()
+    return out
+
+
+def ragged_int8_checks(card: str) -> dict:
+    """ragged_int8_vs_plain: the ragged append on int8 caches at the tiny
+    engine's shape and the medium engine's (the main path's int8 self
+    cache), exact and in place, one row outside [0, S) untouched; then
+    ragged_int8_time at tiny's shape by CUDA-graph replay: the kernel, its
+    plain version, the indexed assignment (the library call) and the
+    launch floor (a one-element add). Returns the kernels-line numbers."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops.cache_append import (
+        cache_append_rows_ragged,
+        cache_append_rows_ragged_plain,
+    )
+    g = torch.Generator(device="cpu").manual_seed(11)
+    m = get_config("medium")
+    shapes = {"tiny": RAGGED_SHAPES["tiny"],
+              "medium": (m.n_text_layers, 8, m.n_heads, m.n_text_ctx,
+                         m.head_dim)}
+
+    def ints(shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).cuda()
+
+    for name, shape in shapes.items():
+        L, B, H, S, D = shape
+        ck, cv, kn, vn = (ints(shape), ints(shape), ints((L, B, H, D)),
+                          ints((L, B, H, D)))
+        pos = torch.from_numpy(ragged_positions(B, S, B, S)).cuda()
+        before = (ck[:, -1].clone(), cv[:, -1].clone())
+        want_k, want_v = cache_append_rows_ragged_plain(
+            ck.clone(), cv.clone(), kn, vn, pos)
+        ptrs = (ck.data_ptr(), cv.data_ptr())
+        got_k, got_v = cache_append_rows_ragged(ck, cv, kn, vn, pos)
+        torch.cuda.synchronize()
+        in_place = (got_k.data_ptr(), got_v.data_ptr()) == ptrs
+        exact = bool(torch.equal(got_k, want_k) and torch.equal(got_v, want_v))
+        untouched = bool(torch.equal(got_k[:, -1], before[0])
+                         and torch.equal(got_v[:, -1], before[1]))
+        emit({"phase": "ragged_int8_vs_plain", "engine": name,
+              "shape": list(shape), "exact": exact, "in_place": in_place,
+              "outside_row_untouched": untouched})
+        require(exact and in_place and untouched,
+                f"cache_append_rows_ragged int8 {name}: exact={exact} "
+                f"in_place={in_place} untouched={untouched}")
+        del ck, cv, kn, vn, want_k, want_v, before
+    L, B, H, S, D = shape = shapes["tiny"]
+    ck, cv, kn, vn = (ints(shape), ints(shape), ints((L, B, H, D)),
+                      ints((L, B, H, D)))
+    pos = torch.from_numpy(ragged_positions(B, S, 7)).cuda()
+    rows = torch.arange(B, device="cuda")
+    one = torch.zeros(1, device="cuda")
+
+    def library():      # the JAX fallback's indexed assignment, per cache
+        ck[:, rows, :, pos, :] = kn.transpose(0, 1)
+        cv[:, rows, :, pos, :] = vn.transpose(0, 1)
+
+    graphs = {n: graph_ms(fn) for n, fn in (
+        ("ms", lambda: cache_append_rows_ragged(ck, cv, kn, vn, pos)),
+        ("plain_ms", lambda: cache_append_rows_ragged_plain(ck, cv, kn, vn,
+                                                            pos)),
+        ("library_ms", library), ("launch_floor_ms", lambda: one.add_(1.0)))}
+    moved = 2 * 2 * kn.numel() + pos.numel() * 8
+    out = {"max_abs_err": 0.0, "ms": graphs["ms"],
+           "plain_ms": graphs["plain_ms"], "library_ms": graphs["library_ms"],
+           **bound(moved, 0, "bfloat16")}
+    emit({"phase": "ragged_int8_time", "shape": list(shape), "dtype": "int8",
+          **out, "launch_floor_ms": graphs["launch_floor_ms"],
+          "timing": "CUDA-graph replay, 100 launches a graph",
+          "card": card})
+    return out
 
 
 def flash_checks(card: str, profile: bool = False) -> dict:
@@ -966,9 +1231,10 @@ def flash_sass(card: str) -> None:
             f"tensor-core instruction ({fp32})")
     # the tail's MLP: HGMMA in bf16; in fp32 FFMA and no tensor-core
     # instruction; neither spills. The fused step's kernels as built.
-    ops = ("FFMA", "HMMA", "HGMMA", "LDS", "MUFU")
+    ops = ("FFMA", "HMMA", "HGMMA", "IMMA", "LDS", "MUFU")
     for label, symbol in (("tail_mlp", TAIL_BF16_KERNEL),
                           ("tail_mlp", TAIL_FP32_KERNEL),
+                          ("tail_mlp_int8", TAIL_Q8_KERNEL),
                           ("fused_step", FUSED_KERNEL)):
         counts = sass_counts(sass, symbol, ops)
         regs, spills = ptxas_lines(log, symbol)
@@ -986,6 +1252,10 @@ def flash_sass(card: str) -> None:
                         for c in counts.values()),
                     f"flash_sass: the fp32 tail MLP must run FFMA and no "
                     f"tensor-core instruction ({counts})")
+        elif symbol == TAIL_Q8_KERNEL:
+            require(len(counts) == 2 and all(c["IMMA"] > 0
+                                             for c in counts.values()),
+                    f"flash_sass: the int8 tail MLP runs no IMMA ({counts})")
 
 
 def spill_bytes(line) -> int:
@@ -1848,6 +2118,249 @@ def serving_logits_vs_cpu(params, model, clips, card: str,
             f"{model} serving prefill logits differ by {err} on the card")
 
 
+def int8_logits_vs_cpu(params, cfg, clips, card: str) -> None:
+    """First-step logits of an int8 encoder configuration (cfg, bf16,
+    quant "off") on the card against the port on the CPU: the prefill's
+    last-position logits over `clips`, within INT8_LOGITS_REL of the
+    largest |logit|."""
+    import torch
+
+    from whisper_tpu_torch.audio import log_mel_spectrogram
+    from whisper_tpu_torch.decode import _greedy_prefill, encode
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    logits = {}
+    for device in ("cuda", "cpu"):
+        pipe = WhisperPipeline.from_params(params, cfg, dtype="bfloat16",
+                                           device=device, quant="off")
+        wav = torch.from_numpy(clips).to(device)
+        enc = encode(pipe.params, pipe.cfg, log_mel_spectrogram(wav, pipe.cfg))
+        with torch.inference_mode():
+            pre = _greedy_prefill(pipe.params, pipe.cfg, enc,
+                                  pipe.prompt(len(clips)), 4 + 1 + 12)
+        logits[device] = pre[3].float().cpu()
+        del pipe, wav, enc, pre
+    torch.cuda.empty_cache()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    rel = err / float(logits["cpu"].abs().max())
+    agree = float((logits["cuda"].argmax(-1) == logits["cpu"].argmax(-1)
+                   ).float().mean())
+    emit({"phase": "int8_logits_vs_cpu", "model": cfg.name,
+          "quant": quant_flags(cfg) + (["encoder_quant"]
+                                       if cfg.encoder_quant else []),
+          "batch": len(clips), "max_abs_err": err, "rel_err": rel,
+          "rel_tol": INT8_LOGITS_REL, "argmax_agreement": agree,
+          "card": card})
+    require(rel <= INT8_LOGITS_REL,
+            f"{cfg.name} int8 encoder logits differ by {rel:.4f} of the "
+            f"largest on the card")
+
+
+def encoder_int8_path(pipe, params, kernels: dict, card: str) -> int:
+    """The tiny b32 bf16 workload (89 greedy tokens, EOT banned) through
+    transcribe_batch with the encoder's int8 paths: encoder_mlp_quant with
+    encoder_qkv_quant (the tail's int8 form, with the int8 o-projection:
+    one encoder_block_tail_q8 launch a layer, no unquantized tail), then
+    encoder_quant (int8 projections, the tail bypassed: the attention
+    through flash, no tail launch). Each against `pipe` (the unquantized
+    path) in turns, and its first-step logits against the CPU. Returns the
+    int8 tail's launches."""
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    cfg = get_config("tiny")
+    L = cfg.n_audio_layers
+    rest = {"cache_append_rows": GEN_TOKENS - 1,
+            "cache_append_rows_ragged": 0, "decode_attention_q8_bh": 0,
+            "decode_attention_q8": 0, "fused_decoder_step": 0, **NO_DECODE}
+    launches = 0
+    clips = bench_audio(cfg, 2)
+    for label, flags, expect in (
+            ("encoder_int8_mlp", {"encoder_mlp_quant": True,
+                                  "encoder_qkv_quant": True},
+             {"encoder_block_tail_q8": L, "encoder_block_tail": 0,
+              "flash_attention": 0}),
+            ("encoder_int8_all", {"encoder_quant": True},
+             {"encoder_block_tail_q8": 0, "encoder_block_tail": 0,
+              "flash_attention": L})):
+        qcfg = cfg.replace(**flags)
+        qpipe = WhisperPipeline.from_params(params, qcfg, dtype="bfloat16",
+                                            device="cuda", quant="off")
+        _, audio, bias, line = main_path(qpipe, kernels, {**expect, **rest},
+                                         card, label=label)
+        if label == "encoder_int8_mlp":
+            launches = line["launches"]["encoder_block_tail_q8"]
+        on_off_ab(label + "_ab", {"off": pipe, "on": qpipe}, audio, bias,
+                  card)
+        del qpipe
+        int8_logits_vs_cpu(params, qcfg, clips, card)
+    return launches
+
+
+def card_init_params(cfg, seed: int):
+    """init_params' tree and scales (normal x 0.02 weights, zero biases,
+    LayerNorm ones and zeros, the sinusoidal encoder positions), drawn on
+    the card from a seeded generator: a full-size model in a fraction of
+    the time of init_params' host draws."""
+    import torch
+
+    from whisper_tpu_torch.models.whisper import sinusoidal_positions
+    from whisper_tpu_torch.weights import param_shapes
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: draw(v, k) for k, v in tree.items()}
+        if key in ("g", "b"):
+            return torch.full(tree, 1.0 if key == "g" else 0.0,
+                              device="cuda")
+        return torch.randn(tree, generator=g, device="cuda") * 0.02
+
+    shapes = param_shapes(cfg)
+    enc = {k: draw(v, k) for k, v in shapes["encoder"].items()
+           if k != "pos_emb"}
+    enc["pos_emb"] = sinusoidal_positions(*shapes["encoder"]["pos_emb"]
+                                          ).cuda()
+    return {"encoder": enc, "decoder": draw(shapes["decoder"])}
+
+
+def solo_identity(make_engine, request, want: list, label: str,
+                  card: str) -> None:
+    """One request alone in a fresh engine (the same slot count: bf16
+    GEMMs differ between batch sizes) against its tokens in a crowded
+    run."""
+    audio, kw = request
+    eng = make_engine()
+    rid = eng.submit(audio, **kw)
+    got = eng.run_until_idle()[rid]
+    emit({"phase": "continuous_quant_solo", "case": label,
+          "identical": got == want, "tokens": len(got), "card": card})
+    require(got == want, f"{label}: a request's tokens alone differ from "
+                         f"its tokens in the crowded run")
+    del eng
+
+
+def continuous_quant(params, kernels: dict, unquantized_tokens_per_s: float,
+                     card: str, profile: bool = False) -> tuple[int, int]:
+    """The continuous engine on int8 caches. (a) Tiny, 32 slots, 96
+    requests (the existing traffic) under quant="auto" as the JAX server
+    builds it (the pipeline's config and params, no batch hint): weight-only
+    int8 and the int8 cross cache, read scale-commuted; tokens/s beside the
+    unquantized engine's in this process. (b) Medium at full width and
+    depth under quant="auto": weight-only int8, the int8 cross cache, the
+    int8 self cache (one int8 ragged append launch a step) and the two
+    encoder tail flags, which are no-ops with the tail off. (c) Tiny fp32
+    with the int8 cross cache under "pallas_interpret", the backend under
+    which JAX's ragged step sends its T==1 int8 cross read to
+    decode_attention_q8_bh: one launch per layer per step; two requests'
+    tokens against the CPU engine's. In each, one request alone equals its
+    tokens in the crowd. With `profile`, (a) and (b) are driven once more
+    under torch.profiler (profile_engine). Returns the medium engine's
+    ragged launches and the fp32 engine's decode_attention_q8_bh
+    launches."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+
+    # (a) tiny under the serving default
+    cfg = get_config("tiny")
+    spipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
+                                        device="cuda", quant="auto")
+    require(quant_flags(spipe.cfg) == ["weight_quant", "cross_kv_quant"],
+            f"tiny engine auto quant: {quant_flags(spipe.cfg)}")
+
+    def tiny_engine():
+        return ContinuousBatcher(spipe.params, spipe.cfg, max_slots=BATCH,
+                                 max_new=ENGINE_MAX_NEW,
+                                 tokenizer=spipe.tokenizer)
+
+    reqs = engine_traffic(cfg, ENGINE_REQUESTS, seed=0)
+    engine = tiny_engine()
+    line, rerun, results = continuous_run(engine, reqs, kernels,
+                                          "continuous_quant_tiny", card)
+    line["quant"] = quant_flags(spipe.cfg)
+    line["unquantized_tokens_per_s"] = unquantized_tokens_per_s
+    line["cross_dtype"] = str(engine.state["cross"]["k"].dtype)
+    check_engine_launches(line, engine, spipe.cfg, 0)
+    if profile:
+        profile_engine(rerun, line["wall_s"], "tiny_auto", card)
+    del engine, rerun
+    solo_identity(tiny_engine, reqs[5], results[5], "tiny_auto", card)
+    del spipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) medium at full width and depth under the serving default
+    mcfg = get_config("medium")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mparams = card_init_params(mcfg, seed=0)
+    mpipe = WhisperPipeline.from_params(mparams, "medium", dtype="bfloat16",
+                                        device="cuda", quant="auto")
+    del mparams
+    init_s = time.perf_counter() - t0
+    require(quant_flags(mpipe.cfg) == [
+        "weight_quant", "cross_kv_quant", "self_kv_quant",
+        "encoder_mlp_quant", "encoder_qkv_quant"],
+        f"medium engine auto quant: {quant_flags(mpipe.cfg)}")
+
+    def medium_engine():
+        return ContinuousBatcher(mpipe.params, mpipe.cfg, max_slots=8,
+                                 max_new=MEDIUM_ENGINE_MAX_NEW,
+                                 tokenizer=mpipe.tokenizer)
+
+    reqs = engine_traffic(mcfg, MEDIUM_ENGINE_REQUESTS, seed=1)
+    engine = medium_engine()
+    require(engine.state["cache"]["k"].dtype == torch.int8,
+            "the medium engine's self cache is not int8")
+    line, rerun, results = continuous_run(engine, reqs, kernels,
+                                          "continuous_quant_medium", card)
+    line["quant"] = quant_flags(mpipe.cfg)
+    line["init_s"] = init_s
+    line["self_cache_dtype"] = str(engine.state["cache"]["k"].dtype)
+    line["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    medium = check_engine_launches(line, engine, mpipe.cfg,
+                                   mcfg.n_audio_layers)
+    if profile:
+        profile_engine(rerun, line["wall_s"], "medium_auto", card)
+    del engine, rerun
+    solo_identity(medium_engine, reqs[5], results[5], "medium_auto", card)
+    del mpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) tiny fp32, int8 cross cache, every cross read one q8 launch
+    qcfg = cfg.replace(cross_kv_quant=True, attn_backend="pallas_interpret")
+
+    def q8_engine(device="cuda"):
+        return ContinuousBatcher(params, qcfg, max_slots=8,
+                                 max_new=Q8_ENGINE_MAX_NEW, device=device)
+
+    reqs = engine_traffic(cfg, Q8_ENGINE_REQUESTS, seed=2)
+    engine = q8_engine()
+    line, _, results = continuous_run(engine, reqs, kernels,
+                                      "continuous_q8_fp32", card)
+    q8_launches = check_engine_launches(line, engine, qcfg, 0)[
+        "decode_attention_q8_bh"]
+    require(line["launches"]["decode_attention_q8_bh"]
+            >= cfg.n_text_layers * line["engine_steps"],
+            "continuous_q8_fp32: a cross read missed the q8 kernel")
+    del engine
+    solo_identity(q8_engine, reqs[5], results[5], "q8_fp32", card)
+    cpu = q8_engine("cpu")
+    picks = (0, 3)                       # the 8 and the 32 prompt buckets
+    rids = [cpu.submit(reqs[i][0], **reqs[i][1]) for i in picks]
+    out = cpu.run_until_idle()
+    same = [out[r] == results[i] for r, i in zip(rids, picks)]
+    emit({"phase": "continuous_q8_fp32_vs_cpu", "requests": list(picks),
+          "identical": same, "card": card})
+    require(all(same), "continuous_q8_fp32: tokens differ from the CPU's")
+    del cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return medium["cache_append_rows_ragged"], q8_launches
+
+
 def routed(cfg, B: int, T: int, S: int, route: str) -> int:
     """1 when multi_head_attention sends a (B, T) query over S keys to
     `route` under cfg.attn_backend, else 0."""
@@ -1896,7 +2409,8 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     between two synchronisations. Fails unless every request is delivered
     with its SOT prompt and ids inside the vocab, and the fills reach
     those three buckets, all but the first beside a live slot. Returns
-    (the phase line, a function that drives the same traffic again)."""
+    (the phase line, a function that drives the same traffic again, and
+    each request's tokens in submission order)."""
     import torch
 
     from whisper_tpu_torch import serving_continuous
@@ -1984,39 +2498,69 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
             f"not 8, 32 and 128")
     require(beside_live[0] == fills - 1,
             f"{label}: {beside_live[0]} of {fills} fills beside a live slot")
-    return line, lambda: run()[1]
+    return line, lambda: run()[1], [out[rid] for rid in rids]
+
+
+def read_route(cfg, B: int, T: int, S: int, int8: bool) -> str:
+    """Where a read of T queries over S cache slots goes under
+    cfg.attn_backend: "q8" (decode_attention_q8_bh) for an int8 cache that
+    multi_head_attention_quant sends to its kernel, else the switch's
+    route ("flash", "decode" or "reference"), after the dequantization of
+    an int8 cache."""
+    from whisper_tpu_torch.ops.attention import _q8_kernel_route
+    if int8 and _q8_kernel_route(T, S, False, cfg.attn_backend):
+        return "q8"
+    return ("flash" if routed(cfg, B, T, S, "flash") else
+            "decode" if routed(cfg, B, T, S, "decode") else "reference")
 
 
 def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
                           ) -> dict:
     """Emit the engine's phase line and hold its launch counts to the path
-    under cfg.attn_backend: one ragged append per engine step and no
-    scalar append; per fill, the encoder's tail launches (tiny, base) or
-    its flash launches (small and up, `flash_per_encode`) and the
-    prefill's flash launches by the switch; decode_attention_bh for every
-    layer's T==1 cross read at each step, and for detect_language's self
-    (one of 64 slots) and cross reads, where the switch routes them there
-    ("pallas"); no other decode kernel and no fused step. Returns the
-    counts."""
+    under cfg.attn_backend and its caches: one ragged append per engine
+    step and no scalar append; per fill, the encoder's tail launches
+    (tiny, base; the int8 form under encoder_mlp_quant in bf16) or its
+    flash launches (small and up, `flash_per_encode`) and the prefill's
+    flash launches by the switch; for every layer's T==1 cross read at
+    each step, and for detect_language's self (one of 64 slots) and cross
+    reads, the kernel `read_route` names: decode_attention_bh ("pallas")
+    or decode_attention_q8_bh (an fp32 int8 cross cache under
+    "pallas_interpret"; a bf16 engine step reads an int8 cross cache
+    scale-commuted, with no kernel); no other decode kernel and no fused
+    step. Returns the counts."""
+    import torch
+
     from whisper_tpu_torch.decode import _cache_slots
+    from whisper_tpu_torch.models.whisper import compute_dtype
     n = line["launches"]
     fills, steps = line["fills"], line["engine_steps"]
+    bf16 = compute_dtype(cfg) != torch.float32
     tail = cfg.n_audio_layers * fills if flash_per_encode == 0 else 0
+    q8_tail = bool(tail and bf16 and cfg.encoder_mlp_quant)
     flash = flash_per_encode * fills + sum(
         count * flash_per_fill(cfg, engine.B, p_pad)
         for p_pad, count in engine.fill_buckets.items())
     B, Sx = engine.B, cfg.n_audio_ctx
-    bh = cfg.n_text_layers * (
-        steps * routed(cfg, B, 1, Sx, "decode")
-        + line["detect_language_calls"] * (
-            routed(cfg, B, 1, _cache_slots(cfg, 1), "decode")
-            + routed(cfg, B, 1, Sx, "decode")))
+    cross8 = bool(cfg.kv_cache_quant or cfg.cross_kv_quant)
+    self8 = bool(cfg.kv_cache_quant or (cfg.self_kv_quant and bf16))
+    step = "commuted" if cross8 and bf16 else read_route(cfg, B, 1, Sx,
+                                                         cross8)
+    detect = (read_route(cfg, B, 1, _cache_slots(cfg, 1), self8),
+              read_route(cfg, B, 1, Sx, cross8))
+
+    def reads(route: str) -> int:
+        return cfg.n_text_layers * (steps * (step == route)
+                                    + line["detect_language_calls"]
+                                    * sum(r == route for r in detect))
+
     line["expected"] = {"cache_append_rows_ragged": steps,
-                        "cache_append_rows": 0, "encoder_block_tail": tail,
+                        "cache_append_rows": 0,
+                        "encoder_block_tail": 0 if q8_tail else tail,
+                        "encoder_block_tail_q8": tail if q8_tail else 0,
                         "flash_attention": flash, **NO_DECODE,
-                        "decode_attention_bh": bh,
-                        "decode_attention_q8_bh": 0, "decode_attention_q8": 0,
-                        "fused_decoder_step": 0}
+                        "decode_attention_bh": reads("decode"),
+                        "decode_attention_q8_bh": reads("q8"),
+                        "decode_attention_q8": 0, "fused_decoder_step": 0}
     emit(line)
     for name, want in line["expected"].items():
         require(n[name] == want, f"{line['phase']}: {name} launches "
@@ -2522,7 +3066,10 @@ def main() -> int:
         cache_append_rows_plain,
         cache_append_rows_ragged,
     )
-    from whisper_tpu_torch.ops.encoder_layer import encoder_block_tail
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_q8,
+    )
     from whisper_tpu_torch.ops.decode_attention import (
         decode_attention,
         decode_attention_bg,
@@ -2540,6 +3087,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("tiny")
     kernels = {"encoder_block_tail": encoder_block_tail,
+               "encoder_block_tail_q8": encoder_block_tail_q8,
                "cache_append_rows": cache_append_rows,
                "flash_attention": flash_attention,
                "cache_append_rows_ragged": cache_append_rows_ragged,
@@ -2552,7 +3100,8 @@ def main() -> int:
     # every greedy run without the fused step or "pallas" launches none of
     # these
     no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0,
-             "fused_decoder_step": 0, **NO_DECODE}
+             "fused_decoder_step": 0, "encoder_block_tail_q8": 0,
+             **NO_DECODE}
 
     # 1. card
     card = card_line()
@@ -2579,6 +3128,7 @@ def main() -> int:
     # 3. kernels against their plain versions at the main paths' shapes
     tail = tail_checks(card)
     tail_gate(card)
+    tail8 = tail_int8_checks(card)
 
     L, H, S, D = cfg.n_text_layers, cfg.n_heads, 128, cfg.head_dim
     shape = (L, BATCH, H, S, D)
@@ -2618,6 +3168,7 @@ def main() -> int:
                          "bfloat16")
 
     ragged = ragged_checks(card)
+    ragged8 = ragged_int8_checks(card)
     flash = flash_checks(card, opts.profile)
     flash_sass(card)
     q8 = q8_checks(card)
@@ -2701,6 +3252,10 @@ def main() -> int:
     bundled_vocab = pipe.tokenizer.tokens
     del run, append_args
 
+    # 4-int8. the encoder's int8 paths: the tail's int8 form, and the int8
+    # projections with the tail bypassed
+    tail8_launches = encoder_int8_path(pipe, params, kernels, card)
+
     # 4a. tiny b32 bf16 with the serving policy: weight-only int8 and the
     # int8 cross cache, read scale-commuted (no int8 decode kernel in bf16)
     spipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
@@ -2726,9 +3281,10 @@ def main() -> int:
     engine = ContinuousBatcher(params, cfg.replace(compute_dtype="bfloat16"),
                                max_slots=BATCH, max_new=ENGINE_MAX_NEW,
                                sync_every=1)
-    line, rerun = continuous_run(
+    line, rerun, _ = continuous_run(
         engine, engine_traffic(cfg, ENGINE_REQUESTS, seed=0), kernels,
         "continuous_tiny", card)
+    engine_tokens_per_s = line["tokens_per_s"]
     engine_launches = check_engine_launches(line, engine, cfg, 0)
     if opts.profile:
         profile_engine(rerun, line["wall_s"], "tiny", card)
@@ -2752,6 +3308,11 @@ def main() -> int:
     del engine, line
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 4b-int8. the engine on int8 caches: tiny and medium under the serving
+    # default, tiny fp32 with the int8 cross cache
+    medium_ragged, q8_engine_launches = continuous_quant(
+        params, kernels, engine_tokens_per_s, card, opts.profile)
 
     # 4c. the engine's tokens: schedule independence and greedy's tokens
     continuous_identity(params, card)
@@ -2992,6 +3553,13 @@ def main() -> int:
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
          "launches": tiny_launches["encoder_block_tail"], **tail},
+        # the int8 form (mlp_q, o_q), timed at tiny b32; launches from
+        # encoder_int8_path; no one PyTorch call computes it (tail_int8_time
+        # gives the composed library calls as context)
+        {"name": "encoder_block_tail_q8", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
+         "replaces": "whisper_tpu/ops/encoder_layer.py:240",
+         "launches": tail8_launches, **tail8},
         {"name": "cache_append_rows", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",
@@ -3014,10 +3582,19 @@ def main() -> int:
          "max_abs_err": ragged["max_abs_err"], "ms": ragged["ms"],
          "plain_ms": ragged["plain_ms"], "bound_ms": ragged["bound_ms"],
          "bound_by": ragged["bound_by"], "library_ms": ragged["library_ms"]},
+        # the int8 instantiation, timed by replay at tiny's engine shape;
+        # launches from the medium engine under quant="auto", whose self
+        # cache is int8
+        {"name": "cache_append_rows_ragged[int8]", "route": "cuda",
+         "source": "whisper_tpu_torch/csrc/cache_append.cu",
+         "replaces": "whisper_tpu/ops/cache_append.py:133",
+         "launches": medium_ragged, **ragged8},
         {"name": "decode_attention_q8_bh", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:464",
          "launches": q8_launches["decode_attention_q8_bh"],
+         # in the fp32 engine on the int8 cross cache (continuous_q8_fp32)
+         "engine_launches": q8_engine_launches,
          **q8["decode_attention_q8_bh"]},
         # the JAX package calls decode_attention_q8 from no path (tests
         # only): its launches on the main path are 0

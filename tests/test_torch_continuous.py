@@ -394,14 +394,24 @@ def test_bf16_engine_runs_on_cpu(nano):
 
 
 def test_refuses_what_is_not_ported(nano):
-    """The int8 caches are not ported; sampling is (and is accepted)."""
-    cfg, _, params = nano
+    """Sampling and the int8 caches are accepted (the int8 caches were
+    refused before they were ported): with each int8 flag the fp32
+    engine's state has the JAX engine's leaves, shapes and dtypes (fp32
+    ignores self_kv_quant, as JAX's init_kv_cache does). Without a card
+    the default device raises."""
+    cfg, np_tree, params = nano
     ContinuousBatcher(params, cfg, device="cpu",
                       opts=DecodeOptions(temperature=1.0))
+    jparams = jax.tree.map(jnp.asarray, np_tree)
     for flag in ("kv_cache_quant", "cross_kv_quant", "self_kv_quant"):
-        with pytest.raises(NotImplementedError, match="int8"):
-            ContinuousBatcher(params, cfg.replace(**{flag: True}),
-                              device="cpu")
+        qcfg = cfg.replace(**{flag: True})
+        eng = ContinuousBatcher(params, qcfg, device="cpu")
+        jeng = JaxBatcher(jparams, qcfg)
+        for part in ("cache", "cross"):
+            assert {n: (tuple(a.shape), str(a.dtype).split(".")[-1])
+                    for n, a in eng.state[part].items()} == \
+                {n: (a.shape, str(a.dtype))
+                 for n, a in jeng.state[part].items()}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="not available"):
             ContinuousBatcher(params, cfg)       # device="cuda" by default

@@ -36,7 +36,10 @@ from whisper_tpu_torch.ops.decoder_step import (
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
     encoder_block_tail_plain,
+    encoder_block_tail_q8,
+    encoder_block_tail_q8_plain,
     tail_fits_smem,
+    tail_q8_mlp,
 )
 from whisper_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -125,6 +128,67 @@ def test_encoder_tail_kernel_is_deterministic(dev, dtype):
     assert torch.equal(encoder_block_tail(*args), encoder_block_tail(*args))
 
 
+def _tail_q8_args(B, T, H, ff, dev, o_q, seed=0):
+    """The int8 form's operands: _tail_args in bf16 with fc1, fc2 (and wo
+    under o_q) quantized per output column, K-major."""
+    from whisper_tpu_torch.models.whisper import _quant_cols
+    q, k, v, h, wo, fc1, fc2, *vecs = _tail_args(B, T, H, ff, torch.bfloat16,
+                                                 dev, seed)
+    (f1q, f1s), (f2q, f2s) = _quant_cols(fc1), _quant_cols(fc2)
+    wo_s = None
+    if o_q:
+        wo, wo_s = _quant_cols(wo)
+    return [q, k, v, h, wo.t().contiguous(), f1q.t().contiguous(),
+            f2q.t().contiguous(), *vecs, f1s, f2s, wo_s]
+
+
+# Against the plain MLP fed the kernel's own attention rows: the int32
+# sums are exact, so only LN2's sums in another order can move a value
+# across a bf16 rounding point, and in such a row h2 by one bf16 ulp and
+# y's and t1's quantization by one int8 step each (0.15, rtol 2e-2; at
+# most 15% of the rows differ at all). Against the whole plain version,
+# whose attention sums in another order and reaches the quantization of
+# nearly every row: 0.25, rtol 2e-2 (chip_smoke.py TAIL_Q8_TOL).
+@pytest.mark.parametrize("o_q", [True, False])
+@pytest.mark.parametrize("B,T,H,ff", [
+    (2, 50, 2, 512),        # T not a multiple of the 32-row block
+    (1, 1500, 6, 1536),     # Whisper-tiny's encoder block
+    (1, 1500, 8, 2048),     # base's
+])
+def test_encoder_tail_q8_kernel_matches_plain(dev, o_q, B, T, H, ff):
+    args = _tail_q8_args(B, T, H, ff, dev, o_q, seed=T)
+    before = encoder_block_tail_q8.launches
+    got = encoder_block_tail_q8(*args).float()
+    torch.cuda.synchronize()
+    assert encoder_block_tail_q8.launches == before + 1
+    att = flash_attention(args[0], args[1], args[2]).reshape(args[3].shape)
+    same = tail_q8_mlp(att, *args[3:]).float()
+    torch.testing.assert_close(got, same, atol=0.15, rtol=2e-2)
+    rows = (got != same).reshape(-1, got.shape[-1]).any(-1)
+    assert rows.float().mean() <= 0.15
+    full = encoder_block_tail_q8_plain(*args).float()
+    torch.testing.assert_close(got, full, atol=0.25, rtol=2e-2)
+
+
+def test_encoder_tail_q8_kernel_is_deterministic(dev):
+    args = _tail_q8_args(1, 1500, 6, 1536, dev, True, seed=9)
+    assert torch.equal(encoder_block_tail_q8(*args),
+                       encoder_block_tail_q8(*args))
+
+
+def test_encoder_tail_q8_refuses_what_the_kernel_does_not_take(dev):
+    """No fallback: a width past the int8 kernel's (small's d = 768), fp32,
+    or a non-contiguous operand raises on a CUDA tensor."""
+    with pytest.raises(ValueError, match="up to 512"):
+        encoder_block_tail_q8(*_tail_q8_args(1, 64, 12, 3072, dev, True))
+    args = _tail_q8_args(1, 64, 2, 256, dev, True)
+    with pytest.raises(TypeError, match="bf16 only"):
+        encoder_block_tail_q8(*[a.float() for a in args[:4]], *args[4:])
+    args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        encoder_block_tail_q8(*args)
+
+
 def test_encoder_tail_kernel_refuses_noncontiguous(dev):
     args = _tail_args(1, 64, 2, 256, torch.float32, dev)
     args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
@@ -166,13 +230,20 @@ def test_cache_append_kernel_refuses_pos_past_end(dev):
 def _ragged_args(shape, dtype, dev, pos, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     L, B, H, S, D = shape
-    ck, cv = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
-    kn, vn = (torch.randn((L, B, H, D), generator=g).to(dev, dtype)
-              for _ in range(2))
+
+    def draw(s):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, s, generator=g,
+                                 dtype=torch.int8).to(dev)
+        return torch.randn(s, generator=g).to(dev, dtype)
+
+    ck, cv = draw(shape), draw(shape)
+    kn, vn = draw((L, B, H, D)), draw((L, B, H, D))
     return ck, cv, kn, vn, pos.to(dev)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 @pytest.mark.parametrize("shape,pos", [
     # tiny's engine: 0, S-1, a repeated value, one row past the end
     ((4, 32, 6, 448, 64), [0, 447] + [5, 5, 5] + list(range(100, 126))

@@ -199,15 +199,25 @@ _TAIL_SMEM = {"tiny": 222_208, "tiny.en": 222_208, "base": 230_400,
               "large-v3-turbo": 574_464}
 
 
+# the int8 form (encoder_mlp_quant): 32 whole rows a block, t1 included
+_TAIL_SMEM_Q8 = {"tiny": 139_776, "base": 184_832, "small": 274_944,
+                 "medium": 365_056, "large-v2": 455_168, "large-v3": 455_168,
+                 "large-v3-turbo": 455_168}
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_encoder_tail_gate_table(name):
-    """Tiny and base take the tail kernel; small and up the tail-off
-    branch. The CPU answers with the sm_90 limit, as the H100 would."""
+    """Tiny and base take the tail kernel, in either form; small and up
+    the tail-off branch. The CPU answers with the sm_90 limit, as the
+    H100 would."""
     cfg = CONFIGS[name]
     assert encoder_layer.tail_smem_bytes(cfg.d_model, cfg.d_ff) \
         == _TAIL_SMEM[name]
+    assert encoder_layer.tail_smem_bytes(cfg.d_model, cfg.d_ff, q8=True) \
+        == _TAIL_SMEM_Q8[name.split(".")[0]]
     want = "tail" if name.split(".")[0] in ("tiny", "base") else "off"
-    assert tm._encoder_tail_mode(cfg, torch.device("cpu")) == want
+    for q8 in (False, True):
+        assert tm._encoder_tail_mode(cfg, torch.device("cpu"), q8) == want
 
 
 @pytest.mark.parametrize("d", range(64, 1281, 64))
@@ -311,10 +321,26 @@ def test_decoder_step_ragged_equal_positions_is_the_ip_step(prefilled):
 
 
 def test_decoder_step_ragged_refuses_int8_caches(prefilled):
+    """int8 caches (refused before the engine's int8 path was ported): the
+    prefilled fp32 caches quantized per vector, one capacity-mode ragged
+    step (kv_cache_quant: the quantizing per-row scatter, then the
+    dequantized read) against JAX's on the same int8 caches. Logits
+    within fp32 tolerance (atol 1e-4, as the unquantized ragged step)."""
     p = prefilled
-    cache = dict(p["tcache"], k_s=torch.ones(1))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tm.decoder_step_ragged(p["tparams"], p["cfg"],
-                               torch.zeros((2, 1), dtype=torch.long),
-                               torch.zeros(2, dtype=torch.long), cache,
-                               p["tcross"])
+    cfg = p["cfg"].replace(kv_cache_quant=True)
+    last = np.argmax(np.asarray(p["jlogits"])[:, -1:], axis=-1)
+    pos = np.asarray((4, 17))
+    tcache, jcache = {}, {}
+    for name in ("k", "v"):
+        q, sc = tm.quantize_kv(p["tcache"][name])
+        tcache[name], tcache[name + "_s"] = q, sc
+        jcache[name], jcache[name + "_s"] = (jnp.asarray(q.numpy()),
+                                             jnp.asarray(sc.numpy()))
+    jl, jc = jm.decoder_step_ragged(
+        p["jparams"], cfg, jnp.asarray(last, jnp.int32),
+        jnp.asarray(pos, jnp.int32), jcache, p["jcross"])
+    tl, tc = tm.decoder_step_ragged(p["tparams"], cfg, torch.from_numpy(last),
+                                    torch.from_numpy(pos), tcache,
+                                    p["tcross"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    assert set(tc) == set(jc) == {"k", "k_s", "v", "v_s"}

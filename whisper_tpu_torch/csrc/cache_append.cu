@@ -12,7 +12,11 @@
 //
 // wt_cache_append_ragged replaces :133 cache_append_rows_ragged (body
 // _append_ragged_kernel, :117), the continuous-batching engine's append:
-// batch row b of every layer lands at its OWN position pos[b].
+// batch row b of every layer lands at its OWN position pos[b]. It takes
+// the same three element types; on an int8 self cache (the engine under
+// self_kv_quant) the rows arrive quantized and the caller writes their
+// scale rows beside the launch, as the JAX step does
+// (models/whisper.py:1492-1497).
 //
 // What bounds it on the H100: launch latency. At Whisper-tiny b32 it moves
 // 2 x 768 rows x 64 values (~200 KB bf16) per decode step, a sliver of
@@ -138,24 +142,33 @@ extern "C" int wt_cache_append(void* cache_k, void* cache_v,
 // Returns cudaGetLastError() after the launch (0 on success). cache_k,
 // cache_v: (L, B, H, S, D); k_new, v_new: (L, B, H, D); pos: (B,) int64
 // on the device; rows = L*B*H; all contiguous, the caches and rows in one
-// element type.
+// element type: elem 0 fp32, 1 bf16, 2 int8.
 extern "C" int wt_cache_append_ragged(void* cache_k, void* cache_v,
                                       const void* k_new, const void* v_new,
                                       const long long* pos, long long rows,
                                       int batch, int heads, int s_len, int d,
-                                      int is_bf16, void* stream) {
+                                      int elem, void* stream) {
   if (rows < 1 || batch < 1 || heads < 1 || d < 1 || s_len < 1 ||
       rows % ((long long)batch * heads) != 0 ||
       (rows + APPEND_ROWS - 1) / APPEND_ROWS > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-                   ? launch_append_ragged<__nv_bfloat16>(
-                         cache_k, cache_v, k_new, v_new, pos, rows, batch,
-                         heads, s_len, d, s)
-                   : launch_append_ragged<float>(
-                         cache_k, cache_v, k_new, v_new, pos, rows, batch,
-                         heads, s_len, d, s));
+  switch (elem) {
+    case 0:
+      return (int)launch_append_ragged<float>(cache_k, cache_v, k_new, v_new,
+                                              pos, rows, batch, heads, s_len,
+                                              d, s);
+    case 1:
+      return (int)launch_append_ragged<__nv_bfloat16>(
+          cache_k, cache_v, k_new, v_new, pos, rows, batch, heads, s_len, d,
+          s);
+    case 2:
+      return (int)launch_append_ragged<int8_t>(cache_k, cache_v, k_new, v_new,
+                                               pos, rows, batch, heads, s_len,
+                                               d, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Message for a code returned by any wt_* entry point.

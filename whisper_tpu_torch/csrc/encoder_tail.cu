@@ -1,7 +1,9 @@
 // Fused encoder-block tail for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel whisper_tpu/ops/encoder_layer.py:240
-// encoder_block_tail (kernel body _tail_kernel, :57), unquantized variant:
+// encoder_block_tail (kernel body _tail_kernel, :57). Its int8 form (mlp_q,
+// o_q) is the q8 namespace below, with its own note and entry point
+// (wt_encoder_tail_q8); the unquantized variant:
 //
 //   a   = concat_h softmax(q_h k_h^T / sqrt(D)) v_h        (pad keys masked)
 //   h2  = h_in + (a @ wo + o_b)
@@ -713,6 +715,434 @@ mlp_kernel(const float* __restrict__ attn, const float* __restrict__ h_in,
 
 }  // namespace simt
 
+// ---------------------------------------------------------------------------
+// The int8 form (mlp_q, o_q): mma.sync on s8 operands
+// ---------------------------------------------------------------------------
+//
+// Replaces _tail_kernel with mlp_q and o_q (encoder_layer.py:57, the qdot
+// of :120-129): every product of the MLP, and of the o-projection under
+// o_q, is
+//   qdot(x, W) = f32(int32 sum of round(x / sx) * W_q) * (sx * w_s),
+//   sx = max(max|x_row| / 127, 1e-10),
+// at the kernel's rounding points:
+//   h2  = rnd(h + rnd(rnd(o) + rnd(o_b)))    o = qdot(a, wo) or a . wo (bf16)
+//   y   = rnd(LN2(h2))
+//   t1  = rnd(gelu_erf(rnd(rnd(qdot(y, fc1)) + rnd(fc1_b))))
+//   out = h2 + rnd(rnd(qdot(t1, fc2)) + rnd(fc2_b))
+// The int32 sums are exact, so the products equal JAX's whatever the order;
+// the quantization divides and rounds as JAX does (IEEE division, round half
+// to even).
+//
+// What bounds it on the H100: operations. At Whisper-tiny b32 one layer is
+// 1.11e11 FLOP of attention (the flash kernel, bf16, 0.112 ms at 989
+// TFLOP/s) and 1.27e11 int8 operations of o-projection and MLP (0.064 ms at
+// 1,979 TOPS): 0.176 ms.
+//
+// Design (a simple kernel that is right; its speed is later work). One
+// block of 8 warps per 32 rows of the flattened (B*T, d) stream, after the
+// same flash-attention launch as the unquantized tail. A row's activation
+// scale needs the row's maximum before any of it is quantized, and fc2's
+// input row is all ff columns of t1: so the block keeps its 32 rows whole in
+// shared memory, t1 included (t1 in bf16, 32 x ff, then its int8 values
+// written over it, each warp converting its own rows), instead of streaming
+// ff in chunks as the bf16 form does. That costs 135 KB at tiny and 180 KB
+// at base, and one block an SM. The phases, each behind a barrier:
+//   1. the attention rows: each warp quantizes whole rows (row maximum by
+//      shuffles) into the int8 A tile (o_q), or copies them in bf16;
+//   2. o-projection: warp w takes the 8-column tiles w, w + 8, ... of d for
+//      all 32 rows; epilogue h2 into shared memory in bf16;
+//   3. LN2 per row (a warp a row), y rounded and quantized into the A tile;
+//   4. fc1: warp w takes the 64-column chunks w, w + 8, ... of ff; epilogue
+//      t1 (bf16) into shared memory and the rows' |t1| maxima (a shared
+//      atomicMax on the bits of non-negative floats, which order as
+//      integers);
+//   5. t1 quantized in place, a warp a row (reads, __syncwarp, writes);
+//   6. fc2 over K = ff, tiles as in 2; epilogue h2 + t2 to `out`.
+// The products are mma.sync.m16n8k32 (s8 x s8 -> s32; bf16 m16n8k16 for
+// the bf16 o-projection) with A fragments from shared memory and B
+// fragments straight from device memory (L2): the weights arrive K-major
+// (transposed once when the encoder quantizes them; an 8-bit operand must
+// be K-major), so a lane's 16-byte read covers its k values for two
+// products. A and B take the same permutation of k within each 64-byte
+// step (lane t4 reads bytes 16 t4 .. 16 t4 + 15), which leaves the sum
+// unchanged. Shared rows are padded by 64 bytes, so the 16-byte A reads of
+// a quarter warp fall in distinct banks.
+
+namespace q8 {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 32;                 // rows a block
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int PAD = 64;                // bytes after each shared row
+constexpr int MAX_D = 512;             // a lane holds 2 x 8 values of a row
+constexpr int MAX_FF = 2048;           // a lane holds 8 x 8 values of t1
+constexpr int NT = 8;                  // 8-column tiles a warp holds
+
+size_t smem_bytes(int d, int ff) {
+  return (size_t)BM * ((d + PAD) + 2 * d + (2 * ff + PAD) + 16);
+}
+
+__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  wt::mma_m16n8k16(d, a, b);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// JAX's row quantization of one value: clip(round(x / s), -127, 127)
+__device__ __forceinline__ uint32_t quant(float x, float s) {
+  return (uint32_t)(uint8_t)(int8_t)fminf(fmaxf(rintf(x / s), -127.f),
+                                          127.f);
+}
+// eight values -> eight int8 bytes
+__device__ __forceinline__ uint2 quant8(const float (&x)[8], float s) {
+  uint2 r;
+  r.x = quant(x[0], s) | quant(x[1], s) << 8 | quant(x[2], s) << 16 |
+        quant(x[3], s) << 24;
+  r.y = quant(x[4], s) | quant(x[5], s) << 8 | quant(x[6], s) << 16 |
+        quant(x[7], s) << 24;
+  return r;
+}
+__device__ __forceinline__ void unpack8(uint4 raw, float (&x)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(p[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ float scale_of(float absmax) {
+  return fmaxf(absmax / 127.f, 1e-10f);
+}
+
+// acc[m][j] = the 32 rows of A (shared, row stride a_stride bytes) times the
+// 8 columns of tile t = tile0 + j * tstep of W (device memory, K-major: row
+// n holds column n's kbytes bytes), j < nt; m is the 16-row half. 64 bytes
+// of k a step: two products (32 int8 or 16 bf16 values each).
+template <typename Acc>
+__device__ __forceinline__ void warp_gemm(Acc (&acc)[2][NT][4],
+                                          const uint8_t* A, int a_stride,
+                                          const uint8_t* __restrict__ W,
+                                          int kbytes, int tile0, int tstep,
+                                          int nt, int g, int t4) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0;
+  auto load_b = [&](uint4 (&b)[NT], int k0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < nt)
+        b[j] = __ldg(reinterpret_cast<const uint4*>(
+            W + (size_t)((tile0 + j * tstep) * 8 + g) * kbytes + k0 +
+            16 * t4));
+  };
+  uint4 b[NT], nb[NT];
+  load_b(b, 0);
+  for (int k0 = 0; k0 < kbytes; k0 += 64) {
+    if (k0 + 64 < kbytes) load_b(nb, k0 + 64);
+    uint4 a[2][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        a[m][h] = *reinterpret_cast<const uint4*>(
+            A + (16 * m + 8 * h + g) * a_stride + k0 + 16 * t4);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) continue;
+      const uint32_t b0[2] = {b[j].x, b[j].y}, b1[2] = {b[j].z, b[j].w};
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint32_t a0[4] = {a[m][0].x, a[m][1].x, a[m][0].y, a[m][1].y};
+        const uint32_t a1[4] = {a[m][0].z, a[m][1].z, a[m][0].w, a[m][1].w};
+        mma(acc[m][j], a0, b0);
+        mma(acc[m][j], a1, b1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = nb[j];
+  }
+}
+
+// Element (m, j, e) of a warp_gemm accumulator: row 16 m + g + 8 (e >> 1),
+// column 8 t + 2 t4 + (e & 1) of tile t.
+template <bool OQ>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_kernel(const bf16* __restrict__ attn, const bf16* __restrict__ h_in,
+           const uint8_t* __restrict__ wo, const uint8_t* __restrict__ fc1,
+           const uint8_t* __restrict__ fc2, const float* __restrict__ misc,
+           bf16* __restrict__ out, int rows, int d, int ff, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int xstride = d + PAD, tstride = 2 * ff + PAD;
+  uint8_t* const xs = smem;                        // int8 A rows: a, then y
+  bf16* const h2s = reinterpret_cast<bf16*>(smem + BM * xstride);
+  uint8_t* const ts = smem + BM * xstride + BM * 2 * d;  // t1; bf16 a (!OQ)
+  float* const sa = reinterpret_cast<float*>(ts + BM * tstride);
+  float* const sy = sa + BM;                       // row scales of a, y, t1
+  float* const st = sy + BM;
+  unsigned* const tmax = reinterpret_cast<unsigned*>(st + BM);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = blockIdx.x * BM;
+  const Vecs vec(misc, d, ff);
+  const float* const fc1_s = misc + 4 * d + ff;
+  const float* const fc2_s = fc1_s + ff;
+  const float* const wo_s = fc2_s + d;
+  const int nt = d / 64;                 // o-projection / fc2 tiles a warp
+
+  // 1. the attention rows: lane piece p holds columns 256 p + 8 lane ..
+  for (int r = warp; r < BM; r += WARPS) {
+    const bool live = row0 + r < rows;
+    uint4 raw[2];
+    float x[2][8], m = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k = 256 * p + 8 * lane;
+      raw[p] = live && k < d ? *reinterpret_cast<const uint4*>(
+                                   attn + (size_t)(row0 + r) * d + k)
+                             : make_uint4(0, 0, 0, 0);
+      unpack8(raw[p], x[p]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(x[p][i]));
+    }
+    if (OQ) {
+      const float s = scale_of(warp_max(m));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int k = 256 * p + 8 * lane;
+        if (k < d)
+          *reinterpret_cast<uint2*>(xs + r * xstride + k) = quant8(x[p], s);
+      }
+      if (lane == 0) sa[r] = s;
+    } else {
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int k = 256 * p + 8 * lane;
+        if (k < d) *reinterpret_cast<uint4*>(ts + r * tstride + 2 * k) = raw[p];
+      }
+    }
+    if (lane == 0) tmax[r] = 0u;
+  }
+  __syncthreads();
+
+  // 2. o-projection: h2 = rnd(h + rnd(rnd(o) + rnd(o_b))) into h2s
+  {
+    using Acc = std::conditional_t<OQ, int, float>;
+    Acc acc[2][NT][4];
+    if constexpr (OQ)
+      warp_gemm(acc, xs, xstride, wo, d, warp, WARPS, nt, g, t4);
+    else
+      warp_gemm(acc, ts, tstride, wo, 2 * d, warp, WARPS, nt, g, t4);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * m + 8 * h + g;
+          const int n = (warp + j * WARPS) * 8 + 2 * t4;
+          const bool live = row0 + r < rows;
+          const float2 hv = live ? __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  h_in + (size_t)(row0 + r) * d + n)) : float2{0.f, 0.f};
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float o = OQ ? (float)acc[m][j][2 * h + e] *
+                                     (sa[r] * wo_s[n + e])
+                               : (float)acc[m][j][2 * h + e];
+            v[e] = rnd_bf16((e ? hv.y : hv.x) +
+                            rnd_bf16(rnd_bf16(o) + rnd_bf16(vec.o_b[n + e])));
+          }
+          *reinterpret_cast<uint32_t*>(h2s + r * d + n) =
+              wt::pack_bf16(v[0], v[1]);
+        }
+      }
+  }
+  __syncthreads();
+
+  // 3. y = rnd(LN2(h2)), quantized per row into the A tile
+  for (int r = warp; r < BM; r += WARPS) {
+    float x[2][8], sum = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k = 256 * p + 8 * lane;
+      unpack8(k < d ? *reinterpret_cast<const uint4*>(h2s + r * d + k)
+                    : make_uint4(0, 0, 0, 0), x[p]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += x[p][i];
+    }
+    const float mean = warp_sum(sum) / d;
+    float dev = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (256 * p + 8 * lane >= d) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dev += (x[p][i] - mean) * (x[p][i] - mean);
+    }
+    const float inv = rsqrtf(warp_sum(dev) / d + eps);
+    float m = 0.f;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k = 256 * p + 8 * lane;
+      if (k >= d) continue;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[p][i] = rnd_bf16((x[p][i] - mean) * inv * vec.ln_g[k + i] +
+                           vec.ln_b[k + i]);
+        m = fmaxf(m, fabsf(x[p][i]));
+      }
+    }
+    const float s = scale_of(warp_max(m));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int k = 256 * p + 8 * lane;
+      if (k < d)
+        *reinterpret_cast<uint2*>(xs + r * xstride + k) = quant8(x[p], s);
+    }
+    if (lane == 0) sy[r] = s;
+  }
+  __syncthreads();
+
+  // 4. fc1: t1 = rnd(gelu(rnd(rnd(qdot(y, fc1)) + rnd(fc1_b)))) into ts in
+  //    bf16, and each row's max |t1|
+  {
+    float tm[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int c = warp; c < ff / 64; c += WARPS) {
+      int acc[2][NT][4];
+      warp_gemm(acc, xs, xstride, fc1, d, c * NT, 1, NT, g, t4);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * m + 8 * h + g;
+            const int n = (c * NT + j) * 8 + 2 * t4;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float o = (float)acc[m][j][2 * h + e] *
+                              (sy[r] * fc1_s[n + e]);
+              v[e] = rnd_bf16(gelu_erf(rnd_bf16(
+                  rnd_bf16(o) + rnd_bf16(vec.fc1_b[n + e]))));
+              tm[m][h] = fmaxf(tm[m][h], fabsf(v[e]));
+            }
+            *reinterpret_cast<uint32_t*>(ts + r * tstride + 2 * n) =
+                wt::pack_bf16(v[0], v[1]);
+          }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = tm[m][h];
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        if (t4 == 0) atomicMax(&tmax[16 * m + 8 * h + g], __float_as_uint(v));
+      }
+  }
+  __syncthreads();
+
+  // 5. t1 quantized in place: row r's int8 values over the start of its
+  //    bf16 values, a warp a row, all reads before any write
+  for (int r = warp; r < BM; r += WARPS) {
+    const float s = scale_of(__uint_as_float(tmax[r]));
+    uint8_t* const row = ts + r * tstride;
+    uint4 raw[MAX_FF / 256];
+#pragma unroll
+    for (int p = 0; p < MAX_FF / 256; ++p) {
+      const int k = 256 * p + 8 * lane;
+      if (k < ff) raw[p] = *reinterpret_cast<const uint4*>(row + 2 * k);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < MAX_FF / 256; ++p) {
+      const int k = 256 * p + 8 * lane;
+      if (k >= ff) continue;
+      float x[8];
+      unpack8(raw[p], x);
+      *reinterpret_cast<uint2*>(row + k) = quant8(x, s);
+    }
+    if (lane == 0) st[r] = s;
+  }
+  __syncthreads();
+
+  // 6. fc2: out = h2 + rnd(rnd(qdot(t1, fc2)) + rnd(fc2_b))
+  {
+    int acc[2][NT][4];
+    warp_gemm(acc, ts, tstride, fc2, ff, warp, WARPS, nt, g, t4);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * m + 8 * h + g;
+          if (row0 + r >= rows) continue;
+          const int n = (warp + j * WARPS) * 8 + 2 * t4;
+          const float2 h2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(h2s + r * d + n));
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float o = (float)acc[m][j][2 * h + e] * (st[r] * fc2_s[n + e]);
+            v[e] = (e ? h2.y : h2.x) +
+                   rnd_bf16(rnd_bf16(o) + rnd_bf16(vec.fc2_b[n + e]));
+          }
+          *reinterpret_cast<uint32_t*>(out + (size_t)(row0 + r) * d + n) =
+              wt::pack_bf16(v[0], v[1]);
+        }
+      }
+  }
+}
+
+template <bool OQ>
+cudaError_t launch(const void* attn, const void* h_in, const void* wo,
+                   const void* fc1, const void* fc2, const float* misc,
+                   void* out, int rows, int d, int ff, float eps, size_t smem,
+                   cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      mlp_kernel<OQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  mlp_kernel<OQ><<<(rows + BM - 1) / BM, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(attn), static_cast<const bf16*>(h_in),
+      static_cast<const uint8_t*>(wo), static_cast<const uint8_t*>(fc1),
+      static_cast<const uint8_t*>(fc2), misc, static_cast<bf16*>(out), rows, d,
+      ff, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace q8
+
 // The larger of the two kernels' shared memory at width d (ff streams in
 // chunks and does not enter).
 size_t tail_smem_bytes(int d) {
@@ -793,10 +1223,11 @@ cudaError_t launch_tail(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Shared memory the tail's MLP launch needs at width d (bytes), for
+// Shared memory the tail's MLP launch needs at width (d, ff) (bytes), in
+// the unquantized form (q8 = 0) or the int8 form, for
 // ops/encoder_layer.py's gate to be checked against.
-extern "C" long long wt_encoder_tail_smem(int d) {
-  return (long long)tail_smem_bytes(d);
+extern "C" long long wt_encoder_tail_smem(int d, int ff, int int8_form) {
+  return (long long)(int8_form ? q8::smem_bytes(d, ff) : tail_smem_bytes(d));
 }
 
 // Returns cudaGetLastError() after the launches (0 on success). Shapes:
@@ -823,4 +1254,44 @@ extern "C" int wt_encoder_tail(const void* q, const void* k, const void* v,
                                                 ff, eps, s)
                    : launch_tail<float>(q, k, v, h_in, wo, fc1, fc2, m, attn,
                                         out, B, T_len, S, H, d, ff, eps, s));
+}
+
+// The int8 form (bf16 only). Returns cudaGetLastError() after the launches
+// (0 on success). Shapes: q (B,T,H,D), k/v (B,H,S,D), h_in/out (B,T,d),
+// attn scratch (B,T,d), all bf16; wo (d, d) K-major, int8 under o_q, else
+// bf16; fc1 (ff, d) and fc2 (d, ff) int8, K-major; all contiguous and
+// 16-byte aligned; misc fp32 [o_b | fc1_b | fc2_b | ln2_g | ln2_b | fc1_s
+// | fc2_s (| wo_s)]. D must be 64, d = 64 H <= 512, ff a multiple of 64
+// with d <= ff <= 2048.
+extern "C" int wt_encoder_tail_q8(const void* q, const void* k, const void* v,
+                                  const void* h_in, const void* wo,
+                                  const void* fc1, const void* fc2,
+                                  const void* misc, void* attn, void* out,
+                                  int B, int T_len, int S, int H, int D, int d,
+                                  int ff, float eps, int o_q, void* stream) {
+  if (D != HEAD_DIM || d != H * D || d > q8::MAX_D || ff % 64 != 0 ||
+      ff < d || ff > q8::MAX_FF || B < 1 || T_len < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16({q, k, v, h_in, wo, fc1, fc2, attn, out}))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = q8::smem_bytes(d, ff);
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long Dl = HEAD_DIM;
+  e = (cudaError_t)wt_flash_attention(
+      q, k, v, attn, B, T_len, S, H, HEAD_DIM, S, 0, 0, T_len * H * Dl,
+      H * Dl, Dl, H * S * Dl, S * Dl, Dl, H * S * Dl, S * Dl, Dl, 1, s);
+  if (e != cudaSuccess) return (int)e;
+  const float* m = static_cast<const float*>(misc);
+  const int rows = B * T_len;
+  return (int)(o_q ? q8::launch<true>(attn, h_in, wo, fc1, fc2, m, out, rows,
+                                      d, ff, eps, smem, s)
+                   : q8::launch<false>(attn, h_in, wo, fc1, fc2, m, out, rows,
+                                       d, ff, eps, smem, s));
 }

@@ -2,7 +2,9 @@
 (whisper_tpu/models/whisper.py), fp32 or bf16, with the JAX package's
 int8 serving stack: weight-only int8 decoder linears (`w_s` per output
 column, `tok_emb_s` per row), int8 K/V caches with per-vector fp32 scales
-({"k", "k_s", "v", "v_s"}) for the cross cache, the self cache or both.
+({"k", "k_s", "v", "v_s"}) for the cross cache, the self cache or both
+(in the greedy step and the engine's ragged step), and the encoder's int8
+paths (`linear_i8dyn`; the tail kernel's int8 form).
 
 The params tree and every layout are the JAX package's: layers stacked on
 a leading L axis, linear weights (in, out), q (B, T, H, D), K/V and the
@@ -66,6 +68,7 @@ from whisper_tpu_torch.ops.attention import (
 from whisper_tpu_torch.ops.cache_append import (
     cache_append_rows,
     cache_append_rows_ragged,
+    set_rows,
 )
 from whisper_tpu_torch.ops.decode_attention import (
     decode_attention_bg,
@@ -73,6 +76,8 @@ from whisper_tpu_torch.ops.decode_attention import (
 )
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
+    encoder_block_tail_q8,
+    qdot,
     tail_fits_smem,
 )
 
@@ -206,6 +211,32 @@ def _quant_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, s.squeeze(-2)
 
 
+def linear_i8dyn(x: torch.Tensor, p: Params, dtype) -> torch.Tensor:
+    """The encoder's int8 linear (:124, cfg.encoder_quant): the tail's
+    `qdot` (x quantized per row, the weight per output column, quantized
+    here unless it already is; the exact int32 product, which an fp32
+    product of int8 values is not once K x 127^2 passes 2^24, as at
+    turbo's K of 1,280 and 5,120; the rescale by row scale x column scale
+    in fp32), cast to `dtype`, plus the bias with torch's promotion,
+    which is JAX's (:143): a bf16 bias gives bf16, an fp32 one fp32."""
+    if "w_s" in p:
+        wq, ws = p["w"], p["w_s"]
+    else:
+        wq, ws = _quant_cols(p["w"])
+    return qdot(x.float(), wq.t(), ws).to(dtype) + p["b"]
+
+
+def qkv_fused_i8dyn(y: torch.Tensor, attn: Params, n_heads: int, dtype
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 form of qkv_fused (:146): one linear_i8dyn over the fused
+    `qkv` linear (its per-column quantization gives q's, k's and v's
+    values and scales side by side, as JAX's concatenation does), then the
+    split."""
+    q, k, v = linear_i8dyn(y, attn["qkv"], dtype).chunk(3, dim=-1)
+    return (split_heads(q, n_heads), split_heads_hm(k, n_heads),
+            split_heads_hm(v, n_heads))
+
+
 def quantize_weights_wq(params: Params, cfg: WhisperConfig) -> Params:
     """Weight-only int8 for the decoder's per-step weights (:212): the
     self-attention projections, cross-attention q and o, fc1 and fc2 per
@@ -264,21 +295,68 @@ def conv_stem(enc: Params, cfg: WhisperConfig, mel: torch.Tensor
     return x.transpose(1, 2)
 
 
-def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device) -> str:
+def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device,
+                       mlp_q: bool = False) -> str:
     """'off' under the "reference" attention backend (cfg.attn_backend,
     else WHISPER_TPU_ATTN), as in the JAX gate (:431-434). Under every
     other backend, 'tail' when the fused tail kernel takes the model's
-    width on this device (its MLP tile fits the opt-in shared memory:
-    tiny, base) and 'off' otherwise (small and up): the port's rule in
-    place of the JAX gate's (:435-451), whose VMEM budgets are TPU
-    calibration. JAX's "pallas" forces the tail on at every width, which a
-    Hopper block's shared memory cannot hold from small up, so "pallas"
-    keeps the port's rule. The CPU answers as an H100 would, so both
-    devices run the same branch."""
+    width on this device in the form the encoder runs (`mlp_q`: the int8
+    form, whose gate JAX's tail_fits_vmem also takes, :443-449): its MLP
+    tile fits the opt-in shared memory (tiny, base), and 'off' otherwise
+    (small and up): the port's rule in place of the JAX gate's (:435-451),
+    whose VMEM budgets are TPU calibration. JAX's "pallas" forces the tail
+    on at every width, which a Hopper block's shared memory cannot hold
+    from small up, so "pallas" keeps the port's rule. The CPU answers as an
+    H100 would, so both devices run the same branch."""
     if (cfg.attn_backend or default_backend()) == "reference":
         return "off"
-    return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device)
+    return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device, mlp_q)
             else "off")
+
+
+def _env_flag(name: str, default: bool) -> bool:
+    """An encoder int8 flag with its environment override, read as JAX
+    reads it (:454-481): when the variable is set, "1" turns the path on
+    and any other value off. JAX reads it at trace time, the port at every
+    call, which for a fixed process is the same."""
+    env = os.environ.get(name)
+    return default if env is None else env == "1"
+
+
+def _encoder_i8(cfg: WhisperConfig) -> bool:
+    """cfg.encoder_quant, overridden by WHISPER_TPU_ENC_I8 (:454)."""
+    return _env_flag("WHISPER_TPU_ENC_I8", cfg.encoder_quant)
+
+
+def _encoder_i8k(cfg: WhisperConfig) -> bool:
+    """cfg.encoder_mlp_quant, overridden by WHISPER_TPU_ENC_I8K (:464)."""
+    return _env_flag("WHISPER_TPU_ENC_I8K", cfg.encoder_mlp_quant)
+
+
+def _encoder_i8q(cfg: WhisperConfig) -> bool:
+    """cfg.encoder_qkv_quant, overridden by WHISPER_TPU_ENC_I8Q (:474)."""
+    return _env_flag("WHISPER_TPU_ENC_I8Q", cfg.encoder_qkv_quant)
+
+
+def _tail_q8_weights(layers: Params, o_q: bool, dtype) -> Params:
+    """The int8 tail's stacked matrices, once per encoder call, as JAX
+    quantizes them (:511-518, :552-561): fc1 and fc2 per output column,
+    and wo too under o_q (else wo in the compute dtype), each transposed
+    once to the K-major (L, out, in) layout the kernel reads."""
+    def kmajor(w):
+        return w.transpose(-1, -2).contiguous()
+
+    f1q, f1s = _quant_cols(layers["fc1"]["w"])
+    f2q, f2s = _quant_cols(layers["fc2"]["w"])
+    out = {"fc1": kmajor(f1q), "fc1_s": f1s, "fc2": kmajor(f2q),
+           "fc2_s": f2s, "wo_s": None}
+    wo = layers["attn"]["o"]["w"]
+    if o_q:
+        woq, out["wo_s"] = _quant_cols(wo)
+        out["wo"] = kmajor(woq)
+    else:
+        out["wo"] = kmajor(wo.to(dtype))
+    return out
 
 
 def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
@@ -292,34 +370,62 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
     through multi_head_attention under cfg.attn_backend (the flash kernel
     at every encoder size, but under "reference"), the o-projection, LN2
     in fp32 and the MLP in the compute dtype.
-    Then the final LayerNorm."""
+    Then the final LayerNorm.
+
+    The int8 paths, bf16 only (fp32 ignores all three flags, as JAX does),
+    each flag with its environment override (`_encoder_i8*`):
+      * encoder_quant (:526-536): the four projections are linear_i8dyn
+        (qkv_fused_i8dyn for QKV) and the tail is bypassed;
+      * encoder_mlp_quant, where the tail runs: the tail's int8 form
+        (encoder_block_tail_q8) with fc1 and fc2 int8, and wo int8 too
+        unless WHISPER_TPU_ENC_I8O=0 (:552-562), quantized once per call;
+      * encoder_qkv_quant, with encoder_mlp_quant where the tail runs: the
+        QKV projection in front of the tail is qkv_fused_i8dyn (:537-543).
+    Where the tail is off (d >= 768 on the card) the two tail flags are
+    no-ops, as in JAX's tail-off branch."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
     x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(dtype)
-    tail = _encoder_tail_mode(cfg, x.device)
-    if dtype != torch.float32 and cfg.encoder_quant:
-        raise NotImplementedError(
-            "encoder_quant: the int8 encoder matmuls (whisper_tpu/models/"
-            "whisper.py:124 linear_i8dyn) are not ported")
-    if dtype != torch.float32 and tail == "tail" and (
-            cfg.encoder_mlp_quant or cfg.encoder_qkv_quant):
-        # JAX takes these int8 paths only with its fused tail; where the
-        # tail is off (d >= 768 here) both flags are no-ops (:505-508, :537)
-        raise NotImplementedError(
-            "encoder_mlp_quant / encoder_qkv_quant: the int8 variant of the "
-            "encoder tail kernel (whisper_tpu/ops/encoder_layer.py:240, "
-            "mlp_q and o_q) is not ported")
+    quant = dtype != torch.float32
+    enc_i8 = quant and _encoder_i8(cfg)
+    enc_i8k = quant and not enc_i8 and _encoder_i8k(cfg)
+    tail = "off" if enc_i8 else _encoder_tail_mode(cfg, x.device, enc_i8k)
+    enc_i8k = enc_i8k and tail == "tail"
+    if enc_i8k:
+        mlpq = _tail_q8_weights(
+            enc["layers"],
+            os.environ.get("WHISPER_TPU_ENC_I8O", "1") != "0", dtype)
     for i in range(cfg.n_audio_layers):
         lp = layer_index(enc["layers"], i)
         y = layer_norm(x, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
-        q, k, v = qkv_fused(y, lp["attn"], cfg.n_heads)
+        if enc_i8 or (enc_i8k and _encoder_i8q(cfg)):
+            q, k, v = qkv_fused_i8dyn(y, lp["attn"], cfg.n_heads, dtype)
+        else:
+            q, k, v = qkv_fused(y, lp["attn"], cfg.n_heads)
+        if enc_i8:
+            a = multi_head_attention(q, k, v, backend=cfg.attn_backend)
+            x = x + linear_i8dyn(merge_heads(a), lp["attn"]["o"], dtype)
+            y = layer_norm(x, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"],
+                           cfg.ln_eps)
+            x = x + linear_i8dyn(gelu(linear_i8dyn(y, lp["fc1"], dtype)),
+                                 lp["fc2"], dtype)
+            continue
         if tail == "tail":
-            x = encoder_block_tail(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                x.contiguous(), lp["attn"]["o"]["w"].to(dtype),
-                lp["fc1"]["w"].to(dtype), lp["fc2"]["w"].to(dtype),
-                lp["attn"]["o"]["b"], lp["fc1"]["b"], lp["fc2"]["b"],
-                lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], eps=cfg.ln_eps)
+            vecs = (lp["attn"]["o"]["b"], lp["fc1"]["b"], lp["fc2"]["b"],
+                    lp["mlp_ln"]["g"], lp["mlp_ln"]["b"])
+            qkvh = (q.contiguous(), k.contiguous(), v.contiguous(),
+                    x.contiguous())
+            if enc_i8k:
+                wo_s = mlpq["wo_s"]
+                x = encoder_block_tail_q8(
+                    *qkvh, mlpq["wo"][i], mlpq["fc1"][i], mlpq["fc2"][i],
+                    *vecs, mlpq["fc1_s"][i], mlpq["fc2_s"][i],
+                    None if wo_s is None else wo_s[i], eps=cfg.ln_eps)
+            else:
+                x = encoder_block_tail(
+                    *qkvh, lp["attn"]["o"]["w"].to(dtype),
+                    lp["fc1"]["w"].to(dtype), lp["fc2"]["w"].to(dtype),
+                    *vecs, eps=cfg.ln_eps)
             continue
         a = multi_head_attention(q, k, v, backend=cfg.attn_backend)
         x = x + linear(merge_heads(a), lp["attn"]["o"])
@@ -540,7 +646,8 @@ def _scale_row(s: torch.Tensor) -> torch.Tensor:
 
 
 def _self_attention_extra_q8(q, k8, k_s, v8, v_s, k_new, v_new,
-                             pos: int, D: int, dtype) -> torch.Tensor:
+                             pos: int | torch.Tensor, D: int, dtype
+                             ) -> torch.Tensor:
     """`_self_attention_extra` over a scale-commuted int8 self cache
     (:1010, the T==1 form; bf16 serving mode): the key scales multiply the
     scores and the value scales the probabilities, so no dequantized
@@ -549,11 +656,14 @@ def _self_attention_extra_q8(q, k8, k_s, v8, v_s, k_new, v_new,
         out      = sum_s bf16(p[s] * v_s[s]) * v8[s]
     with bf16 x int8 products exact in fp32 and fp32 sums. The current
     token's k_new/v_new join unquantized. k8/v8 int8 (B,H,S,D); k_s/v_s
-    fp32 (B,H,S,1); q (B,1,H,D); returns (B,1,H,D) in dtype."""
+    fp32 (B,H,S,1); q (B,1,H,D); pos as in `_self_attention_extra` (an int,
+    or (B,) per-row positions masking row b at `< pos[b]`); returns
+    (B,1,H,D) in dtype."""
     s_c = torch.einsum("bthd,bhsd->bhts", q.float(), k8.float()) * (
         _scale_row(k_s) * (D ** -0.5))
     s_s = _scores(q, k_new, D, False)                          # (B,H,1,1)
-    strict = torch.arange(k8.shape[2], device=q.device) < pos
+    strict = torch.arange(k8.shape[2], device=q.device) < (
+        pos[:, None, None, None] if isinstance(pos, torch.Tensor) else pos)
     s_c = s_c.masked_fill(~strict, torch.finfo(torch.float32).min)
     m = torch.maximum(s_c.amax(dim=-1, keepdim=True), s_s)
     e_c = torch.exp(s_c - m)
@@ -680,46 +790,82 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
                         cross_kv: dict[str, torch.Tensor]
                         ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One T==1 decode step where every batch row sits at its OWN
-    position: the continuous-batching engine's step (:1355, the
-    unquantized in-place branch).
+    position: the continuous-batching engine's step (:1355).
 
     tokens1: (B, 1) each row's last token; pos: (B,) integer tensor on the
     device, each row's position and cache write index. Per-row positional
-    embedding; self-attention over the read-only cache masked at
-    `< pos[b]` plus the current token (`_self_attention_extra`);
-    cross-attention through `_cache_attention`; after the layer loop ONE
-    cache_append_rows_ragged call writes every layer's new K/V row b at
-    pos[b], in place. Nothing here reads the device from the host.
-    Returns (logits (B, 1, vocab) fp32, kv_cache)."""
-    if "k_s" in kv_cache or "k_s" in cross_kv:
-        raise NotImplementedError(
-            "decoder_step_ragged: int8 caches (k_s/v_s scales) in the "
-            "continuous engine, with the ragged int8 append, are not ported "
-            "(ROADMAP Queue 1 item 6)")
+    embedding. The self cache takes one of JAX's branches:
+      * in place (an unquantized cache, or an int8 one under
+        self_kv_quant in bf16 mode): self-attention over the read-only
+        cache masked at `< pos[b]` plus the current token
+        (`_self_attention_extra`, scale-commuted for int8 in
+        `_self_attention_extra_q8`); after the layer loop ONE
+        cache_append_rows_ragged call writes every layer's new K/V row b
+        at pos[b], in place; on an int8 cache the rows are quantized first
+        and their scale rows written beside the launch (:1484-1497);
+      * capacity mode (an int8 cache under kv_cache_quant, or one without
+        self_kv_quant, or fp32): each layer's new rows are quantized and
+        scattered at pos[b] (:1404-1416), then read through
+        `_cache_attention` (dequantized, kv_len pos + 1).
+    The cross read: an int8 cache scale-commuted in bf16 (`_att_cross_q8`),
+    every other through `_cache_attention` (fp32 int8: T==1 and not ragged,
+    so decode_attention_q8_bh where multi_head_attention_quant routes it).
+    Nothing here reads the device from the host. Returns (logits
+    (B, 1, vocab) fp32, kv_cache), the cache written in place."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
+    fp32_mode = dtype == torch.float32
     D = cfg.head_dim
+    q8_self = ("k_s" in kv_cache and cfg.self_kv_quant
+               and not cfg.kv_cache_quant and not fp32_mode)
+    inplace = "k_s" not in kv_cache or q8_self
     h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos][:, None].to(dtype)
     k_news, v_news = [], []
     for i in range(cfg.n_text_layers):
         lp = layer_index(dec["layers"], i)
+        cache_l = layer_index(kv_cache, i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
-        a = _self_attention_extra(q, kv_cache["k"][i].to(dtype),
-                                  kv_cache["v"][i].to(dtype), k_new, v_new,
-                                  pos, D, dtype)
+        if not inplace:
+            for name, new in (("k", k_new), ("v", v_new)):
+                qv, sc = quantize_kv(new[:, :, 0])
+                set_rows(cache_l[name], qv, pos)
+                set_rows(cache_l[name + "_s"], sc, pos)
+            a = _cache_attention(q, cache_l, pos + 1, causal=False,
+                                 q_offset=0, cfg=cfg, dtype=dtype)
+        elif q8_self:
+            a = _self_attention_extra_q8(
+                q, cache_l["k"], cache_l["k_s"], cache_l["v"], cache_l["v_s"],
+                k_new, v_new, pos, D, dtype)
+        else:
+            a = _self_attention_extra(q, cache_l["k"].to(dtype),
+                                      cache_l["v"].to(dtype), k_new, v_new,
+                                      pos, D, dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
         q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
-        a = _cache_attention(q, layer_index(cross_kv, i), None,
-                             causal=False, q_offset=0, cfg=cfg, dtype=dtype)
+        cross_l = layer_index(cross_kv, i)
+        if "k_s" in cross_l and not fp32_mode:
+            a = _att_cross_q8(q, cross_l, D, dtype)
+        else:
+            a = _cache_attention(q, cross_l, None, causal=False, q_offset=0,
+                                 cfg=cfg, dtype=dtype)
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
-        k_news.append(k_new[:, :, 0, :])
-        v_news.append(v_new[:, :, 0, :])
-    cache_append_rows_ragged(kv_cache["k"], kv_cache["v"],
-                             torch.stack(k_news).to(kv_cache["k"].dtype),
-                             torch.stack(v_news).to(kv_cache["v"].dtype), pos)
+        if inplace:
+            k_news.append(k_new[:, :, 0, :])
+            v_news.append(v_new[:, :, 0, :])
+    if inplace:
+        k_rows, v_rows = torch.stack(k_news), torch.stack(v_news)
+        if q8_self:
+            (k_rows, k_sc), (v_rows, v_sc) = (quantize_kv(k_rows),
+                                              quantize_kv(v_rows))
+        cache_append_rows_ragged(kv_cache["k"], kv_cache["v"],
+                                 k_rows.to(kv_cache["k"].dtype),
+                                 v_rows.to(kv_cache["v"].dtype), pos)
+        if q8_self:
+            set_rows(kv_cache["k_s"], k_sc, pos)
+            set_rows(kv_cache["v_s"], v_sc, pos)
     return final_logits(params, cfg, h), kv_cache

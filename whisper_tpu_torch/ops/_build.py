@@ -107,8 +107,15 @@ def load_library() -> ctypes.CDLL:
         I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
         F, I, P]               # eps, is_bf16, stream
     lib.wt_encoder_tail.restype = I
-    lib.wt_encoder_tail_smem.argtypes = [I]                   # d
+    lib.wt_encoder_tail_smem.argtypes = [I, I, I]             # d, ff, q8
     lib.wt_encoder_tail_smem.restype = ctypes.c_longlong
+    lib.wt_encoder_tail_q8.argtypes = [
+        P, P, P, P,            # q, k, v, h_in
+        P, P, P, P,            # wo (int8 or bf16), fc1, fc2 (int8), misc
+        P, P,                  # attn scratch, out
+        I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
+        F, I, P]               # eps, o_q, stream
+    lib.wt_encoder_tail_q8.restype = I
     lib.wt_cache_append.argtypes = [
         P, P, P, P,            # cache_k, cache_v, k_new, v_new
         ctypes.c_longlong,     # rows = L*B*H
@@ -119,7 +126,7 @@ def load_library() -> ctypes.CDLL:
         P,                     # pos (B,) int64, on the device
         ctypes.c_longlong,     # rows = L*B*H
         I, I, I, I,            # B, H, S, D
-        I, P]                  # is_bf16, stream
+        I, P]                  # elem (fp32/bf16/int8), stream
     lib.wt_cache_append_ragged.restype = I
     L = ctypes.c_longlong
     lib.wt_flash_attention.argtypes = [

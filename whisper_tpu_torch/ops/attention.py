@@ -114,6 +114,19 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return decode_attention_bh(q.contiguous(), k, v, kv_len)
 
 
+def _q8_kernel_route(T: int, S: int, ragged: bool,
+                     backend: Optional[str] = None) -> bool:
+    """Whether multi_head_attention_quant reads an int8 cache of S slots
+    with T queries through decode_attention_q8_bh (JAX :141-157): T==1,
+    not ragged, and "pallas_interpret", or "auto"/"pallas" from 4096 slots
+    up."""
+    backend = _backend(backend)
+    return (T == 1 and not ragged
+            and (backend == "pallas_interpret"
+                 or (backend in ("auto", "pallas")
+                     and S >= _DECODE_KERNEL_MIN_S)))
+
+
 def multi_head_attention_quant(q: torch.Tensor, k: torch.Tensor,
                                k_scale: torch.Tensor, v: torch.Tensor,
                                v_scale: torch.Tensor, kv_len=None, *,
@@ -124,11 +137,8 @@ def multi_head_attention_quant(q: torch.Tensor, k: torch.Tensor,
     kernel takes kv_len alone (the T==1 length mask); a ragged read stays
     off it and is dequantized, as in JAX (:141-157)."""
     backend = _backend(backend)
-    use_kernel = (q.shape[1] == 1 and not _ragged(kv_len, q_offset)
-                  and (backend == "pallas_interpret"
-                       or (backend in ("auto", "pallas")
-                           and k.shape[2] >= _DECODE_KERNEL_MIN_S)))
-    if use_kernel:        # q contiguous, as in multi_head_attention
+    if _q8_kernel_route(q.shape[1], k.shape[2], _ragged(kv_len, q_offset),
+                        backend):     # q contiguous, as in multi_head_attention
         return decode_attention_q8_bh(q.contiguous(), k, k_scale, v, v_scale,
                                       kv_len)
     kd = (k.float() * k_scale).to(q.dtype)

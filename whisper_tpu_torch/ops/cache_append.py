@@ -12,10 +12,11 @@ own row written first.
 
 Each wrapper launches its hand-written CUDA kernel (csrc/cache_append.cu,
 which carries the design note) for CUDA tensors and runs its plain version
-(indexed assignment) for CPU tensors. The scalar form also takes int8
+(indexed assignment) for CPU tensors. Both take fp32, bf16 and int8
 caches: an int8 self cache's rows arrive quantized (models/whisper.py
-decoder_step_ip), and the caller writes their scale rows. Both write into the given tensors
-and return them; neither makes a copy. The ragged wrapper never reads
+decoder_step_ip, decoder_step_ragged), and the caller writes their scale
+rows. Both write into the given tensors and return them; neither makes a
+copy. The ragged wrapper never reads
 `pos` on the host: the kernel reads it from device memory.
 """
 
@@ -25,8 +26,7 @@ import torch
 
 from whisper_tpu_torch.ops import _build
 
-_DTYPES = (torch.float32, torch.bfloat16)
-# the scalar kernel's element types, by the code its C entry point takes
+# the kernels' element types, by the code their C entry points take
 _APPEND_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -89,20 +89,29 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
 cache_append_rows.launches = 0      # kernel launches (CPU calls not counted)
 
 
+def set_rows(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+             ) -> None:
+    """In place: cache[..., b, :, pos[b], :] = new[..., b, :, :] for every
+    row b whose pos[b] lies in [0, S); the other rows keep their values
+    (each is written at a clamped position with the value already there).
+    cache (..., B, H, S, X); new (..., B, H, X); pos (B,) on the cache's
+    device. The separated advanced indices (rows, pos) move to the front
+    of the indexed value, so `new` is moved to (B, ..., H, X) to match."""
+    S = cache.shape[-2]
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    at = (Ellipsis, rows, slice(None), pos.clamp(0, S - 1), slice(None))
+    value = new.movedim(-3, 0).to(cache.dtype)
+    keep = ((pos >= 0) & (pos < S)).reshape((-1,) + (1,) * (value.ndim - 1))
+    cache[at] = torch.where(keep, value, cache[at])
+
+
 def cache_append_rows_ragged_plain(cache_k, cache_v, k_new, v_new,
                                    pos: torch.Tensor):
-    """Indexed assignment, the JAX fallback of decoder_step_ragged
-    (whisper_tpu/models/whisper.py:1484-1489): the separated advanced
-    indices (rows, pos) move to the front, so the value is (B, L, H, D).
-    A row whose pos[b] lies outside [0, S) keeps its cache as it was: it
-    is written at a clamped position with the value already there."""
-    S = cache_k.shape[3]
-    rows = torch.arange(pos.shape[0], device=pos.device)
-    keep = ((pos >= 0) & (pos < S))[:, None, None, None]
-    at = pos.clamp(0, S - 1)
-    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
-        cache[:, rows, :, at, :] = torch.where(
-            keep, new.transpose(0, 1), cache[:, rows, :, at, :])
+    """Indexed assignment (`set_rows`), the JAX fallback of
+    decoder_step_ragged (whisper_tpu/models/whisper.py:1484-1489). A row
+    whose pos[b] lies outside [0, S) keeps its cache as it was."""
+    set_rows(cache_k, k_new, pos)
+    set_rows(cache_v, v_new, pos)
     return cache_k, cache_v
 
 
@@ -137,8 +146,8 @@ def cache_append_rows_ragged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     (L, B, H, S, D) caches, for every layer, in place; a row whose pos[b]
     lies outside [0, S) is left untouched. pos: (B,) int64 on the caches'
     device. Returns the same two tensors. CPU tensors take the
-    plain version; CUDA tensors (fp32 or bf16, contiguous) launch the
-    kernel or raise."""
+    plain version; CUDA tensors (fp32, bf16 or int8, contiguous) launch
+    the kernel or raise."""
     _check_ragged(cache_k, cache_v, k_new, v_new, pos)
     if cache_k.device.type == "cpu":
         return cache_append_rows_ragged_plain(cache_k, cache_v, k_new, v_new,
@@ -146,7 +155,7 @@ def cache_append_rows_ragged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     if cache_k.device.type != "cuda":
         raise ValueError(f"cache_append_rows_ragged: no kernel for device "
                          f"{cache_k.device}")
-    if cache_k.dtype not in _DTYPES:
+    if cache_k.dtype not in _APPEND_ELEM:
         raise TypeError(f"cache_append_rows_ragged: no kernel for "
                         f"{cache_k.dtype}")
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v),
@@ -159,7 +168,8 @@ def cache_append_rows_ragged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     err = lib.wt_cache_append_ragged(
         cache_k.data_ptr(), cache_v.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), pos.data_ptr(), L * B * H, B, H, S, D,
-        int(cache_k.dtype == torch.bfloat16), torch.cuda.current_stream(cache_k.device).cuda_stream)
+        _APPEND_ELEM[cache_k.dtype],
+        torch.cuda.current_stream(cache_k.device).cuda_stream)
     _build.check(lib, err, "cache_append_rows_ragged")
     cache_append_rows_ragged.launches += 1
     return cache_k, cache_v

@@ -1,5 +1,6 @@
 """Fused encoder-block tail: attention + o-projection + residual + LN2 +
-MLP + residual (whisper_tpu/ops/encoder_layer.py:240 encoder_block_tail).
+MLP + residual (whisper_tpu/ops/encoder_layer.py:240 encoder_block_tail),
+in its unquantized form and its int8 form (`mlp_q`, `o_q`).
 
 `encoder_block_tail` launches the hand-written CUDA kernel
 (csrc/encoder_tail.cu, which carries the design note) for CUDA tensors
@@ -8,10 +9,22 @@ the CPU path and the kernel's oracle on the card: the XLA block's math
 (tests/test_encoder_layer.py:36 _xla_tail) with the Pallas kernel's bf16
 rounding points (_tail_kernel :88-92, :120, :136-148).
 
+`encoder_block_tail_q8` is the int8 form (bf16 only, as in JAX, whose
+encoder ignores the int8 flags in fp32): fc1 and fc2 int8 per output
+column, and the o-projection int8 too when its scales are given (the
+`WHISPER_TPU_ENC_I8O` default), each product `qdot`'s math (:120-129):
+the activation rows quantized to int8 per row, an exact int32 product,
+rescaled by (row scale x column scale). Its plain twin is
+`encoder_block_tail_q8_plain`; its kernel is the int8 MLP kernel of
+csrc/encoder_tail.cu after the same attention launch.
+
 Differences from the JAX signature: `wo` is the unpadded (H*D, d)
 o-projection (the 128-lane row padding of pad_tail_weights is a Mosaic
-layout rule), and the five vectors come as separate tensors instead of
-the packed fp32 `misc` row; the wrapper packs them for the kernel.
+layout rule; its zero rows change no column's scale), and the five
+vectors come as separate tensors instead of the packed fp32 `misc` row;
+the wrapper packs them for the kernel. The int8 form takes its matrices
+K-major, (out, in): the tensor cores read 8-bit operands K-major only,
+so the encoder transposes them once per call, where it quantizes them.
 """
 
 from __future__ import annotations
@@ -31,18 +44,32 @@ SM90_SMEM_OPTIN = 232_448
 TAIL_ROWS, TAIL_WG_COLS, TAIL_ATOM = 64, 128, 1024
 TAIL_WG_FF = {"bf16": 64, "fp32": 32}
 TAIL_KS = {"bf16": 64, "fp32": 8}
+# the int8 form: rows a block, the bytes added to each shared row, the
+# widest d and ff its row loops take (csrc/encoder_tail.cu namespace q8)
+TAIL_Q8_ROWS, TAIL_Q8_PAD, TAIL_Q8_MAX_D, TAIL_Q8_MAX_FF = 32, 64, 512, 2048
 
 
-def tail_smem_bytes(d: int, ff: int) -> int:
-    """Shared memory of the kernel's MLP launch at width d, the larger of
-    its bf16 and fp32 forms (csrc/encoder_tail.cu tail_smem_bytes, the same
-    formula; wt_encoder_tail_smem gives the C side's). bf16: a ring of
+def tail_smem_bytes(d: int, ff: int, q8: bool = False) -> int:
+    """Shared memory of the kernel's MLP launch at width d
+    (csrc/encoder_tail.cu tail_smem_bytes, the same formula;
+    wt_encoder_tail_smem gives the C side's).
+
+    Unquantized, the larger of its bf16 and fp32 forms. bf16: a ring of
     weight stages of 64 k-rows by 128 columns a warpgroup (three stages up
     to three warpgroups, else two), the 64 attention rows (then y), a
     64-column t1 slice a warpgroup, and one swizzle atom of alignment;
     fp32: two 8-row stages, the same A tile and 32-column t1 slices. ff
-    streams in chunks and does not enter."""
-    del ff
+    streams in chunks and does not enter.
+
+    The int8 form (`q8`) keeps whole rows, since each row's scale needs
+    the row's maximum before any of it is quantized: for 32 rows, the int8
+    A rows (attention, then y; d + 64 bytes each), h2 in bf16, and t1 in
+    bf16 (2 ff + 64 bytes each, its int8 values later written over it),
+    plus four fp32 numbers a row. The weights stream from L2 into
+    registers."""
+    if q8:
+        return TAIL_Q8_ROWS * ((d + TAIL_Q8_PAD) + 2 * d
+                               + (2 * ff + TAIL_Q8_PAD) + 16)
     wg = -(-d // TAIL_WG_COLS)                  # warpgroups
 
     def need(form: str, stages: int, size: int) -> int:
@@ -53,18 +80,81 @@ def tail_smem_bytes(d: int, ff: int) -> int:
                need("fp32", 2, 4))
 
 
-def tail_fits_smem(d: int, ff: int, device: torch.device) -> bool:
-    """Whether the tail kernel takes width (d, ff) on `device`: its MLP
-    tile within the card's opt-in shared memory per block (on CUDA read
-    from the card, elsewhere SM90_SMEM_OPTIN). The counterpart of the JAX
-    package's tail_fits_vmem (ops/encoder_layer.py:229), whose VMEM
-    budgets are TPU calibration and are not ported. Tiny (217 KB) and base
-    (225 KB) fit; small and every wider model do not."""
+def tail_fits_smem(d: int, ff: int, device: torch.device,
+                   q8: bool = False) -> bool:
+    """Whether the tail kernel takes width (d, ff) on `device`, in its
+    unquantized form or its int8 form (`q8`): its MLP tile within the
+    card's opt-in shared memory per block (on CUDA read from the card,
+    elsewhere SM90_SMEM_OPTIN). The counterpart of the JAX package's
+    tail_fits_vmem (ops/encoder_layer.py:229), which takes the form too
+    (mlp_q, o_q) and whose VMEM budgets are TPU calibration and are not
+    ported. Tiny (217 KB; int8 135 KB) and base (225 KB; int8 180 KB) fit;
+    small and every wider model do not."""
     limit = SM90_SMEM_OPTIN
     if device.type == "cuda":
         limit = torch.cuda.get_device_properties(
             device).shared_memory_per_block_optin
-    return tail_smem_bytes(d, ff) <= limit
+    if q8 and (d > TAIL_Q8_MAX_D or ff > TAIL_Q8_MAX_FF):
+        return False
+    return tail_smem_bytes(d, ff, q8) <= limit
+
+
+def _rounder(dtype):
+    """Round an fp32 tensor through `dtype` and back: the JAX kernel's
+    `rnd` (:88-92)."""
+    return lambda x: x.to(dtype).float()
+
+
+def _attention_rows(q, k, v, dtype) -> torch.Tensor:
+    """The tail's attention (:101-120): per head softmax(q k^T / sqrt(D)) v,
+    heads side by side, rounded through `dtype`; (B, T, H*D) fp32."""
+    B, T, H, D = q.shape
+    s = torch.einsum("bthd,bhsd->bhts", q.float() * (D ** -0.5), k.float())
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)     # (B, H, T, 1)
+    pv = torch.einsum("bhts,bhsd->bthd", p.to(v.dtype).float(), v.float())
+    return _rounder(dtype)(pv / denom.permute(0, 2, 1, 3)).reshape(
+        B, T, H * D)
+
+
+def _ln2(h2, ln2_g, ln2_b, eps: float, dtype) -> torch.Tensor:
+    """LN2 in fp32 (JAX ops/decoder_step.py:91 _ln), rounded through
+    `dtype`."""
+    mean = h2.mean(dim=-1, keepdim=True)
+    var = (h2 - mean).square().mean(dim=-1, keepdim=True)
+    return _rounder(dtype)((h2 - mean) * torch.rsqrt(var + eps)
+                           * ln2_g.float() + ln2_b.float())
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 x (..., K) and int8 w (K, N), as
+    JAX's dot_general with an int32 result: torch._int_mm on 2-D operands.
+    On CUDA it takes more than 16 rows, so fewer are padded with zero
+    rows."""
+    lead, m = x.shape[:-1], x[..., 0].numel()
+    x2 = x.reshape(m, x.shape[-1])
+    if x2.is_cuda and m <= 16:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, 17 - m))
+    return torch._int_mm(x2.contiguous(), w.contiguous())[:m].reshape(
+        *lead, w.shape[-1])
+
+
+def rowquant(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 of fp32 activations (JAX models/whisper.py:112
+    _rowquant_dyn): sx = max(max|x| / 127, 1e-10), then x / sx rounded half
+    to even and clipped. Returns (int8 values, fp32 scales (..., 1))."""
+    sx = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-10)
+    return (x32 / sx).round_().clamp_(-127, 127).to(torch.int8), sx
+
+
+def qdot(x32: torch.Tensor, w_t: torch.Tensor, w_s: torch.Tensor
+         ) -> torch.Tensor:
+    """The JAX kernel's qdot (:120-129), which is linear_i8dyn's product:
+    x (..., K) fp32 quantized per row (`rowquant`), the exact int32
+    product with the K-major int8 weight w_t (N, K), rescaled by sx * w_s
+    in fp32. Returns (..., N) fp32."""
+    xq, sx = rowquant(x32)
+    return int8_matmul(xq, w_t.t()).float() * (sx * w_s.float())
 
 
 def encoder_block_tail_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
@@ -73,30 +163,56 @@ def encoder_block_tail_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
     """The tail in torch ops, fp32 arithmetic rounded through h_in's dtype
     where the JAX kernel rounds. Shapes as `encoder_block_tail`."""
     dtype = h_in.dtype
-    B, T, H, D = q.shape
-
-    def rnd(x):
-        return x.to(dtype).float()
+    rnd = _rounder(dtype)
 
     def dot(x, w):
         # the kernel's dot: operands in the compute dtype, fp32 accumulate
         return x.to(dtype).float() @ w.float()
 
-    s = torch.einsum("bthd,bhsd->bhts", q.float() * (D ** -0.5), k.float())
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)     # (B, H, T, 1)
-    pv = torch.einsum("bhts,bhsd->bthd", p.to(v.dtype).float(), v.float())
-    a = rnd(pv / denom.permute(0, 2, 1, 3)).reshape(B, T, H * D)
-
+    a = _attention_rows(q, k, v, dtype)
     h2 = rnd(h_in.float() + rnd(rnd(dot(a, wo)) + rnd(o_b.float())))
-    xf = h2
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = rnd((xf - mean) * torch.rsqrt(var + eps) * ln2_g.float()
-            + ln2_b.float())
+    y = _ln2(h2, ln2_g, ln2_b, eps, dtype)
     t1 = rnd(rnd(dot(y, fc1_w)) + rnd(fc1_b.float()))
     t1 = rnd(torch.nn.functional.gelu(t1))                   # exact erf
     t2 = rnd(rnd(dot(t1, fc2_w)) + rnd(fc2_b.float()))
+    return (h2 + t2).to(dtype)
+
+
+def encoder_block_tail_q8_plain(q, k, v, h_in, wo_t, fc1_t, fc2_t, o_b,
+                                fc1_b, fc2_b, ln2_g, ln2_b, fc1_s, fc2_s,
+                                wo_s=None, eps: float = 1e-5
+                                ) -> torch.Tensor:
+    """The int8 form in torch ops, at the JAX kernel's rounding points
+    with mlp_q and o_q (:136-148): the attention rows, then
+    `tail_q8_mlp`. Shapes as `encoder_block_tail_q8`."""
+    a = _attention_rows(q, k, v, h_in.dtype)
+    return tail_q8_mlp(a, h_in, wo_t, fc1_t, fc2_t, o_b, fc1_b, fc2_b, ln2_g,
+                       ln2_b, fc1_s, fc2_s, wo_s, eps)
+
+
+def tail_q8_mlp(a, h_in, wo_t, fc1_t, fc2_t, o_b, fc1_b, fc2_b, ln2_g, ln2_b,
+                fc1_s, fc2_s, wo_s=None, eps: float = 1e-5) -> torch.Tensor:
+    """The int8 form after its attention: a (B, T, d) the attention rows
+    (values of h_in's dtype), then
+        o  = qdot(a, wo) (o_q) or a . wo in bf16, fp32 accumulate
+        h2 = rnd(h + rnd(rnd(o) + rnd(o_b)));  y = rnd(LN2(h2))
+        t1 = rnd(gelu(rnd(rnd(qdot(y, fc1)) + rnd(fc1_b))))
+        out = h2 + rnd(rnd(qdot(t1, fc2)) + rnd(fc2_b))
+    The kernel's MLP launch computes this from the attention launch's
+    rows, so on the card the two are held to each other without the
+    attention's own rounding differences."""
+    dtype = h_in.dtype
+    rnd = _rounder(dtype)
+    a = a.float()
+    if wo_s is not None:
+        o = qdot(a, wo_t, wo_s)
+    else:
+        o = a @ wo_t.float().t()
+    h2 = rnd(h_in.float() + rnd(rnd(o) + rnd(o_b.float())))
+    y = _ln2(h2, ln2_g, ln2_b, eps, dtype)
+    t1 = rnd(rnd(qdot(y, fc1_t, fc1_s)) + rnd(fc1_b.float()))
+    t1 = rnd(torch.nn.functional.gelu(t1))                   # exact erf
+    t2 = rnd(rnd(qdot(t1, fc2_t, fc2_s)) + rnd(fc2_b.float()))
     return (h2 + t2).to(dtype)
 
 
@@ -193,3 +309,104 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 encoder_block_tail.launches = 0     # kernel launches (CPU calls not counted)
+
+
+def _check_q8(q, k, v, h_in, wo_t, fc1_t, fc2_t, vecs, scales) -> None:
+    """Raise on anything the int8 form's kernel does not take."""
+    if h_in.dtype != torch.bfloat16:
+        raise TypeError(f"encoder_block_tail_q8: the int8 form is bf16 only "
+                        f"(h_in is {h_in.dtype})")
+    B, T, H, D = q.shape
+    S, d, ff = k.shape[2], h_in.shape[-1], fc1_t.shape[0]
+    o_q = scales[2] is not None
+    want = {"q": (q, (B, T, H, D), torch.bfloat16),
+            "k": (k, (B, H, S, D), torch.bfloat16),
+            "v": (v, (B, H, S, D), torch.bfloat16),
+            "h_in": (h_in, (B, T, d), torch.bfloat16),
+            "wo_t": (wo_t, (d, H * D), torch.int8 if o_q else torch.bfloat16),
+            "fc1_t": (fc1_t, (ff, d), torch.int8),
+            "fc2_t": (fc2_t, (d, ff), torch.int8)}
+    for name, n, t in (("o_b", d, vecs[0]), ("fc1_b", ff, vecs[1]),
+                       ("fc2_b", d, vecs[2]), ("ln2_g", d, vecs[3]),
+                       ("ln2_b", d, vecs[4]), ("fc1_s", ff, scales[0]),
+                       ("fc2_s", d, scales[1]), ("wo_s", d, scales[2])):
+        if t is not None:
+            want[name] = (t, (n,), None)
+    for name, (t, shape, dt) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"encoder_block_tail_q8: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if dt is not None and t.dtype != dt:
+            raise TypeError(f"encoder_block_tail_q8: {name} is {t.dtype}, "
+                            f"expected {dt}")
+        if t.device != h_in.device:
+            raise ValueError(f"encoder_block_tail_q8: {name} is on "
+                             f"{t.device}, h_in on {h_in.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"encoder_block_tail_q8: {name} is not "
+                             f"contiguous")
+        if dt is not None and t.data_ptr() % 16:
+            raise ValueError(f"encoder_block_tail_q8: {name} is not 16-byte "
+                             f"aligned")
+    if D != 64 or d != H * D or d % 64 or d > TAIL_Q8_MAX_D:
+        raise ValueError(f"encoder_block_tail_q8: the kernel takes head_dim "
+                         f"64 and d = H*64, a multiple of 64 up to "
+                         f"{TAIL_Q8_MAX_D}; got D={D}, d={d}, H={H}")
+    if ff % 64 or not d <= ff <= TAIL_Q8_MAX_FF:
+        raise ValueError(f"encoder_block_tail_q8: ff={ff} must be a multiple "
+                         f"of 64 from d={d} up to {TAIL_Q8_MAX_FF}")
+
+
+def encoder_block_tail_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          h_in: torch.Tensor, wo_t: torch.Tensor,
+                          fc1_t: torch.Tensor, fc2_t: torch.Tensor,
+                          o_b: torch.Tensor, fc1_b: torch.Tensor,
+                          fc2_b: torch.Tensor, ln2_g: torch.Tensor,
+                          ln2_b: torch.Tensor, fc1_s: torch.Tensor,
+                          fc2_s: torch.Tensor,
+                          wo_s: torch.Tensor | None = None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """The tail's int8 form (the JAX kernel with mlp_q, and o_q when
+    `wo_s` is given), bf16.
+
+    Args:
+      q: (B, T, H, D); k, v: (B, H, S, D) head-major; h_in: (B, T, d); bf16.
+      wo_t: (d, H*D) the o-projection K-major: int8 per output column with
+        wo_s (d,) fp32, or bf16 without it.
+      fc1_t: (ff, d) and fc2_t: (d, ff) int8, K-major, with their
+        per-column scales fc1_s (ff,) and fc2_s (d,) fp32.
+      o_b, fc2_b, ln2_g, ln2_b: (d,); fc1_b: (ff,); any float dtype.
+    Returns:
+      (B, T, d) bf16. CPU tensors take the plain version; CUDA tensors
+      launch the kernel (head_dim 64, contiguous, a width that
+      `tail_fits_smem` takes in the int8 form) or raise.
+    """
+    vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
+    if h_in.device.type == "cpu":
+        return encoder_block_tail_q8_plain(q, k, v, h_in, wo_t, fc1_t, fc2_t,
+                                           *vecs, fc1_s, fc2_s, wo_s, eps=eps)
+    if h_in.device.type != "cuda":
+        raise ValueError(f"encoder_block_tail_q8: no kernel for device "
+                         f"{h_in.device}")
+    _check_q8(q, k, v, h_in, wo_t, fc1_t, fc2_t, vecs, (fc1_s, fc2_s, wo_s))
+    B, T, H, D = q.shape
+    S, d, ff = k.shape[2], h_in.shape[-1], fc1_t.shape[0]
+    lib = _build.load_library()
+    # the JAX kernel's pack (pack_tail_misc): [o_b | fc1_b | fc2_b | ln2_g
+    # | ln2_b | fc1_s | fc2_s (| wo_s)], fp32
+    misc = torch.cat([t.float() for t in (*vecs, fc1_s, fc2_s)
+                      + ((wo_s,) if wo_s is not None else ())])
+    attn = torch.empty((B, T, d), dtype=h_in.dtype, device=h_in.device)
+    out = torch.empty_like(h_in)
+    err = lib.wt_encoder_tail_q8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), h_in.data_ptr(),
+        wo_t.data_ptr(), fc1_t.data_ptr(), fc2_t.data_ptr(), misc.data_ptr(),
+        attn.data_ptr(), out.data_ptr(), B, T, S, H, D, d, ff, float(eps),
+        int(wo_s is not None),
+        torch.cuda.current_stream(h_in.device).cuda_stream)
+    _build.check(lib, err, "encoder_block_tail_q8")
+    encoder_block_tail_q8.launches += 1
+    return out
+
+
+encoder_block_tail_q8.launches = 0  # kernel launches (CPU calls not counted)

@@ -30,8 +30,13 @@ Differences from the JAX engine, all deliberate:
     the device (`hashed_gumbel`), where JAX folds the position into a
     per-slot PRNG key: the same distribution, another stream, and still
     a function of the request alone, never of its slot or companions.
-  * Not ported yet: the int8 caches (ROADMAP Queue 1 item 6); they raise
-    NotImplementedError.
+
+The int8 caches run as in JAX, in its three modes (decoder_step_ragged):
+cross_kv_quant (the serving default, an int8 cross cache), self_kv_quant
+(bf16: an int8 self cache read scale-commuted in place, its rows appended
+by the ragged kernel on int8) and kv_cache_quant (capacity mode: both
+caches int8, each step's rows scattered quantized). Every cache leaf, the
+per-vector scales included, is filled and copied per joining row.
 """
 
 from __future__ import annotations
@@ -72,12 +77,16 @@ def _prefill_join(params, cfg: WhisperConfig, cache: dict, cross: dict,
     read reaches it.
 
     prompts: (B, p_pad) EOT-padded, row b = slot b; slots: (n,) the
-    joining slots' indices on the device."""
+    joining slots' indices on the device. The scratch takes the compute
+    dtype, so that init_kv_cache's rule gives it the state cache's layout
+    (int8 with scales, or not), and every leaf of it is copied, as JAX
+    merges every leaf (:62-69)."""
     B, p_pad = prompts.shape
-    scratch = init_kv_cache(cfg, B, cache["k"].dtype, p_pad, prompts.device)
+    scratch = init_kv_cache(cfg, B, compute_dtype(cfg), p_pad,
+                            prompts.device)
     decoder_hidden(params, cfg, prompts, 0, scratch, cross)
-    for name in ("k", "v"):
-        cache[name][:, :, :, :p_pad].index_copy_(
+    for name, leaf in cache.items():
+        leaf[:, :, :, :p_pad].index_copy_(
             1, slots, scratch[name].index_select(1, slots))
 
 
@@ -120,7 +129,12 @@ def _engine_step_impl(params, cfg: WhisperConfig, state: dict,
       seed (B,) int64          per-slot sampling seed (temperature > 0)
       rows (B,) int64          0..B-1, kept for indexing
       cache {k, v}             (L, B, H, n_text_ctx, D) self-attention cache
+                               (int8 with {k_s, v_s} (..., 1) fp32 scales
+                               under kv_cache_quant, or self_kv_quant in
+                               bf16)
       cross {k, v}             (L, B, H, n_audio_ctx, D) per-slot cross K/V
+                               (int8 with scales under kv_cache_quant or
+                               cross_kv_quant)
 
     The same rule stack as greedy_decode runs on the logits when `opts` is
     given, with per-row pos and prompt length; at opts.temperature > 0
@@ -234,13 +248,11 @@ class ContinuousBatcher:
         self.fill_buckets: collections.Counter = collections.Counter()
 
     def _fresh_state(self) -> dict:
-        """A zeroed device state (see _engine_step_impl)."""
+        """A zeroed device state (see _engine_step_impl), as JAX builds it
+        (:233): the self cache by init_kv_cache's rule; the cross cache
+        int8 under kv_cache_quant or cross_kv_quant, its scales starting at
+        1e-10."""
         cfg = self.cfg
-        if cfg.kv_cache_quant or cfg.cross_kv_quant or cfg.self_kv_quant:
-            raise NotImplementedError(
-                "int8 caches in the continuous engine (decoder_step_ragged "
-                "with the ragged int8 append) are not ported (ROADMAP "
-                "Queue 1 item 6)")
         dev, B = self.device, self.B
         dtype = compute_dtype(cfg)
         cache = init_kv_cache(cfg, B, dtype, cfg.n_text_ctx, dev)
@@ -249,6 +261,20 @@ class ContinuousBatcher:
 
         def full(value, dt):
             return torch.full((B,), value, dtype=dt, device=dev)
+
+        if cfg.kv_cache_quant or cfg.cross_kv_quant:
+            def scales():
+                return torch.full(cross_shape[:-1] + (1,), 1e-10,
+                                  dtype=torch.float32, device=dev)
+            cross = {"k": torch.zeros(cross_shape, dtype=torch.int8,
+                                      device=dev),
+                     "k_s": scales(),
+                     "v": torch.zeros(cross_shape, dtype=torch.int8,
+                                      device=dev),
+                     "v_s": scales()}
+        else:
+            cross = {name: torch.zeros(cross_shape, dtype=dtype, device=dev)
+                     for name in ("k", "v")}
 
         return {
             "tokens": torch.full((B, self.total), cfg.eot_token,
@@ -261,8 +287,7 @@ class ContinuousBatcher:
             "seed": full(0, torch.long),
             "rows": torch.arange(B, device=dev),
             "cache": cache,
-            "cross": {"k": torch.zeros(cross_shape, dtype=dtype, device=dev),
-                      "v": torch.zeros(cross_shape, dtype=dtype, device=dev)},
+            "cross": cross,
         }
 
     def reset_state(self) -> None:
@@ -436,9 +461,8 @@ class ContinuousBatcher:
             s["seed"].index_copy_(0, idx, self._to_device(seed_v))
             s["active"].index_fill_(0, idx, True)
             s["finished"].index_fill_(0, idx, False)
-            for name in ("k", "v"):
-                s["cross"][name].index_copy_(
-                    1, idx, cross[name][:, :n].to(s["cross"][name].dtype))
+            for name, leaf in s["cross"].items():
+                leaf.index_copy_(1, idx, cross[name][:, :n].to(leaf.dtype))
 
             # one batched prefill for every joining row
             p_max = max(len(p) for p in prompts)
