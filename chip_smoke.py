@@ -5,8 +5,9 @@ GPU: builds the kernels, holds each against its plain PyTorch version
 for the same function), drives two greedy main paths through the user
 entry points (batch 32, bf16, 89 greedy tokens: Whisper-tiny, whose
 encoder runs the fused tail kernel, and Whisper large-v3-turbo at full
-width and depth, whose encoder runs the tail-off branch through the
-flash-attention kernel), checks fp32 token parity with the CPU for both,
+width and depth, whose encoder runs it too; the turbo encoder's tail-off
+branch through the flash-attention kernel, WHISPER_TPU_FUSED_ENCODER=0,
+in turns against it), checks fp32 token parity with the CPU for both,
 runs the CLI once, and drives the continuous-batching engine
 (ContinuousBatcher: tiny with 32 slots and 96 requests, turbo with 8
 slots and 16 requests, bf16, two requests arriving before every second
@@ -43,15 +44,17 @@ read one decode_attention_q8_bh launch); temperature sampling through
 the pipeline (seeded, no masked token drawn) and the engine (a request's
 draws independent of its companions); and the CLI with --beam and
 --temperature from a checkpoint that the port's save_npz wrote. Then the
-rest of int8: the tail kernel's int8 form (encoder_block_tail_q8) and the
-ragged append on int8 rows against their plain versions, timed beside
-their bounds; tiny b32 bf16 through the pipeline with the encoder's int8
-tail (encoder_mlp_quant + encoder_qkv_quant: one int8 tail launch a
-layer) and with encoder_quant (no tail launch), each against the
-unquantized path in turns and its logits against the CPU; and the engine
-on int8 caches: tiny (32 slots, 96 requests) and medium at full width and
-depth (8 slots, 16 requests; its int8 self cache takes one int8 ragged
-append a step) under quant="auto" as the JAX server builds the engine,
+rest of int8: the tail kernel's int8 form (encoder_block_tail_q8, tiny to
+turbo widths) and the ragged append on int8 rows against their plain
+versions, timed beside their bounds; turbo b32 under the serving policy
+(one int8 tail launch a layer); tiny b32 bf16 through the pipeline with
+the encoder's int8 tail (encoder_mlp_quant + encoder_qkv_quant: one int8
+tail launch a layer) and with encoder_quant (no tail launch), each
+against the unquantized path in turns and its logits against the CPU;
+and the engine on int8 caches: tiny (32 slots, 96 requests) and medium at
+full width and depth (8 slots, 16 requests; its int8 self cache takes one
+int8 ragged append a step, its encoder one int8 tail launch a layer)
+under quant="auto" as the JAX server builds the engine,
 and tiny fp32 with the int8 cross cache under "pallas_interpret" (every
 cross read one decode_attention_q8_bh launch; tokens equal to the CPU
 engine's), each request's tokens equal to its solo run.
@@ -60,7 +63,8 @@ engine's), each request's tokens equal to its solo run.
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--profile` adds the kernels' build timed serial against parallel, the
-int8 engines under torch.profiler, the
+tail's launches at turbo b32 by kernel, the int8 engines under
+torch.profiler, the
 names of SDPA's fp32 kernels, the decode kernel by replay at forced split
 counts, and after each greedy main path (of the "pallas" ones, tiny's):
 the wall of five more main-path runs, the peak device memory, and one
@@ -189,18 +193,25 @@ FLASH_TIME_FP32 = ("turbo_layer", "tiny_layer")
 # the bf16 and fp32 flash kernels' symbols (both causal instantiations)
 FLASH_BF16_KERNEL = "2tc12flash_kernel"
 FLASH_FP32_KERNEL = "4simt12flash_kernel"
-# the tail's bf16 (wgmma) and fp32 (CUDA-core) MLP kernels, and the fused
-# decoder step's kernel (both element types)
-TAIL_BF16_KERNEL = "2tc10mlp_kernel"
-TAIL_FP32_KERNEL = "4simt10mlp_kernel"
+# the fused decoder step's kernel (both element types)
 FUSED_KERNEL = "17fused_step_kernel"
-TAIL_Q8_KERNEL = "2q810mlp_kernel"    # the tail's int8 form (mma.sync s8)
+# the tail's MLP tiles, by form (the template argument's mangled name):
+# bf16 wgmma (MN-major weights), the int8 form's bf16 o-projection (K-major
+# weights), wgmma on s8, fp32 on the CUDA cores
+TAIL_KERNEL = "11tile_kernel"
+TAIL_FORMS = {"bf16": "4BF16E", "bf16_kmajor": "7BF16_KBE", "int8": "2I8E",
+              "fp32": "3F32E"}
+# the tail's LN2 launch and its int8 form's row quantization
+TAIL_LN_KERNEL, TAIL_QUANT_KERNEL = "9ln_kernel", "10quant_rows"
 # the tail against its plain version: fp32 FMAs against cuBLAS fp32 (1e-4);
 # bf16 one bf16 ulp of the O(4) outputs (0.06, rtol 2e-2), where sums in
 # another order land on the other side of a rounding point
 TAIL_TOL = {"float32": (1e-4, 0.0), "bfloat16": (0.06, 2e-2)}
-# the tail_vs_plain cases: (model, batch); tiny and base at T = 1500
-TAIL_CASES = (("tiny", TAIL_CHECK_BATCH), ("base", 2))
+# the tail_vs_plain cases: (model, batch) at T = 1500, tiny to turbo
+TAIL_CASES = (("tiny", TAIL_CHECK_BATCH), ("base", 2), ("small", 2),
+              ("medium", 1), (TURBO, 1))
+# tail_time and tail_int8_time: one encoder layer of each width at b32
+TAIL_TIME_MODELS = ("tiny", "small", "medium", TURBO)
 # the tail's int8 form against its plain version, bf16, (atol, rtol).
 # "same_attention": against the plain MLP fed the kernel's own attention
 # rows. The int32 sums are exact and the GeLU is torch's formula, so only
@@ -214,7 +225,8 @@ TAIL_CASES = (("tiny", TAIL_CHECK_BATCH), ("base", 2))
 # quantization: 0.25, rtol 2e-2.
 TAIL_Q8_TOL = {"same_attention": (0.15, 2e-2), "plain": (0.25, 2e-2)}
 TAIL_Q8_ROWS_DIFFERING = 0.15
-TAIL_Q8_CASES = (("tiny", BATCH), ("base", BATCH))
+TAIL_Q8_CASES = (("tiny", BATCH), ("base", BATCH), ("small", 2),
+                 ("medium", 1), (TURBO, 1))
 # the engine's int8 phases: medium (the smallest model whose serving
 # default adds the int8 self cache) and the fp32 int8-cross engine
 MEDIUM_ENGINE_REQUESTS, MEDIUM_ENGINE_MAX_NEW = 16, 24   # 8 slots
@@ -229,7 +241,8 @@ FUSED_PHASE_STEPS = 20
 
 # --only: the standalone phases (functions of the card line alone), by name
 ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
-        "tail_int8": "tail_int8_checks", "ragged_int8": "ragged_int8_checks",
+        "tail_int8": "tail_int8_checks", "tail_phases": "tail_breakdown",
+        "ragged_int8": "ragged_int8_checks",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time"}
@@ -279,8 +292,11 @@ def alternate_ms(plain, kernel, iters: int) -> tuple[float, float]:
 
 
 def tail_inputs(cfg, B: int, dtype, seed: int):
-    """Tiny-width tail operands with non-zero biases and LN parameters
-    (a random init's are zeros and ones)."""
+    """Tail operands at cfg's width with non-zero biases and LN parameters
+    (a random init's are zeros and ones). The matrices at 0.05 up to d =
+    512 (tiny, base), wider at 1/sqrt(fan-in) (0.05 at tiny's 384), which
+    keeps the wide layers' activations at tiny's scale, where the
+    tolerances were stated."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     T, H, D, d, ff = cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim, \
@@ -289,8 +305,9 @@ def tail_inputs(cfg, B: int, dtype, seed: int):
     def r(*s, scale=1.0, shift=0.0):
         return (torch.randn(*s, generator=g) * scale + shift).cuda()
 
+    sd, sf = (0.05, 0.05) if d <= 512 else (d ** -0.5, ff ** -0.5)
     mats = [r(B, T, H, D), r(B, H, T, D), r(B, H, T, D), r(B, T, d),
-            r(d, d, scale=0.05), r(d, ff, scale=0.05), r(ff, d, scale=0.05)]
+            r(d, d, scale=sd), r(d, ff, scale=sd), r(ff, d, scale=sf)]
     vecs = [r(d, scale=0.1), r(ff, scale=0.1), r(d, scale=0.1),
             r(d, scale=0.2, shift=1.0), r(d, scale=0.1)]
     return [m.to(dtype) for m in mats] + vecs
@@ -666,13 +683,14 @@ def composed_tail(q, k, v, h, wo, fc1, fc2, o_b, fc1_b, fc2_b, g, b,
 
 
 def tail_checks(card: str) -> dict:
-    """tail_vs_plain: the kernel against its plain version at tiny (B=4)
-    and base (B=2) widths, T = 1500, fp32 and bf16, and at the main path's
-    b32 bf16. tail_time at tiny b32: bf16 and fp32, each in turns against
-    its plain version and against the tail composed from SDPA, three
-    matmuls and torch epilogues (composed_tail), beside the bf16 bound (on
-    the bf16 peak) and the fp32 bound (on the fp32 peak). Returns the
-    kernels-line numbers (b32 bf16)."""
+    """tail_vs_plain: the kernel against its plain version at tiny (B=4),
+    base (B=2), small (B=2), medium and turbo (B=1) widths, T = 1500, fp32
+    and bf16, and at b32. tail_time at tiny, small, medium and turbo b32:
+    bf16 and fp32, each in turns against its plain version and against the
+    tail composed from SDPA, three matmuls and torch epilogues
+    (composed_tail), beside the bf16 bound (on the bf16 peak) and the fp32
+    bound (on the fp32 peak). Returns the kernels-line numbers (tiny b32
+    bf16, the other widths' beside them)."""
     import torch
 
     from whisper_tpu_torch import get_config
@@ -699,40 +717,51 @@ def tail_checks(card: str) -> dict:
             require(ok, f"encoder_block_tail {model} {dtype} disagrees with "
                         f"its plain version (max abs err {float(err.max())})")
             del args, got, want, err
-    cfg = get_config("tiny")
-    B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
-    d, ff = cfg.d_model, cfg.d_ff
-    flops = 4 * B * H * T * T * D + 2 * B * T * d * d + 4 * B * T * d * ff
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        atol, rtol = TAIL_TOL[name]
-        e = dtype.itemsize
-        args = tail_inputs(cfg, BATCH, dtype, seed=2)
-        got = encoder_block_tail(*args).float()
-        want = encoder_block_tail_plain(*args).float()
-        err = (got - want).abs()
-        max_err = float(err.max())
-        require(bool((err <= atol + rtol * want.abs()).all()),
-                f"encoder_block_tail b32 {name} max abs err {max_err}")
-        del got, want, err
-        ms, plain_ms = alternate_ms(lambda: encoder_block_tail_plain(*args),
-                                    lambda: encoder_block_tail(*args), 5)
-        ms2, composed_ms = alternate_ms(lambda: composed_tail(*args),
-                                        lambda: encoder_block_tail(*args), 5)
-        # q, k, v, h in and h out, the three matrices, the five fp32 vectors
-        moved = 5 * B * T * d * e + (d * d + 2 * d * ff) * e + (4 * d + ff) * 4
-        line = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                **bound(moved, flops, "bfloat16"), "library_ms": None}
-        emit({"phase": "tail_time", "shape": [B, T, H, D], "dtype": name,
-              **line, "ms_beside_composed": ms2,
-              "composed_context_ms": composed_ms,
-              "fp32_bound_ms": bound(moved, flops, "float32")["bound_ms"],
-              "tflops": flops / (ms * 1e9), "card": card})
-        if dtype == torch.bfloat16:
-            out = line
-        del args
-        torch.cuda.empty_cache()
+    for model in TAIL_TIME_MODELS:
+        cfg = get_config(model)
+        B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
+        d, ff = cfg.d_model, cfg.d_ff
+        flops = (4 * B * H * T * T * D + 2 * B * T * d * d
+                 + 4 * B * T * d * ff)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            atol, rtol = TAIL_TOL[name]
+            e = dtype.itemsize
+            args = tail_inputs(cfg, BATCH, dtype, seed=2)
+            got = encoder_block_tail(*args).float()
+            want = encoder_block_tail_plain(*args).float()
+            err = (got - want).abs()
+            max_err = float(err.max())
+            require(bool((err <= atol + rtol * want.abs()).all()),
+                    f"encoder_block_tail {model} b32 {name} max abs err "
+                    f"{max_err}")
+            del got, want, err
+            ms, plain_ms = alternate_ms(
+                lambda: encoder_block_tail_plain(*args),
+                lambda: encoder_block_tail(*args), 5)
+            ms2, composed_ms = alternate_ms(
+                lambda: composed_tail(*args),
+                lambda: encoder_block_tail(*args), 5)
+            # q, k, v, h in and h out, the three matrices, the five fp32
+            # vectors
+            moved = (5 * B * T * d * e + (d * d + 2 * d * ff) * e
+                     + (4 * d + ff) * 4)
+            line = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(moved, flops, "bfloat16"), "library_ms": None}
+            emit({"phase": "tail_time", "model": model,
+                  "shape": [B, T, H, D], "d": d, "ff": ff, "dtype": name,
+                  **line, "ms_beside_composed": ms2,
+                  "composed_context_ms": composed_ms,
+                  "fp32_bound_ms": bound(moved, flops, "float32")["bound_ms"],
+                  "tflops": flops / (ms * 1e9), "card": card})
+            if dtype == torch.bfloat16:
+                if model == "tiny":
+                    out = line
+                else:
+                    out[model + "_b32"] = line
+            del args
+            torch.cuda.empty_cache()
     return out
 
 
@@ -777,7 +806,7 @@ def tail_gate(card: str) -> None:
             encoder_block_tail_q8(*tail_q8_inputs(cfg, 1, seed=4, o_q=True))
             torch.cuda.synchronize()
             runs8 = True
-        except ValueError:              # the wrapper's refusal: d > 512
+        except ValueError:              # the wrapper's refusal: d > 1280
             runs8 = False
         rows.append({"model": name, "d": cfg.d_model, "smem_bytes": smem,
                      "gate_fits": fits, "kernel_runs": runs,
@@ -791,9 +820,8 @@ def tail_gate(card: str) -> None:
           "card": card})
     require(ok, "the tail gate disagrees with the tail kernel")
     for key in ("gate_fits", "int8_gate_fits"):
-        require([r[key] for r in rows] == [True, True, False, False, False],
-                f"tiny and base must take the tail, small and up must not "
-                f"({key})")
+        require([r[key] for r in rows] == [True] * 5,
+                f"every width from tiny to turbo must take the tail ({key})")
 
 
 def tail_q8_inputs(cfg, B: int, seed: int, o_q: bool):
@@ -857,14 +885,15 @@ def tail_q8_bound(B: int, T: int, H: int, D: int, d: int, ff: int) -> dict:
 
 def tail_int8_checks(card: str) -> dict:
     """tail_int8_vs_plain: the int8 form's kernel (encoder_block_tail_q8)
-    at tiny b32 and base b32, with the int8 o-projection and without it
-    (WHISPER_TPU_ENC_I8O=0): against the plain MLP fed the kernel's own
-    attention rows (tail_q8_mlp after the flash kernel) and against the
-    whole plain version, at TAIL_Q8_TOL. tail_int8_time at tiny b32 (the
-    encoder's form, o_q): the kernel in turns against its plain version,
-    beside the bf16 tail kernel at the same shape, the composed library
-    calls (composed_tail_q8) and the bound. Returns the kernels-line
-    numbers."""
+    at tiny b32, base b32, small (B=2), medium and turbo (B=1), with the
+    int8 o-projection and without it (WHISPER_TPU_ENC_I8O=0): against the
+    plain MLP fed the kernel's own attention rows (tail_q8_mlp after the
+    flash kernel) and against the whole plain version, at TAIL_Q8_TOL.
+    tail_int8_time at tiny, small, medium and turbo b32 (the encoder's
+    form, o_q): the kernel in turns against its plain version, beside the
+    bf16 tail kernel at the same shape, the composed library calls
+    (composed_tail_q8) and the bound. Returns the kernels-line numbers
+    (tiny, the other widths' beside)."""
     import torch
 
     from whisper_tpu_torch import get_config
@@ -914,24 +943,72 @@ def tail_int8_checks(card: str) -> dict:
             max_err = max(max_err, line["plain"]["max_abs_err"])
             del args, got, same
             torch.cuda.empty_cache()
-    cfg = get_config("tiny")
-    B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
-    args = tail_q8_inputs(cfg, B, seed=2, o_q=True)
-    ms, plain_ms = alternate_ms(lambda: encoder_block_tail_q8_plain(*args),
-                                lambda: encoder_block_tail_q8(*args), 5)
-    ms2, composed_ms = alternate_ms(lambda: composed_tail_q8(*args),
-                                    lambda: encoder_block_tail_q8(*args), 5)
-    bargs = tail_inputs(cfg, B, torch.bfloat16, seed=2)
-    bf16_ms = cuda_ms(lambda: encoder_block_tail(*bargs), 5)
-    out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-           **tail_q8_bound(B, T, H, D, cfg.d_model, cfg.d_ff),
-           "library_ms": None}
-    emit({"phase": "tail_int8_time", "shape": [B, T, H, D], **out,
-          "ms_beside_composed": ms2, "composed_context_ms": composed_ms,
-          "bf16_tail_ms": bf16_ms, "card": card})
-    del args, bargs
-    torch.cuda.empty_cache()
+    out = {}
+    for model in TAIL_TIME_MODELS:
+        cfg = get_config(model)
+        B, T, H, D = BATCH, cfg.n_audio_ctx, cfg.n_heads, cfg.head_dim
+        args = tail_q8_inputs(cfg, B, seed=2, o_q=True)
+        ms, plain_ms = alternate_ms(
+            lambda: encoder_block_tail_q8_plain(*args),
+            lambda: encoder_block_tail_q8(*args), 5)
+        ms2, composed_ms = alternate_ms(lambda: composed_tail_q8(*args),
+                                        lambda: encoder_block_tail_q8(*args),
+                                        5)
+        bargs = tail_inputs(cfg, B, torch.bfloat16, seed=2)
+        bf16_ms = cuda_ms(lambda: encoder_block_tail(*bargs), 5)
+        line = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                **tail_q8_bound(B, T, H, D, cfg.d_model, cfg.d_ff),
+                "library_ms": None}
+        emit({"phase": "tail_int8_time", "model": model,
+              "shape": [B, T, H, D], "d": cfg.d_model, "ff": cfg.d_ff,
+              **line, "ms_beside_composed": ms2,
+              "composed_context_ms": composed_ms, "bf16_tail_ms": bf16_ms,
+              "card": card})
+        if model == "tiny":
+            out = line
+        else:
+            out[model + "_b32"] = line
+        del args, bargs
+        torch.cuda.empty_cache()
     return out
+
+
+def tail_breakdown(card: str) -> None:
+    """tail_phases: the tail's launches at turbo b32 by kernel, device time
+    under torch.profiler over three calls: the flash attention, the MLP
+    tiles (O_PROJ, FC1, FC2), LN2 and the int8 form's row quantizations,
+    in bf16, fp32 and the int8 form (o_q)."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_q8,
+    )
+    cfg = get_config(TURBO)
+    for form in ("bfloat16", "float32", "int8"):
+        if form == "int8":
+            fn, args = encoder_block_tail_q8, tail_q8_inputs(cfg, BATCH, 2,
+                                                             True)
+        else:
+            fn, args = encoder_block_tail, tail_inputs(
+                cfg, BATCH, getattr(torch, form), seed=2)
+        fn(*args)
+        torch.cuda.synchronize()
+
+        def run():
+            for _ in range(3):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels, device_ms = device_kernels(profiled(run))
+        emit({"phase": "tail_phases", "model": TURBO, "batch": BATCH,
+              "form": form, "device_ms_per_call": device_ms / 3,
+              "kernels": [{"kernel": e.key[:110],
+                           "ms_per_call": e.self_device_time_total / 3e3,
+                           "count": e.count} for e in kernels[:8]],
+              "card": card})
+        del args
+        torch.cuda.empty_cache()
 
 
 def ragged_int8_checks(card: str) -> dict:
@@ -1229,33 +1306,41 @@ def flash_sass(card: str) -> None:
         for c in fp32.values()),
             f"flash_sass: the fp32 flash kernels must run FFMA and no "
             f"tensor-core instruction ({fp32})")
-    # the tail's MLP: HGMMA in bf16; in fp32 FFMA and no tensor-core
-    # instruction; neither spills. The fused step's kernels as built.
-    ops = ("FFMA", "HMMA", "HGMMA", "IMMA", "LDS", "MUFU")
-    for label, symbol in (("tail_mlp", TAIL_BF16_KERNEL),
-                          ("tail_mlp", TAIL_FP32_KERNEL),
-                          ("tail_mlp_int8", TAIL_Q8_KERNEL),
+    # the tail's MLP tiles: wgmma in bf16 and int8; in fp32 FFMA and no
+    # tensor-core instruction; none spills. The fused step's kernels as
+    # built.
+    ops = ("FFMA", "HMMA", "HGMMA", "IGMMA", "IMMA", "LDS", "MUFU")
+    for label, symbol in (*(("tail_mlp_" + f, (TAIL_KERNEL, frag))
+                            for f, frag in TAIL_FORMS.items()),
+                          ("tail_ln2", TAIL_LN_KERNEL),
+                          ("tail_quant_rows", TAIL_QUANT_KERNEL),
                           ("fused_step", FUSED_KERNEL)):
-        counts = sass_counts(sass, symbol, ops)
+        frag = None
+        if isinstance(symbol, tuple):
+            symbol, frag = symbol
+        counts = {f: c for f, c in sass_counts(sass, symbol, ops).items()
+                  if frag is None or frag in f}
         regs, spills = ptxas_lines(log, symbol)
+        regs = {f: t for f, t in regs.items() if frag is None or frag in f}
+        spills = {f: t for f, t in spills.items()
+                  if frag is None or frag in f}
         spilled = {f: spill_bytes(t) for f, t in spills.items()}
         emit({"phase": "flash_sass", "kernel": label, "symbol": symbol,
-              "counts": counts, "registers": regs, "spills": spills,
-              "card": card})
+              "form": frag, "counts": counts, "registers": regs,
+              "spills": spills, "card": card})
         require(len(counts) > 0 and all(n == 0 for n in spilled.values()),
                 f"flash_sass: {symbol} missing or spilling ({spilled})")
-        if symbol == TAIL_BF16_KERNEL:
+        if frag in (TAIL_FORMS["bf16"], TAIL_FORMS["bf16_kmajor"]):
             require(all(c["HGMMA"] > 0 for c in counts.values()),
                     f"flash_sass: the bf16 tail MLP runs no HGMMA ({counts})")
-        elif symbol == TAIL_FP32_KERNEL:
+        elif frag == TAIL_FORMS["int8"]:
+            require(all(c["HGMMA"] + c["IGMMA"] > 0 for c in counts.values()),
+                    f"flash_sass: the int8 tail MLP runs no wgmma ({counts})")
+        elif frag == TAIL_FORMS["fp32"]:
             require(all(c["FFMA"] > 0 and c["HMMA"] == 0 and c["HGMMA"] == 0
                         for c in counts.values()),
                     f"flash_sass: the fp32 tail MLP must run FFMA and no "
                     f"tensor-core instruction ({counts})")
-        elif symbol == TAIL_Q8_KERNEL:
-            require(len(counts) == 2 and all(c["IMMA"] > 0
-                                             for c in counts.values()),
-                    f"flash_sass: the int8 tail MLP runs no IMMA ({counts})")
 
 
 def spill_bytes(line) -> int:
@@ -2239,7 +2324,8 @@ def solo_identity(make_engine, request, want: list, label: str,
 
 
 def continuous_quant(params, kernels: dict, unquantized_tokens_per_s: float,
-                     card: str, profile: bool = False) -> tuple[int, int]:
+                     card: str, profile: bool = False
+                     ) -> tuple[int, int, int]:
     """The continuous engine on int8 caches. (a) Tiny, 32 slots, 96
     requests (the existing traffic) under quant="auto" as the JAX server
     builds it (the pipeline's config and params, no batch hint): weight-only
@@ -2247,15 +2333,16 @@ def continuous_quant(params, kernels: dict, unquantized_tokens_per_s: float,
     unquantized engine's in this process. (b) Medium at full width and
     depth under quant="auto": weight-only int8, the int8 cross cache, the
     int8 self cache (one int8 ragged append launch a step) and the two
-    encoder tail flags, which are no-ops with the tail off. (c) Tiny fp32
+    encoder tail flags: the tail's int8 form, one launch a layer a fill
+    (24), with the int8 QKV in front. (c) Tiny fp32
     with the int8 cross cache under "pallas_interpret", the backend under
     which JAX's ragged step sends its T==1 int8 cross read to
     decode_attention_q8_bh: one launch per layer per step; two requests'
     tokens against the CPU engine's. In each, one request alone equals its
     tokens in the crowd. With `profile`, (a) and (b) are driven once more
     under torch.profiler (profile_engine). Returns the medium engine's
-    ragged launches and the fp32 engine's decode_attention_q8_bh
-    launches."""
+    ragged launches, the fp32 engine's decode_attention_q8_bh launches and
+    the medium engine's int8 tail launches."""
     import torch
 
     from whisper_tpu_torch import get_config
@@ -2319,8 +2406,11 @@ def continuous_quant(params, kernels: dict, unquantized_tokens_per_s: float,
     line["init_s"] = init_s
     line["self_cache_dtype"] = str(engine.state["cache"]["k"].dtype)
     line["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    medium = check_engine_launches(line, engine, mpipe.cfg,
-                                   mcfg.n_audio_layers)
+    medium = check_engine_launches(line, engine, mpipe.cfg, 0)
+    require(medium["encoder_block_tail_q8"]
+            == mcfg.n_audio_layers * line["fills"] > 0,
+            "continuous_quant_medium: not one int8 tail launch per encoder "
+            "layer a fill")
     if profile:
         profile_engine(rerun, line["wall_s"], "medium_auto", card)
     del engine, rerun
@@ -2358,7 +2448,8 @@ def continuous_quant(params, kernels: dict, unquantized_tokens_per_s: float,
     del cpu
     gc.collect()
     torch.cuda.empty_cache()
-    return medium["cache_append_rows_ragged"], q8_launches
+    return (medium["cache_append_rows_ragged"], q8_launches,
+            medium["encoder_block_tail_q8"])
 
 
 def routed(cfg, B: int, T: int, S: int, route: str) -> int:
@@ -2518,9 +2609,9 @@ def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
                           ) -> dict:
     """Emit the engine's phase line and hold its launch counts to the path
     under cfg.attn_backend and its caches: one ragged append per engine
-    step and no scalar append; per fill, the encoder's tail launches
-    (tiny, base; the int8 form under encoder_mlp_quant in bf16) or its
-    flash launches (small and up, `flash_per_encode`) and the prefill's
+    step and no scalar append; per fill, the encoder's tail launches (the
+    int8 form under encoder_mlp_quant in bf16), or with `flash_per_encode`
+    its flash launches (the tail off), and the prefill's
     flash launches by the switch; for every layer's T==1 cross read at
     each step, and for detect_language's self (one of 64 slots) and cross
     reads, the kernel `read_route` names: decode_attention_bh ("pallas")
@@ -3129,6 +3220,8 @@ def main() -> int:
     tail = tail_checks(card)
     tail_gate(card)
     tail8 = tail_int8_checks(card)
+    if opts.profile:
+        tail_breakdown(card)
 
     L, H, S, D = cfg.n_text_layers, cfg.n_heads, 128, cfg.head_dim
     shape = (L, BATCH, H, S, D)
@@ -3311,7 +3404,7 @@ def main() -> int:
 
     # 4b-int8. the engine on int8 caches: tiny and medium under the serving
     # default, tiny fp32 with the int8 cross cache
-    medium_ragged, q8_engine_launches = continuous_quant(
+    medium_ragged, q8_engine_launches, medium_tail8 = continuous_quant(
         params, kernels, engine_tokens_per_s, card, opts.profile)
 
     # 4c. the engine's tokens: schedule independence and greedy's tokens
@@ -3411,7 +3504,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # 7. large-v3-turbo at full width and depth: the tail-off encoder
+    # 7. large-v3-turbo at full width and depth: the tail, one launch a
+    # layer
     tcfg = get_config(TURBO)
     t0 = time.perf_counter()
     tparams = weights.init_params(tcfg, seed=0)
@@ -3427,15 +3521,29 @@ def main() -> int:
         require(pipe.tokenizer.vocab_size == tcfg.vocab_size,
                 "turbo vocab table size")
         run, audio, bias, line = main_path(
-            pipe, kernels, {"flash_attention": tcfg.n_audio_layers,
-                            "encoder_block_tail": 0,
+            pipe, kernels, {"flash_attention": 0,
+                            "encoder_block_tail": tcfg.n_audio_layers,
                             "cache_append_rows": GEN_TOKENS - 1,
                             "cache_append_rows_ragged": 0, **no_q8}, card)
         turbo_launches, turbo_peak = line["launches"], line["peak_mem_gb"]
         main_path_stages(pipe, audio, bias, card)
+        # 7-off. the tail-off encoder (WHISPER_TPU_FUSED_ENCODER=0: flash,
+        # then cuBLAS and torch epilogues), its launches, and its wall in
+        # turns against the tail
+        tail_off = {"WHISPER_TPU_FUSED_ENCODER": "0"}
+        opipe = EnvPipeline(pipe, tail_off)
+        _, _, _, line = main_path(
+            opipe, kernels, {"flash_attention": tcfg.n_audio_layers,
+                             "encoder_block_tail": 0,
+                             "cache_append_rows": GEN_TOKENS - 1,
+                             "cache_append_rows_ragged": 0, **no_q8}, card,
+            label="turbo_tail_off")
+        tail_off_launches = line["launches"]
+        on_off_ab("tail_ab", {"off": opipe, "on": pipe}, audio, bias, card)
+        del opipe
         # 7-beam. turbo b8 x beam 5 (40 decode rows), on the same pipeline
         beam_main_path(pipe, kernels, BEAM_TURBO_BATCH,
-                       {"flash_attention": tcfg.n_audio_layers}, card,
+                       {"encoder_block_tail": tcfg.n_audio_layers}, card,
                        opts.profile)
 
         # 7'. turbo with the fused step, on the same device params
@@ -3444,8 +3552,8 @@ def main() -> int:
             device="cuda", vocab_path=vocab, quant="off")
         _, _, _, line = main_path(
             fpipe, kernels, {"fused_decoder_step": GEN_TOKENS - 1,
-                             "flash_attention": tcfg.n_audio_layers,
-                             "encoder_block_tail": 0,
+                             "flash_attention": 0,
+                             "encoder_block_tail": tcfg.n_audio_layers,
                              "cache_append_rows": GEN_TOKENS - 1,
                              "cache_append_rows_ragged": 0,
                              "decode_attention_q8_bh": 0,
@@ -3470,12 +3578,12 @@ def main() -> int:
             dtype="bfloat16", device="cuda", vocab_path=vocab, quant="off"),
             IP_CROSS_BG8)
         main_path(bpipe, kernels,
-                  {"flash_attention": tcfg.n_audio_layers
-                   + 2 * tcfg.n_text_layers,
+                  {"flash_attention": 2 * tcfg.n_text_layers,
                    "decode_attention_bg":
                    tcfg.n_text_layers * (GEN_TOKENS - 1),
                    "cache_append_rows": GEN_TOKENS - 1,
-                   "encoder_block_tail": 0, "decode_attention_bh": 0,
+                   "encoder_block_tail": tcfg.n_audio_layers,
+                   "decode_attention_bh": 0,
                    "decode_attention": 0, "cache_append_rows_ragged": 0,
                    "decode_attention_q8_bh": 0, "decode_attention_q8": 0,
                    "fused_decoder_step": 0}, card, label="pallas_turbo")
@@ -3497,10 +3605,10 @@ def main() -> int:
         line = continuous_run(
             engine, engine_traffic(tcfg, TURBO_ENGINE_REQUESTS, seed=1),
             kernels, "continuous_turbo", card)[0]
-        check_engine_launches(line, engine, tcfg, tcfg.n_audio_layers)
-        require(line["launches"]["flash_attention"]
-                >= tcfg.n_audio_layers * line["fills"],
-                "continuous_turbo: fewer flash launches than encoder layers")
+        check_engine_launches(line, engine, tcfg, 0)
+        require(line["launches"]["encoder_block_tail"]
+                == tcfg.n_audio_layers * line["fills"] > 0,
+                "continuous_turbo: not one tail launch per encoder layer")
         del pipe, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -3510,8 +3618,9 @@ def main() -> int:
         emit({"phase": "turbo_fp32_parity", **parity})
 
         # 8b. turbo b32 bf16 with the serving policy (weight-only int8, the
-        # int8 cross cache; the encoder's int8 flags are no-ops with the
-        # tail off) plus the int8 self cache, at full width and depth
+        # int8 cross cache, the encoder's int8 MLP and o-projection in the
+        # tail and its int8 QKV) plus the int8 self cache, at full width
+        # and depth
         scfg = apply_serving_quant(
             tcfg.replace(compute_dtype="bfloat16"), batch=BATCH
         ).replace(self_kv_quant=True)
@@ -3523,11 +3632,12 @@ def main() -> int:
             "encoder_mlp_quant", "encoder_qkv_quant"],
             f"turbo serving quant: {quant_flags(spipe.cfg)}")
         srun, audio, bias, line = main_path(
-            spipe, kernels, {"flash_attention": tcfg.n_audio_layers,
-                             "encoder_block_tail": 0,
-                             "cache_append_rows": GEN_TOKENS - 1,
-                             "cache_append_rows_ragged": 0, **no_q8}, card,
-            label="serving_turbo")
+            spipe, kernels, {"cache_append_rows": GEN_TOKENS - 1,
+                             "cache_append_rows_ragged": 0, **no_q8,
+                             "flash_attention": 0, "encoder_block_tail": 0,
+                             "encoder_block_tail_q8": tcfg.n_audio_layers},
+            card, label="serving_turbo")
+        serving_turbo_q8 = line["launches"]["encoder_block_tail_q8"]
         L, H, S, D = (tcfg.n_text_layers, tcfg.n_heads, tcfg.n_audio_ctx,
                       tcfg.head_dim)
         emit({"phase": "turbo_memory", "peak_mem_gb_off": turbo_peak,
@@ -3539,6 +3649,10 @@ def main() -> int:
         if opts.profile:
             profile_path("large-v3-turbo_serving", tcfg, card, srun)
         del srun
+        # the serving policy's encoder with the tail off (flash, the int8
+        # flags no-ops) in turns against the int8 tail
+        on_off_ab("tail_ab_auto", {"off": EnvPipeline(spipe, tail_off),
+                                   "on": spipe}, audio, bias, card)
         opipe = WhisperPipeline.from_params(tparams, TURBO, dtype="bfloat16",
                                             device="cuda", vocab_path=vocab,
                                             quant="off")
@@ -3549,17 +3663,22 @@ def main() -> int:
 
     # 9. results
     emit({"kernels": [
+        # timed at tiny b32 bf16 (turbo's beside); launches from the tiny
+        # main path (turbo's beside)
         {"name": "encoder_block_tail", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
-         "launches": tiny_launches["encoder_block_tail"], **tail},
-        # the int8 form (mlp_q, o_q), timed at tiny b32; launches from
-        # encoder_int8_path; no one PyTorch call computes it (tail_int8_time
+         "launches": tiny_launches["encoder_block_tail"],
+         "turbo_launches": turbo_launches["encoder_block_tail"], **tail},
+        # the int8 form (mlp_q, o_q), timed at tiny b32 (turbo's beside);
+        # launches from encoder_int8_path (turbo serving's and the medium
+        # engine's beside); no one PyTorch call computes it (tail_int8_time
         # gives the composed library calls as context)
         {"name": "encoder_block_tail_q8", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
-         "launches": tail8_launches, **tail8},
+         "launches": tail8_launches, "turbo_launches": serving_turbo_q8,
+         "medium_engine_launches": medium_tail8, **tail8},
         {"name": "cache_append_rows", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",
@@ -3567,10 +3686,13 @@ def main() -> int:
          "max_abs_err": append_err,
          "ms": append_ms, "plain_ms": append_plain_ms, **append_bound,
          "library_ms": append_plain_ms},
+        # launches from the turbo main path with the tail off
+        # (WHISPER_TPU_FUSED_ENCODER=0; with the tail on it runs inside
+        # the tail, not through this wrapper)
         {"name": "flash_attention", "route": "cuda",
          "source": "whisper_tpu_torch/csrc/flash_attention.cu",
          "replaces": "whisper_tpu/ops/flash_attention.py:112",
-         "launches": turbo_launches["flash_attention"],
+         "launches": tail_off_launches["flash_attention"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],

@@ -218,10 +218,9 @@ def test_v3_nano_greedy_matches_jax(v3_nano, v3_vocab, tail, monkeypatch):
     decodes with)."""
     from whisper_tpu.audio import log_mel_spectrogram as jax_log_mel
     from whisper_tpu.models.whisper import encoder_forward as jax_encoder
-    from whisper_tpu_torch.ops import encoder_layer
     cfg, np_tree = v3_nano
     if tail == "off":
-        monkeypatch.setattr(encoder_layer, "SM90_SMEM_OPTIN", 0)
+        monkeypatch.setenv("WHISPER_TPU_FUSED_ENCODER", "0")
     rng = np.random.RandomState(6)
     t = np.arange(cfg.n_samples) / cfg.sample_rate
     audio = np.stack([0.3 * np.sin(2 * np.pi * 300 * t),

@@ -469,16 +469,17 @@ def test_unknown_backend_raises(quant, monkeypatch):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_encoder_tail_mode_under_reference(name, monkeypatch):
     """"reference" turns the tail off at every width, from the config or
-    from WHISPER_TPU_ATTN, as the JAX gate does; "pallas" keeps the port's
-    shared-memory rule (tiny and base take the tail)."""
+    from WHISPER_TPU_ATTN, as the JAX gate does; "pallas" takes the tail
+    at every width, as the JAX gate does (the port's rule takes every
+    Whisper width)."""
     cfg = CONFIGS[name]
     dev = torch.device("cpu")
     ref = cfg.replace(attn_backend="reference")
     assert jm._encoder_tail_mode(ref, 1, cfg.n_audio_ctx) == "off"
     assert tm._encoder_tail_mode(ref, dev) == "off"
-    tail = "tail" if name.split(".")[0] in ("tiny", "base") else "off"
-    assert tm._encoder_tail_mode(cfg.replace(attn_backend="pallas"),
-                                 dev) == tail
+    pallas = cfg.replace(attn_backend="pallas")
+    assert jm._encoder_tail_mode(pallas, 1, cfg.n_audio_ctx) == "pallas"
+    assert tm._encoder_tail_mode(pallas, dev) == "tail"
     monkeypatch.setenv("WHISPER_TPU_ATTN", "reference")
     assert tm._encoder_tail_mode(cfg, dev) == "off"
 

@@ -78,6 +78,40 @@ def test_plain_tail_matches_jax_blocked_q():
     np.testing.assert_allclose(out.numpy(), want, atol=3e-5, rtol=1e-5)
 
 
+def _mk_wide(seed, B, T, H):
+    """Inputs at a Whisper width (d = 64 H, ff = 4 d): _mk's vectors, the
+    matrices at _mk's scale per fan-in (0.1 at fan-in 64, so 0.8 /
+    sqrt(fan-in)), which keeps the outputs O(4) as at nano width, where
+    the bf16 tolerance is one ulp."""
+    d, ff = 64 * H, 256 * H
+    x = _mk(seed, B, T, H, 64, ff)
+    rng = np.random.RandomState(seed + 1)
+    for name, fan_in, shape in (("wo", d, (d, d)), ("fc1_w", d, (d, ff)),
+                                ("fc2_w", ff, (ff, d))):
+        x[name] = (rng.randn(*shape) * 0.8 / np.sqrt(fan_in)).astype(
+            np.float32)
+    return x
+
+
+# The widths the streamed tiles run on the card: small, medium and large
+# (d = 768, 1024, 1280), B = 1, T = 24 and T = 50 (no multiple of the JAX
+# kernel's 16-row q-block). fp32 1e-4 (sums over up to 5,120 terms in
+# another order), bf16 atol 0.06 / rtol 2e-2 (one ulp of the O(4)
+# outputs).
+@pytest.mark.parametrize("H", [12, 16, 20])
+@pytest.mark.parametrize("T", [24, 50])
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
+                                        ("bfloat16", 0.06)])
+def test_plain_tail_matches_jax_kernel_at_whisper_widths(H, T, dtype, atol):
+    x = _mk_wide(H + T, 1, T, H)
+    want = _jax(x, jnp.dtype(dtype), H)
+    tdt = getattr(torch, dtype)
+    out = encoder_block_tail_plain(*_torch_args(x, tdt))
+    assert out.dtype == tdt and out.shape == (1, T, 64 * H)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=atol,
+                               rtol=2e-2)
+
+
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     x = _mk(2, 1, 20, 2, 32, 128)
     args = _torch_args(x, torch.float32)
@@ -100,8 +134,10 @@ def _check_args(B=1, T=8, H=2, D=64, ff=64, dtype=torch.float32):
 
 
 def test_kernel_checks_accept_supported_shapes():
-    a = _check_args()
-    encoder_layer._check(*a[:7], tuple(a[7:]))
+    """Nano width, and every Whisper width up to turbo's d = 1,280."""
+    for H, ff in ((2, 64), (6, 1536), (12, 3072), (20, 5120)):
+        a = _check_args(H=H, ff=ff)
+        encoder_layer._check(*a[:7], tuple(a[7:]))
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -110,9 +146,12 @@ def test_kernel_checks_accept_supported_shapes():
     ("contiguity", "not contiguous"),
     ("shape", "expected"),
     ("float16", "no kernel for torch.float16"),
+    ("wide", "up to 1280"),
 ])
 def test_kernel_checks_reject(bad, match):
     a = _check_args(D=32) if bad == "head_dim" else _check_args()
+    if bad == "wide":
+        a = _check_args(H=21)           # d = 1,344: past LN2's row
     if bad == "dtype":
         a[4] = a[4].to(torch.bfloat16)
     elif bad == "contiguity":

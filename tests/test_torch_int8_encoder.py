@@ -194,6 +194,36 @@ def test_plain_q8_tail_matches_jax_kernel(o_q, T):
                                rtol=2e-2)
 
 
+def _wide_inputs(seed, T, H):
+    """_tail_inputs at a Whisper width (B = 1, d = 64 H, ff = 4 d) with the
+    matrices at its scale per fan-in (0.8 / sqrt(fan-in), 0.1 at 64): the
+    outputs stay O(4), as at nano width, where the tolerance is one
+    bf16 ulp."""
+    d, ff = 64 * H, 256 * H
+    x = _tail_inputs(seed, 1, T, H, 64, ff)
+    rng = np.random.RandomState(seed + 1)
+    for name, fan_in, shape in (("wo", d, (d, d)), ("fc1_w", d, (d, ff)),
+                                ("fc2_w", ff, (ff, d))):
+        x[name] = (rng.randn(*shape) * 0.8 / np.sqrt(fan_in)).astype(
+            np.float32)
+    return x
+
+
+# small, medium and large (d = 768, 1024, 1280), the widths the serving
+# policy runs the int8 form at; T = 50 is no multiple of the JAX kernel's
+# 16-row q-block. Tolerance as above; measured here: at most 0.03125.
+@pytest.mark.parametrize("H", [12, 16, 20])
+@pytest.mark.parametrize("T", [24, 50])
+@pytest.mark.parametrize("o_q", [True, False])
+def test_plain_q8_tail_matches_jax_kernel_at_whisper_widths(H, T, o_q):
+    x = _wide_inputs(H + T, T, H)
+    want = _jax_tail_q8(x, H, o_q)
+    out = encoder_block_tail_q8_plain(*_torch_tail_q8(x, o_q))
+    assert out.dtype == torch.bfloat16 and out.shape == (1, T, 64 * H)
+    np.testing.assert_allclose(out.float().numpy(), want, atol=0.06,
+                               rtol=2e-2)
+
+
 def test_q8_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     args = _torch_tail_q8(_tail_inputs(7, 1, 16, 2, 32, 128), True)
     before = encoder_block_tail_q8.launches
@@ -211,7 +241,8 @@ def _kernel_args(B=1, T=24, H=6, ff=1536, o_q=True):
 
 
 def test_q8_kernel_checks_accept_supported_shapes():
-    for H, ff, o_q in ((6, 1536, True), (8, 2048, False)):
+    for H, ff, o_q in ((6, 1536, True), (8, 2048, False), (12, 3072, True),
+                       (16, 4096, False), (20, 5120, True)):
         args = _kernel_args(H=H, ff=ff, o_q=o_q)
         encoder_layer._check_q8(*args[:7], tuple(args[7:12]),
                                 tuple(args[12:]))
@@ -220,7 +251,7 @@ def test_q8_kernel_checks_accept_supported_shapes():
 @pytest.mark.parametrize("bad,match", [
     ("fp32", "bf16 only"), ("fc1_bf16", "fc1_t"), ("wo_int8_no_scale",
                                                    "wo_t"),
-    ("head_dim", "head_dim 64"), ("wide", "up to 512"),
+    ("head_dim", "head_dim 64"), ("wide", "up to 1280"),
     ("ff", "multiple of 64"), ("strided", "not contiguous"),
     ("scale_shape", "fc2_s")])
 def test_q8_kernel_checks_reject(bad, match):
@@ -235,7 +266,7 @@ def test_q8_kernel_checks_reject(bad, match):
         x = _tail_inputs(1, 1, 24, 12, 32, 1536)
         args = list(_torch_tail_q8(x, True))
     elif bad == "wide":
-        args = _kernel_args(H=10, ff=2560)
+        args = _kernel_args(H=21, ff=5376)      # d = 1,344
     elif bad == "ff":
         args = _kernel_args(ff=1540)
     elif bad == "strided":
@@ -249,16 +280,15 @@ def test_q8_kernel_checks_reject(bad, match):
 
 @pytest.mark.parametrize("d", range(64, 1281, 64))
 def test_q8_tail_smem_by_width(d):
-    """The int8 form keeps 32 whole rows (t1 included): at ff = 4d it fits
-    the sm_90 opt-in limit up to d = 640 (tiny 139,776 B, base 184,832);
-    the gate stops at d = 512, the kernel's widest row loop (d 512, ff
-    2,048)."""
+    """The int8 form's tiles stream both operands: their ring (three
+    stages of 128 rows and 128 columns by 128 bytes of k, and the swizzle
+    atom) holds no row whole, so neither d nor ff enters, and every width
+    up to 1,280 fits the sm_90 opt-in limit."""
     need = encoder_layer.tail_smem_bytes(d, 4 * d, q8=True)
-    assert need == 32 * ((d + 64) + 2 * d + (8 * d + 64) + 16)
-    fits = encoder_layer.tail_fits_smem(d, 4 * d, torch.device("cpu"),
+    assert need == 3 * 2 * 128 * 128 + 1024
+    assert need == encoder_layer.tail_smem_bytes(d, 64, q8=True)
+    assert encoder_layer.tail_fits_smem(d, 4 * d, torch.device("cpu"),
                                         q8=True)
-    assert fits == (d <= 512)
-    assert (need <= encoder_layer.SM90_SMEM_OPTIN) == (d <= 640)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +369,50 @@ def test_encoder_mlp_quant_matches_jax(enc16, i8o, qkv, monkeypatch):
     assert _rel(got, want) < _ENC_REL
     plain, _ = _encode_both(enc16, "pallas_interpret")
     assert not torch.equal(got, plain)
+
+
+def test_encoder_forward_small_width_runs_the_int8_tail_as_jax(monkeypatch):
+    """Small's width (d 768, 12 heads, ff 3,072), one encoder layer, a 1 s
+    window (50 positions), bf16 under the serving policy's encoder flags
+    (apply_serving_quant: encoder_mlp_quant from d = 768): the port runs
+    the tail's int8 form (its plain version on the CPU, once, with the int8
+    o-projection) and matches JAX's encoder_forward with its tail in
+    interpret mode, within _ENC_REL."""
+    from whisper_tpu.config import get_config
+    from whisper_tpu_torch.config import apply_serving_quant
+    monkeypatch.delenv("WHISPER_TPU_ENC_I8O", raising=False)
+    monkeypatch.delenv("WHISPER_TPU_FUSED_ENCODER", raising=False)
+    base = get_config("small").replace(
+        name="i8-small-1l", n_audio_layers=1, n_text_layers=1,
+        chunk_length_s=1, n_audio_ctx=50, compute_dtype="bfloat16")
+    flags = apply_serving_quant(base, batch=32)
+    assert flags.encoder_mlp_quant and not flags.encoder_qkv_quant
+    cfg = base.replace(encoder_mlp_quant=True)
+    rng = np.random.RandomState(4)
+    tree = jax.tree.map(lambda a: (np.asarray(a) + 0.02 * rng.randn(
+        *np.shape(a))).astype(np.float32),
+        jm.init_params(cfg, jax.random.PRNGKey(1)))
+    jp = jax_to_device(jax.tree.map(jnp.asarray, tree), jnp.bfloat16)
+    tp = to_device(from_jax_params(tree), "cpu", torch.bfloat16)
+    mel = (np.random.RandomState(5).randn(1, cfg.n_mels, cfg.n_frames)
+           * 0.5).astype(np.float32)
+    calls = []
+    real = encoder_layer.encoder_block_tail_q8_plain
+
+    def counting(*args, **kw):
+        calls.append(args[14] is not None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(encoder_layer, "encoder_block_tail_q8_plain",
+                        counting)
+    assert tm._encoder_tail_mode(cfg, torch.device("cpu"), True) == "tail"
+    got = tm.encoder_forward(tp, cfg, torch.from_numpy(mel))
+    want = _f32(jm.encoder_forward(
+        jp, cfg.replace(attn_backend="pallas_interpret"),
+        jnp.asarray(mel, jnp.bfloat16)))
+    assert calls == [True]
+    assert got.shape == (1, 50, 768)
+    assert _rel(got, want) < _ENC_REL
 
 
 @pytest.mark.parametrize("name,flag", [("WHISPER_TPU_ENC_I8", "encoder_quant"),

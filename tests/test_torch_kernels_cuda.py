@@ -57,15 +57,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _tail_args(B, T, H, ff, dtype, dev, seed=0):
+def _tail_args(B, T, H, ff, dtype, dev, seed=0, fan_in=False):
+    """The tail's operands; the matrices at 0.05, or with `fan_in` at
+    1/sqrt(fan-in) (0.05 at tiny's d = 384), which keeps the activations
+    of the wide layers at tiny's scale."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     D, d = 64, H * 64
 
     def r(*s, scale=1.0, shift=0.0):
         return (torch.randn(*s, generator=g) * scale + shift).to(dev)
 
+    sd, sf = (d ** -0.5, ff ** -0.5) if fan_in else (0.05, 0.05)
     mats = [r(B, T, H, D), r(B, H, T, D), r(B, H, T, D), r(B, T, d),
-            r(d, d, scale=0.05), r(d, ff, scale=0.05), r(ff, d, scale=0.05)]
+            r(d, d, scale=sd), r(d, ff, scale=sd), r(ff, d, scale=sf)]
     vecs = [r(d, scale=0.1), r(ff, scale=0.1), r(d, scale=0.1),
             r(d, scale=0.2, shift=1.0), r(d, scale=0.1)]
     return [m.to(dtype) for m in mats] + vecs
@@ -81,6 +85,9 @@ def _tail_args(B, T, H, ff, dtype, dev, seed=0):
     (2, 50, 2, 512),        # T not a multiple of the 64-row q tile
     (1, 1500, 6, 1536),     # Whisper-tiny's encoder block
     (3, 130, 4, 1024),      # a ragged last key tile and row tile
+    (1, 300, 12, 3072),     # small's width
+    (1, 200, 16, 4096),     # medium's
+    (1, 150, 20, 5120),     # large's and turbo's
 ])
 def test_encoder_tail_kernel_matches_plain(dev, dtype, atol, rtol, B, T, H,
                                            ff):
@@ -95,19 +102,21 @@ def test_encoder_tail_kernel_matches_plain(dev, dtype, atol, rtol, B, T, H,
                                rtol=rtol)
 
 
-# The MLP kernel's edges: base width (4 warpgroups, 230 KB of shared
-# memory), row counts B*T that are no multiple of its 64-row tile, d a
-# multiple of 64 but not of 128 (a warpgroup with 64 dead columns), and
-# ff chunks past ff (ff no multiple of the 64-columns-a-warpgroup chunk).
+# The MLP tiles' edges: base width, row counts B*T that are no multiple
+# of the 128-row tile, d and ff multiples of 64 but not of the 128 columns
+# of a tile (a tile with 64 dead columns), and the narrowest widths.
 @pytest.mark.parametrize("dtype,atol,rtol", [
     (torch.float32, 1e-4, 0.0), (torch.bfloat16, 0.06, 2e-2)])
 @pytest.mark.parametrize("B,T,H,ff", [
     (2, 1500, 8, 2048),     # Whisper-base's encoder block
-    (1, 1501, 8, 2048),     # base, 1501 rows: a 29-row last tile
-    (3, 37, 6, 1536),       # 111 rows, one full tile and a ragged one
-    (2, 64, 1, 128),        # d = 64: one warpgroup, half its columns dead
-    (1, 100, 3, 320),       # d = 192, ff = 320: a partial last ff chunk
+    (1, 1501, 8, 2048),     # base, 1501 rows: a 93-row last tile
+    (3, 37, 6, 1536),       # 111 rows: one ragged row tile
+    (2, 64, 1, 128),        # d = 64: half a column tile, one k stage
+    (1, 100, 3, 320),       # d = 192, ff = 320: partial last column tiles
     (2, 64, 2, 256),        # the nano widths
+    (1, 70, 13, 832),       # d and ff no multiple of the 128 columns of
+                            # a tile, 70 rows of a 128-row tile
+    (3, 100, 9, 2304),      # d = 576
 ])
 def test_encoder_tail_kernel_mlp_edges_match_plain(dev, dtype, atol, rtol,
                                                    B, T, H, ff):
@@ -121,19 +130,25 @@ def test_encoder_tail_kernel_mlp_edges_match_plain(dev, dtype, atol, rtol,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_encoder_tail_kernel_is_deterministic(dev, dtype):
+@pytest.mark.parametrize("H,ff", [(6, 1536), (20, 5120)])
+def test_encoder_tail_kernel_is_deterministic(dev, dtype, H, ff):
     """Fixed summation orders: two calls on the same inputs are bitwise
-    equal (tiny width, a ragged last tile)."""
-    args = _tail_args(1, 1500, 6, 1536, dtype, dev, seed=9)
+    equal (tiny and turbo widths, a ragged last tile)."""
+    args = _tail_args(1, 1500, H, ff, dtype, dev, seed=9)
     assert torch.equal(encoder_block_tail(*args), encoder_block_tail(*args))
 
 
 def _tail_q8_args(B, T, H, ff, dev, o_q, seed=0):
     """The int8 form's operands: _tail_args in bf16 with fc1, fc2 (and wo
-    under o_q) quantized per output column, K-major."""
+    under o_q) quantized per output column, K-major. Past d = 512 the
+    matrices are drawn at 1/sqrt(fan-in): at 0.05 the turbo-width
+    activations grow 3.6-fold and the one-step quantization differences
+    that the attention's rounding causes with them (0.32 at 4 of 192,000
+    outputs against the whole plain version, beyond its 0.25)."""
     from whisper_tpu_torch.models.whisper import _quant_cols
     q, k, v, h, wo, fc1, fc2, *vecs = _tail_args(B, T, H, ff, torch.bfloat16,
-                                                 dev, seed)
+                                                 dev, seed,
+                                                 fan_in=H * 64 > 512)
     (f1q, f1s), (f2q, f2s) = _quant_cols(fc1), _quant_cols(fc2)
     wo_s = None
     if o_q:
@@ -154,6 +169,11 @@ def _tail_q8_args(B, T, H, ff, dev, o_q, seed=0):
     (2, 50, 2, 512),        # T not a multiple of the 32-row block
     (1, 1500, 6, 1536),     # Whisper-tiny's encoder block
     (1, 1500, 8, 2048),     # base's
+    (1, 300, 12, 3072),     # small's
+    (1, 200, 16, 4096),     # medium's
+    (1, 150, 20, 5120),     # large's and turbo's
+    (1, 70, 13, 832),       # d and ff no multiple of 128 (a partial k
+                            # stage of int8), 70 rows of a 128-row tile
 ])
 def test_encoder_tail_q8_kernel_matches_plain(dev, o_q, B, T, H, ff):
     args = _tail_q8_args(B, T, H, ff, dev, o_q, seed=T)
@@ -170,17 +190,18 @@ def test_encoder_tail_q8_kernel_matches_plain(dev, o_q, B, T, H, ff):
     torch.testing.assert_close(got, full, atol=0.25, rtol=2e-2)
 
 
-def test_encoder_tail_q8_kernel_is_deterministic(dev):
-    args = _tail_q8_args(1, 1500, 6, 1536, dev, True, seed=9)
+@pytest.mark.parametrize("H,ff", [(6, 1536), (20, 5120)])
+def test_encoder_tail_q8_kernel_is_deterministic(dev, H, ff):
+    args = _tail_q8_args(1, 1500, H, ff, dev, True, seed=9)
     assert torch.equal(encoder_block_tail_q8(*args),
                        encoder_block_tail_q8(*args))
 
 
 def test_encoder_tail_q8_refuses_what_the_kernel_does_not_take(dev):
-    """No fallback: a width past the int8 kernel's (small's d = 768), fp32,
-    or a non-contiguous operand raises on a CUDA tensor."""
-    with pytest.raises(ValueError, match="up to 512"):
-        encoder_block_tail_q8(*_tail_q8_args(1, 64, 12, 3072, dev, True))
+    """No fallback: a width past the kernel's (d = 1,344), fp32, or a
+    non-contiguous operand raises on a CUDA tensor."""
+    with pytest.raises(ValueError, match="up to 1280"):
+        encoder_block_tail_q8(*_tail_q8_args(1, 64, 21, 5376, dev, True))
     args = _tail_q8_args(1, 64, 2, 256, dev, True)
     with pytest.raises(TypeError, match="bf16 only"):
         encoder_block_tail_q8(*[a.float() for a in args[:4]], *args[4:])
@@ -339,15 +360,18 @@ def test_continuous_engine_on_the_card_matches_the_cpu(dev):
 
 def test_tail_gate_is_the_kernels_answer(dev):
     """For every width of the family, tail_fits_smem answers as the kernel
-    does: it runs a width that fits and refuses one that does not."""
+    does: every Whisper width fits and runs, in both element types; a
+    width past the kernel's (d = 1,344) is refused."""
     for d in sorted({c.d_model for c in CONFIGS.values()}):
-        args = _tail_args(1, 64, d // 64, 4 * d, torch.bfloat16, dev)
-        if tail_fits_smem(d, 4 * d, dev):
-            encoder_block_tail(*args)
+        assert tail_fits_smem(d, 4 * d, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            encoder_block_tail(*_tail_args(1, 64, d // 64, 4 * d, dtype,
+                                           dev))
             torch.cuda.synchronize()
-        else:
-            with pytest.raises(RuntimeError, match="encoder_block_tail"):
-                encoder_block_tail(*args)
+    assert not tail_fits_smem(1344, 4 * 1344, dev)
+    with pytest.raises(ValueError, match="up to 1280"):
+        encoder_block_tail(*_tail_args(1, 64, 21, 4 * 1344, torch.bfloat16,
+                                       dev))
 
 
 def _flash_args(B, T, S, H, dtype, dev, seed=0):

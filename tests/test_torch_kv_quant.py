@@ -26,7 +26,7 @@ from whisper_tpu.tokenizer import build_prompt
 from whisper_tpu.weights import to_device as jax_to_device
 from whisper_tpu_torch.decode import _greedy_prefill, greedy_decode
 from whisper_tpu_torch.models import whisper as tm
-from whisper_tpu_torch.ops import attention, decode_attention, encoder_layer
+from whisper_tpu_torch.ops import attention, decode_attention
 from whisper_tpu_torch.ops.decode_attention import (
     decode_attention_q8,
     decode_attention_q8_bh,
@@ -585,9 +585,9 @@ def test_encoder_int8_routes_raise_where_jax_takes_them(short_enc, flag,
     the serving policy sets both), within 3% of JAX's largest output (the
     measured gap is 1.1%; tests/test_torch_int8_encoder.py states why) and
     unlike the bf16 output. fp32 ignores all three, as in JAX: equal to no
-    flag. With the tail off (d >= 768 on the card) the two tail flags are
-    no-ops, as in JAX, and encoder_quant, which bypasses the tail, gives
-    what it gives with the tail on."""
+    flag. With the tail off (WHISPER_TPU_FUSED_ENCODER=0) the two tail
+    flags are no-ops, as in JAX, and encoder_quant, which bypasses the
+    tail, gives what it gives with the tail on."""
     cfg, params, mel, jtree = short_enc
     p16 = to_device(params, "cpu", torch.bfloat16)
     flags = {flag: True}
@@ -607,7 +607,7 @@ def test_encoder_int8_routes_raise_where_jax_takes_them(short_enc, flag,
     p32 = to_device(params, "cpu")
     assert torch.equal(tm.encoder_forward(p32, cfg.replace(**flags), mel),
                        tm.encoder_forward(p32, cfg, mel))
-    monkeypatch.setattr(encoder_layer, "SM90_SMEM_OPTIN", 0)
+    monkeypatch.setenv("WHISPER_TPU_FUSED_ENCODER", "0")
     off = tm.encoder_forward(p16, cfg16, mel)
     if flag == "encoder_quant":
         assert torch.equal(off, got)

@@ -189,59 +189,97 @@ def test_to_device_fuses_self_attention_qkv_once(nano):
     assert "cross_attn" in again["decoder"]["layers"]
 
 
-# Shared memory of the tail kernel's MLP launch (the larger of its bf16
-# and fp32 forms: a ring of weight stages, the 64-row A tile and a t1
-# chunk), against the 232,448 B that one sm_90 block may opt into.
-_TAIL_SMEM = {"tiny": 222_208, "tiny.en": 222_208, "base": 230_400,
-              "base.en": 230_400, "small": 345_088, "small.en": 345_088,
-              "medium": 459_776, "medium.en": 459_776,
-              "large-v2": 574_464, "large-v3": 574_464,
-              "large-v3-turbo": 574_464}
+# Shared memory of the tail kernel's MLP launches against the 232,448 B
+# that one sm_90 block may opt into: the tiles' rings (three 32 KB stages
+# and the swizzle atom on the tensor cores, 48 KB in fp32), the same at
+# every width.
+_TAIL_SMEM = dict.fromkeys(CONFIGS, 99_328)
 
 
-# the int8 form (encoder_mlp_quant): 32 whole rows a block, t1 included
-_TAIL_SMEM_Q8 = {"tiny": 139_776, "base": 184_832, "small": 274_944,
-                 "medium": 365_056, "large-v2": 455_168, "large-v3": 455_168,
-                 "large-v3-turbo": 455_168}
+# the int8 form (encoder_mlp_quant): the tensor-core ring
+_TAIL_SMEM_Q8 = {"tiny": 99_328, "base": 99_328, "small": 99_328,
+                 "medium": 99_328, "large-v2": 99_328, "large-v3": 99_328,
+                 "large-v3-turbo": 99_328}
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_encoder_tail_gate_table(name):
-    """Tiny and base take the tail kernel, in either form; small and up
-    the tail-off branch. The CPU answers with the sm_90 limit, as the
-    H100 would."""
+    """Every model takes the tail kernel, in either form. The CPU answers
+    with the sm_90 limit, as the H100 would."""
     cfg = CONFIGS[name]
     assert encoder_layer.tail_smem_bytes(cfg.d_model, cfg.d_ff) \
         == _TAIL_SMEM[name]
     assert encoder_layer.tail_smem_bytes(cfg.d_model, cfg.d_ff, q8=True) \
         == _TAIL_SMEM_Q8[name.split(".")[0]]
-    want = "tail" if name.split(".")[0] in ("tiny", "base") else "off"
     for q8 in (False, True):
-        assert tm._encoder_tail_mode(cfg, torch.device("cpu"), q8) == want
+        assert tm._encoder_tail_mode(cfg, torch.device("cpu"), q8) == "tail"
 
 
 @pytest.mark.parametrize("d", range(64, 1281, 64))
 def test_encoder_tail_smem_by_width(d):
-    """The MLP launch's shared memory: one warpgroup per 128 columns of d,
-    at most four (d <= 512) fit the sm_90 opt-in limit and every wider
-    width does not; ff streams in chunks and does not enter."""
+    """The MLP launches' shared memory: 128 x 128 tiles that stream both
+    operands hold no row whole, so neither d nor ff enters; the larger
+    ring is the tensor cores' (three stages of 128 rows and 128 columns by
+    128 bytes of k, and the swizzle atom). Every width up to 1,280 fits
+    the sm_90 opt-in limit."""
     need = encoder_layer.tail_smem_bytes(d, 4 * d)
     assert need == encoder_layer.tail_smem_bytes(d, 64)
-    assert (need <= encoder_layer.SM90_SMEM_OPTIN) == (d <= 512)
-    wg = -(-d // 128)
-    assert need >= 64 * d * 4 + 2 * 8 * 128 * wg * 4    # fp32 A tile + ring
+    assert need <= encoder_layer.SM90_SMEM_OPTIN
+    assert encoder_layer.tail_fits_smem(d, 4 * d, torch.device("cpu"))
+    assert need == 3 * 2 * 128 * 128 + 1024
+    assert need > 3 * (128 * 16 + 16 * 128) * 4         # the fp32 ring
+
+
+@pytest.mark.parametrize("d", [1344, 1536, 2048])
+def test_encoder_tail_gate_refuses_past_the_widest_row(d):
+    """Past d = 1,280 (LN2 holds a row in registers) the gate answers
+    'off' in both forms, whatever the shared memory."""
+    for q8 in (False, True):
+        assert not encoder_layer.tail_fits_smem(d, 4 * d,
+                                                torch.device("cpu"), q8)
+
+
+# JAX's gate on its chip (jax.default_backend() == "tpu"), full-size
+# window: WHISPER_TPU_FUSED_ENCODER "0" turns the tail off, "1" on at
+# any size, unset leaves the size and VMEM gates (tail_fits_vmem), which
+# take every width in bf16 and the int8 forms but not d = 1,280 in fp32
+# (the port runs it: its tiles hold no row whole, so no width is
+# refused).
+@pytest.mark.parametrize("env", [None, "0", "1"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mlp_q", [False, True])
+def test_encoder_tail_switch_matches_jax(env, dtype, mlp_q, monkeypatch):
+    if env is None:
+        monkeypatch.delenv("WHISPER_TPU_FUSED_ENCODER", raising=False)
+    else:
+        monkeypatch.setenv("WHISPER_TPU_FUSED_ENCODER", env)
+    monkeypatch.delenv("WHISPER_TPU_ATTN", raising=False)
+    monkeypatch.delenv("WHISPER_TPU_ENC_I8O", raising=False)
+    monkeypatch.setattr(jm.jax, "default_backend", lambda: "tpu")
+    for name in ("tiny", "base", "small", "medium", "large-v2",
+                 "large-v3-turbo"):
+        cfg = CONFIGS[name].replace(compute_dtype=dtype)
+        want = jm._encoder_tail_mode(cfg, 1, cfg.n_audio_ctx, mlp_q)
+        got = tm._encoder_tail_mode(cfg, torch.device("cpu"), mlp_q)
+        divergence = (env is None and dtype == "float32" and not mlp_q
+                      and cfg.d_model == 1280)
+        assert want == ("off" if divergence or env == "0" else "pallas")
+        assert got == ("off" if env == "0" else "tail")
+    for backend in ("reference", "pallas"):
+        cfg = CONFIGS["tiny"].replace(attn_backend=backend)
+        assert (tm._encoder_tail_mode(cfg, torch.device("cpu"), mlp_q)
+                == "off") == (backend == "reference" or env == "0")
 
 
 @pytest.mark.parametrize("backend", ["reference", "pallas_interpret"])
 def test_encoder_tail_off_matches_jax(nano, backend, monkeypatch):
     """The tail-off branch (attention through the flash route, the
-    o-projection, LN2, the MLP), reached at nano width by lowering the
-    shared-memory limit, against the JAX tail-off encoder: with its plain
-    attention, and with its flash kernel in interpret mode (the JAX
-    package's own WHISPER_TPU_FUSED_ENCODER=0 switch). Tolerance as
+    o-projection, LN2, the MLP), reached at nano width through the JAX
+    package's own WHISPER_TPU_FUSED_ENCODER=0 switch, which both sides
+    read, against the JAX tail-off encoder: with its plain attention, and
+    with its flash kernel in interpret mode. Tolerance as
     test_encoder_forward_matches_jax."""
     cfg, jparams, tparams = nano
-    monkeypatch.setattr(encoder_layer, "SM90_SMEM_OPTIN", 0)
     monkeypatch.setenv("WHISPER_TPU_FUSED_ENCODER", "0")
     assert tm._encoder_tail_mode(cfg, torch.device("cpu")) == "off"
     calls = []

@@ -11,10 +11,11 @@ The int8 fields drive the port's int8 serving stack as they drive the
 JAX package's: weight_quant, kv_cache_quant, cross_kv_quant and
 self_kv_quant in greedy decoding, beam search and the continuous engine;
 encoder_quant (the int8 projections) and, where the fused tail runs
-(tiny, base), encoder_mlp_quant and encoder_qkv_quant (the tail's int8
-form) in the encoder (models/whisper.py encoder_forward). Where the tail
-is off (d >= 768 on the card) the two tail flags are no-ops, as in JAX's
-tail-off branch; fp32 ignores the encoder flags. fused_step drives the greedy loop
+(every Whisper width), encoder_mlp_quant and encoder_qkv_quant (the
+tail's int8 form) in the encoder (models/whisper.py encoder_forward).
+Where the tail is off (WHISPER_TPU_FUSED_ENCODER=0, the "reference"
+backend) the two tail flags are no-ops, as in JAX's tail-off branch;
+fp32 ignores the encoder flags. fused_step drives the greedy loop
 as in the JAX package: True (or WHISPER_TPU_FUSED=1) takes the fused
 decoder step (decode._fused_step_enabled), None is the auto policy, off.
 `apply_serving_quant` is the JAX

@@ -43,10 +43,11 @@ Differences from the JAX module, all deliberate:
     (`full_fp32`): JAX runs HIGHEST precision at every fp32 product.
   * Self-attention reads one fused (d, 3d) `qkv` linear, which
     weights.to_device builds once; JAX concatenates q/k/v under jit.
-  * The encoder takes the fused tail kernel where its MLP tile fits a
-    Hopper block's shared memory (tiny, base) and the JAX tail-off
-    branch elsewhere (`_encoder_tail_mode`); the JAX gate weighs TPU VMEM
-    budgets instead.
+  * The encoder takes the fused tail kernel at every width its tiles take
+    (every Whisper width, fp32 included) and the JAX tail-off branch
+    under "reference" or WHISPER_TPU_FUSED_ENCODER=0
+    (`_encoder_tail_mode`); the JAX gate weighs TPU VMEM budgets instead,
+    which refuse turbo's width in fp32.
 """
 
 from __future__ import annotations
@@ -298,17 +299,20 @@ def conv_stem(enc: Params, cfg: WhisperConfig, mel: torch.Tensor
 def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device,
                        mlp_q: bool = False) -> str:
     """'off' under the "reference" attention backend (cfg.attn_backend,
-    else WHISPER_TPU_ATTN), as in the JAX gate (:431-434). Under every
-    other backend, 'tail' when the fused tail kernel takes the model's
-    width on this device in the form the encoder runs (`mlp_q`: the int8
-    form, whose gate JAX's tail_fits_vmem also takes, :443-449): its MLP
-    tile fits the opt-in shared memory (tiny, base), and 'off' otherwise
-    (small and up): the port's rule in place of the JAX gate's (:435-451),
-    whose VMEM budgets are TPU calibration. JAX's "pallas" forces the tail
-    on at every width, which a Hopper block's shared memory cannot hold
-    from small up, so "pallas" keeps the port's rule. The CPU answers as an
-    H100 would, so both devices run the same branch."""
-    if (cfg.attn_backend or default_backend()) == "reference":
+    else WHISPER_TPU_ATTN) or with WHISPER_TPU_FUSED_ENCODER=0, as in the
+    JAX gate (:431-434). Otherwise 'tail' where the fused tail kernel
+    takes the model's width on this device in the form the encoder runs
+    (`mlp_q`: the int8 form, whose gate JAX's tail_fits_vmem also takes,
+    :443-449): every Whisper width, tiny up to large and turbo, in either
+    form (`tail_fits_smem`), and 'off' past the kernel's widths. The
+    port's rule stands in for the JAX gate's size and VMEM tests
+    (:435-451), which are TPU calibration; WHISPER_TPU_FUSED_ENCODER=1
+    (JAX: on whatever the size) and "pallas" (JAX: on at every width) give
+    the same answer, since the rule takes every width the kernel runs. The
+    CPU answers as an H100 would, so both devices run the same branch."""
+    backend = cfg.attn_backend or default_backend()
+    if (os.environ.get("WHISPER_TPU_FUSED_ENCODER") == "0"
+            or backend == "reference"):
         return "off"
     return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device, mlp_q)
             else "off")
@@ -381,8 +385,11 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
         unless WHISPER_TPU_ENC_I8O=0 (:552-562), quantized once per call;
       * encoder_qkv_quant, with encoder_mlp_quant where the tail runs: the
         QKV projection in front of the tail is qkv_fused_i8dyn (:537-543).
-    Where the tail is off (d >= 768 on the card) the two tail flags are
-    no-ops, as in JAX's tail-off branch."""
+    The tail runs at every Whisper width, so the serving policy's
+    encoder_mlp_quant (from d = 768) and encoder_qkv_quant (from d = 1024)
+    take effect there; where the tail is off (WHISPER_TPU_FUSED_ENCODER=0,
+    "reference") the two tail flags are no-ops, as in JAX's tail-off
+    branch."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
     x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(dtype)

@@ -103,16 +103,19 @@ def load_library() -> ctypes.CDLL:
     lib.wt_encoder_tail.argtypes = [
         P, P, P, P,            # q, k, v, h_in
         P, P, P, P,            # wo, fc1, fc2, misc (fp32)
-        P, P,                  # attn scratch, out
+        P, P, P,               # attn scratch, workspace, out
         I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
         F, I, P]               # eps, is_bf16, stream
     lib.wt_encoder_tail.restype = I
     lib.wt_encoder_tail_smem.argtypes = [I, I, I]             # d, ff, q8
     lib.wt_encoder_tail_smem.restype = ctypes.c_longlong
+    # rows, d, ff, element bytes, int8 form
+    lib.wt_encoder_tail_workspace.argtypes = [I, I, I, I, I]
+    lib.wt_encoder_tail_workspace.restype = ctypes.c_longlong
     lib.wt_encoder_tail_q8.argtypes = [
         P, P, P, P,            # q, k, v, h_in
         P, P, P, P,            # wo (int8 or bf16), fc1, fc2 (int8), misc
-        P, P,                  # attn scratch, out
+        P, P, P,               # attn scratch, workspace, out
         I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
         F, I, P]               # eps, o_q, stream
     lib.wt_encoder_tail_q8.restype = I

@@ -15,7 +15,7 @@ column, and the o-projection int8 too when its scales are given (the
 `WHISPER_TPU_ENC_I8O` default), each product `qdot`'s math (:120-129):
 the activation rows quantized to int8 per row, an exact int32 product,
 rescaled by (row scale x column scale). Its plain twin is
-`encoder_block_tail_q8_plain`; its kernel is the int8 MLP kernel of
+`encoder_block_tail_q8_plain`; its kernel is the int8 MLP tiles of
 csrc/encoder_tail.cu after the same attention launch.
 
 Differences from the JAX signature: `wo` is the unpadded (H*D, d)
@@ -38,64 +38,40 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # Shared memory one block may opt into on sm_90 (H100): the CPU takes this
 # figure, so that both devices pick the same encoder branch for a model.
 SM90_SMEM_OPTIN = 232_448
-# csrc/encoder_tail.cu: rows a block, o-projection/fc2 columns a
-# warpgroup, fc1-chunk columns a warpgroup and k-rows of a weight stage
-# (bf16, fp32), the swizzle atom the bf16 tiles are aligned to
-TAIL_ROWS, TAIL_WG_COLS, TAIL_ATOM = 64, 128, 1024
-TAIL_WG_FF = {"bf16": 64, "fp32": 32}
-TAIL_KS = {"bf16": 64, "fp32": 8}
-# the int8 form: rows a block, the bytes added to each shared row, the
-# widest d and ff its row loops take (csrc/encoder_tail.cu namespace q8)
-TAIL_Q8_ROWS, TAIL_Q8_PAD, TAIL_Q8_MAX_D, TAIL_Q8_MAX_FF = 32, 64, 512, 2048
+# csrc/encoder_tail.cu: the widest d (LN2 holds a row in registers), and
+# the MLP tiles' shared memory (128 x 128 tiles: three stages of 128 bytes
+# of k of both operands on the tensor cores plus the 1 KiB swizzle atom;
+# three stages of 16 k of both in fp32)
+TAIL_MAX_D = 1280
+TAIL_SMEM = {"tc": 3 * 2 * 128 * 128 + 1024,
+             "fp32": 3 * (128 * 16 + 16 * 128) * 4}
 
 
 def tail_smem_bytes(d: int, ff: int, q8: bool = False) -> int:
-    """Shared memory of the kernel's MLP launch at width d
-    (csrc/encoder_tail.cu tail_smem_bytes, the same formula;
-    wt_encoder_tail_smem gives the C side's).
-
-    Unquantized, the larger of its bf16 and fp32 forms. bf16: a ring of
-    weight stages of 64 k-rows by 128 columns a warpgroup (three stages up
-    to three warpgroups, else two), the 64 attention rows (then y), a
-    64-column t1 slice a warpgroup, and one swizzle atom of alignment;
-    fp32: two 8-row stages, the same A tile and 32-column t1 slices. ff
-    streams in chunks and does not enter.
-
-    The int8 form (`q8`) keeps whole rows, since each row's scale needs
-    the row's maximum before any of it is quantized: for 32 rows, the int8
-    A rows (attention, then y; d + 64 bytes each), h2 in bf16, and t1 in
-    bf16 (2 ff + 64 bytes each, its int8 values later written over it),
-    plus four fp32 numbers a row. The weights stream from L2 into
-    registers."""
-    if q8:
-        return TAIL_Q8_ROWS * ((d + TAIL_Q8_PAD) + 2 * d
-                               + (2 * ff + TAIL_Q8_PAD) + 16)
-    wg = -(-d // TAIL_WG_COLS)                  # warpgroups
-
-    def need(form: str, stages: int, size: int) -> int:
-        return (stages * TAIL_KS[form] * TAIL_WG_COLS * wg + TAIL_ROWS * d
-                + TAIL_ROWS * TAIL_WG_FF[form] * wg) * size
-
-    return max(need("bf16", 3 if wg <= 3 else 2, 2) + TAIL_ATOM,
-               need("fp32", 2, 4))
+    """Shared memory of the kernel's MLP launches at width (d, ff)
+    (csrc/encoder_tail.cu wt_encoder_tail_smem gives the C side's): the
+    tiles stream both operands and hold no row whole, so neither d nor ff
+    enters. The unquantized form takes the larger of its tensor-core (bf16)
+    and fp32 rings, 99,328 B; the int8 form the tensor-core ring."""
+    return TAIL_SMEM["tc"] if q8 else max(TAIL_SMEM.values())
 
 
 def tail_fits_smem(d: int, ff: int, device: torch.device,
                    q8: bool = False) -> bool:
     """Whether the tail kernel takes width (d, ff) on `device`, in its
-    unquantized form or its int8 form (`q8`): its MLP tile within the
-    card's opt-in shared memory per block (on CUDA read from the card,
-    elsewhere SM90_SMEM_OPTIN). The counterpart of the JAX package's
-    tail_fits_vmem (ops/encoder_layer.py:229), which takes the form too
-    (mlp_q, o_q) and whose VMEM budgets are TPU calibration and are not
-    ported. Tiny (217 KB; int8 135 KB) and base (225 KB; int8 180 KB) fit;
-    small and every wider model do not."""
+    unquantized form or its int8 form (`q8`): d up to TAIL_MAX_D and its
+    MLP launch within the card's opt-in shared memory per block (on CUDA
+    read from the card, elsewhere SM90_SMEM_OPTIN). The counterpart of the
+    JAX package's tail_fits_vmem (ops/encoder_layer.py:229), which takes
+    the form too (mlp_q, o_q) and whose VMEM budgets are TPU calibration
+    and are not ported. Every Whisper width fits, in every form (97 KB of
+    the 227 KB)."""
+    if d > TAIL_MAX_D:
+        return False
     limit = SM90_SMEM_OPTIN
     if device.type == "cuda":
         limit = torch.cuda.get_device_properties(
             device).shared_memory_per_block_optin
-    if q8 and (d > TAIL_Q8_MAX_D or ff > TAIL_Q8_MAX_FF):
-        return False
     return tail_smem_bytes(d, ff, q8) <= limit
 
 
@@ -239,9 +215,10 @@ def _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs) -> None:
         if tuple(got[name].shape) != shape:
             raise ValueError(f"encoder_block_tail: {name} has shape "
                              f"{tuple(got[name].shape)}, expected {shape}")
-    if D != 64 or d != H * D:
+    if D != 64 or d != H * D or d > TAIL_MAX_D:
         raise ValueError(f"encoder_block_tail: the kernel takes head_dim 64 "
-                         f"and d = H*64; got D={D}, d={d}, H={H}")
+                         f"and d = H*64 up to {TAIL_MAX_D}; got D={D}, "
+                         f"d={d}, H={H}")
     if ff % 64:
         raise ValueError(f"encoder_block_tail: ff={ff} is not a multiple of "
                          f"64")
@@ -262,6 +239,15 @@ def _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs) -> None:
         if name in want and t.data_ptr() % 16:     # cp.async's 16 bytes
             raise ValueError(f"encoder_block_tail: {name} is not 16-byte "
                              f"aligned")
+
+
+def _workspace(lib, rows: int, d: int, ff: int, elem: int, q8: bool,
+               device) -> torch.Tensor:
+    """The MLP tiles' workspace: y and t1 (and the int8 form's int8 rows
+    and row scales), csrc/encoder_tail.cu wt_encoder_tail_workspace's
+    bytes."""
+    n = lib.wt_encoder_tail_workspace(rows, d, ff, elem, int(q8))
+    return torch.empty(n, dtype=torch.uint8, device=device)
 
 
 def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -296,12 +282,14 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load_library()
     misc = torch.cat([t.float() for t in vecs])              # (4d + ff,) fp32
     attn = torch.empty((B, T, d), dtype=h_in.dtype, device=h_in.device)
+    work = _workspace(lib, B * T, d, ff, h_in.element_size(), False,
+                      h_in.device)
     out = torch.empty_like(h_in)
     err = lib.wt_encoder_tail(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), h_in.data_ptr(),
         wo.data_ptr(), fc1_w.data_ptr(), fc2_w.data_ptr(), misc.data_ptr(),
-        attn.data_ptr(), out.data_ptr(), B, T, S, H, D, d, ff, float(eps),
-        int(h_in.dtype == torch.bfloat16),
+        attn.data_ptr(), work.data_ptr(), out.data_ptr(), B, T, S, H, D, d,
+        ff, float(eps), int(h_in.dtype == torch.bfloat16),
         torch.cuda.current_stream(h_in.device).cuda_stream)
     _build.check(lib, err, "encoder_block_tail")
     encoder_block_tail.launches += 1
@@ -348,13 +336,13 @@ def _check_q8(q, k, v, h_in, wo_t, fc1_t, fc2_t, vecs, scales) -> None:
         if dt is not None and t.data_ptr() % 16:
             raise ValueError(f"encoder_block_tail_q8: {name} is not 16-byte "
                              f"aligned")
-    if D != 64 or d != H * D or d % 64 or d > TAIL_Q8_MAX_D:
+    if D != 64 or d != H * D or d > TAIL_MAX_D:
         raise ValueError(f"encoder_block_tail_q8: the kernel takes head_dim "
-                         f"64 and d = H*64, a multiple of 64 up to "
-                         f"{TAIL_Q8_MAX_D}; got D={D}, d={d}, H={H}")
-    if ff % 64 or not d <= ff <= TAIL_Q8_MAX_FF:
-        raise ValueError(f"encoder_block_tail_q8: ff={ff} must be a multiple "
-                         f"of 64 from d={d} up to {TAIL_Q8_MAX_FF}")
+                         f"64 and d = H*64 up to {TAIL_MAX_D}; got D={D}, "
+                         f"d={d}, H={H}")
+    if ff % 64 or ff < 64:
+        raise ValueError(f"encoder_block_tail_q8: ff={ff} must be a "
+                         f"positive multiple of 64")
 
 
 def encoder_block_tail_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -397,12 +385,13 @@ def encoder_block_tail_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     misc = torch.cat([t.float() for t in (*vecs, fc1_s, fc2_s)
                       + ((wo_s,) if wo_s is not None else ())])
     attn = torch.empty((B, T, d), dtype=h_in.dtype, device=h_in.device)
+    work = _workspace(lib, B * T, d, ff, 2, True, h_in.device)
     out = torch.empty_like(h_in)
     err = lib.wt_encoder_tail_q8(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), h_in.data_ptr(),
         wo_t.data_ptr(), fc1_t.data_ptr(), fc2_t.data_ptr(), misc.data_ptr(),
-        attn.data_ptr(), out.data_ptr(), B, T, S, H, D, d, ff, float(eps),
-        int(wo_s is not None),
+        attn.data_ptr(), work.data_ptr(), out.data_ptr(), B, T, S, H, D, d,
+        ff, float(eps), int(wo_s is not None),
         torch.cuda.current_stream(h_in.device).cuda_stream)
     _build.check(lib, err, "encoder_block_tail_q8")
     encoder_block_tail_q8.launches += 1
