@@ -57,12 +57,27 @@ int8 ragged append a step, its encoder one int8 tail launch a layer)
 under quant="auto" as the JAX server builds the engine,
 and tiny fp32 with the int8 cross cache under "pallas_interpret" (every
 cross read one decode_attention_q8_bh launch; tokens equal to the CPU
-engine's), each request's tokens equal to its solo run.
+engine's), each request's tokens equal to its solo run. Then the
+pipeline layer: long-form transcription of a 75 s clip (timestamps with
+seek, conditioning on the previous window, word timestamps, 32 tokens a
+window) at tiny fp32 on the card against the CPU (tokens, text and
+segments equal, word times within one frame) and at large-v3-turbo bf16
+(full width and depth: one tail launch a layer a window, one append a
+step, as the code implies); speculative decoding with medium at full
+width and depth as the target, the tiny draft and medium as its own
+draft, k = 4, in fp32 and bf16 (tokens equal to the target's greedy),
+and under "pallas" (flash and decode_attention_bh launches as the round
+statistics imply); and the CLI with a 45 s 22.05 kHz WAV (the native
+loader, word timestamps, SRT, the VAD gate) and with small and the tiny
+draft.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
-`--profile` adds the kernels' build timed serial against parallel, the
+`--only pipeline` runs the pipeline layer's phases alone (turbo's
+weights drawn on the card). `--profile` adds the kernels' build timed
+serial against parallel, three more turbo long-form walls, the
+speculative walls as the best of three, the
 tail's launches at turbo b32 by kernel, the int8 engines under
 torch.profiler, the
 names of SDPA's fp32 kernels, the decode kernel by replay at forced split
@@ -237,6 +252,15 @@ Q8_ENGINE_REQUESTS, Q8_ENGINE_MAX_NEW = 16, 24           # 8 slots
 INT8_LOGITS_REL = 0.03
 # fused_phases: steps timed per model, and the models (H) at b32 bf16
 FUSED_PHASE_STEPS = 20
+# the pipeline layer: long-form transcription (a clip of LONGFORM_S with
+# timestamps, conditioning and word timestamps, LONGFORM_MAX_NEW tokens a
+# window), speculative decoding (SPEC_K drafts a round, SPEC_MAX_NEW
+# tokens, EOT banned) and the CLI's long WAV (CLI_LONG_S at 22.05 kHz)
+LONGFORM_S, LONGFORM_MAX_NEW = 75.0, 32
+SPEC_K, SPEC_MAX_NEW = 4, 32
+CLI_LONG_S, CLI_LONG_RATE = 45.0, 22_050
+# word times on the card against the CPU: at most one encoder frame
+WORD_TIME_TOL = 0.02 + 1e-9
 
 
 # --only: the standalone phases (functions of the card line alone), by name
@@ -245,7 +269,8 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "ragged_int8": "ragged_int8_checks",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
-        "flash": "flash_checks", "decode_time": "decode_time"}
+        "flash": "flash_checks", "decode_time": "decode_time",
+        "pipeline": "pipeline_layer"}
 
 
 def emit(obj: dict) -> None:
@@ -3115,6 +3140,469 @@ def cli_beam(clip: np.ndarray, card: str) -> None:
             require(rc == 0 and tokens, f"cli {flags} returned {rc}")
 
 
+def longform_clip(seconds: float, rate: int = 16_000, seed: int = 0
+                  ) -> np.ndarray:
+    """A long clip: a 0.3-amplitude tone whose pitch steps every 5 s, plus
+    noise."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    return (0.3 * np.sin(2 * np.pi * (200 + 40 * np.floor(t / 5)) * t)
+            + 0.05 * rng.randn(t.size)).astype(np.float32)
+
+
+def write_wav(path: str, x: np.ndarray, rate: int) -> None:
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+
+
+def greedy_steps(res, P: int, max_new: int, eot: int) -> int:
+    """The T==1 steps greedy decoding ran for row 0 of a DecodeResult: the
+    loop checks for a finished batch every POLL_EVERY steps
+    (decode._greedy_loop), so a row whose EOT came at step e stops at the
+    next multiple of POLL_EVERY after it; none if the first pick was EOT."""
+    from whisper_tpu_torch.decode import POLL_EVERY
+    gen = res.tokens[0, P:P + 1 + max_new].tolist()
+    if gen[0] == eot:
+        return 0
+    if eot not in gen[1:]:
+        return max_new
+    e = gen[1:].index(eot)
+    return min(max_new, -(-(e + 1) // POLL_EVERY) * POLL_EVERY)
+
+
+@contextlib.contextmanager
+def longform_recorder(pipe):
+    """Records what a long-form transcription ran: each window's offset,
+    prompt length and DecodeResult (through the pipeline module's
+    decode_from_encoder), and the seconds spent in word alignment (the
+    device synchronised around each call), of which those in its
+    teacher-forced pass on the device (cross_attention_weights, with the
+    copy of the probabilities to the host), in the median filter and in
+    the DTW (numpy, on the host)."""
+    import torch
+
+    from whisper_tpu_torch import alignment
+    from whisper_tpu_torch import pipeline as pl
+    rec = {"offsets": [], "windows": [], "align_s": 0.0, "probs_s": 0.0,
+           "median_s": 0.0, "dtw_s": 0.0}
+    real_decode, real_align = pl.decode_from_encoder, pl.align_words
+    real = {name: getattr(alignment, name) for name in
+            ("cross_attention_weights", "median_filter", "dtw_path")}
+    real_window = pipe.transcribe_window
+
+    def decode(*a, **kw):
+        res = real_decode(*a, **kw)
+        rec["windows"].append((a[3].shape[1], res))
+        return res
+
+    def align(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_align(*a, **kw)
+        torch.cuda.synchronize()
+        rec["align_s"] += time.perf_counter() - t
+        return out
+
+    def timed(name, key, post=lambda x: x):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = post(real[name](*a, **kw))
+            rec[key] += time.perf_counter() - t
+            return out
+        return call
+
+    def window(*a, **kw):
+        rec["offsets"].append(kw.get("window_offset_s", 0.0))
+        return real_window(*a, **kw)
+
+    pl.decode_from_encoder, pl.align_words = decode, align
+    alignment.cross_attention_weights = timed(
+        "cross_attention_weights", "probs_s", lambda x: x.cpu())
+    alignment.median_filter = timed("median_filter", "median_s")
+    alignment.dtw_path = timed("dtw_path", "dtw_s")
+    pipe.transcribe_window = window
+    try:
+        yield rec
+    finally:
+        pl.decode_from_encoder, pl.align_words = real_decode, real_align
+        for name, fn in real.items():
+            setattr(alignment, name, fn)
+        del pipe.transcribe_window
+
+
+def longform_transcribe(pipe, audio: np.ndarray):
+    """The long-form drive: timestamps (seek by the last closed segment),
+    conditioning on the previous window, word timestamps."""
+    return pipe.transcribe(audio, max_new=LONGFORM_MAX_NEW,
+                           opts=pipe.make_options(timestamps=True),
+                           condition_on_previous=True, word_timestamps=True)
+
+
+def longform_path(pipe, kernels: dict, card: str, profile: bool,
+                  label: str = "longform_turbo") -> dict:
+    """Long-form transcription through WhisperPipeline.transcribe on a
+    LONGFORM_S clip: a warm-up, then one run with every launch count set to
+    0 just before it and read just after. The encoder's tail runs once a
+    layer a window, the append once a greedy step (greedy_steps of each
+    window's result), and flash once a decoder layer for each prefill read
+    that multi_head_attention routes to it (the cross read of a prompt
+    lengthened by the previous window's text can cross the "auto" gate);
+    nothing else launches. Returns the phase line."""
+    import torch
+
+    from whisper_tpu_torch.decode import _cache_slots
+    cfg = pipe.cfg
+    audio = longform_clip(LONGFORM_S)
+    longform_transcribe(pipe, audio)                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with longform_recorder(pipe) as rec:
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        r = longform_transcribe(pipe, audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    n = len(rec["windows"])
+    steps = [greedy_steps(res, P, LONGFORM_MAX_NEW, cfg.eot_token)
+             for P, res in rec["windows"]]
+    expect = {name: 0 for name in kernels}
+    expect["encoder_block_tail"] = cfg.n_audio_layers * n
+    expect["cache_append_rows"] = sum(steps)
+    expect["flash_attention"] = cfg.n_text_layers * sum(
+        routed(cfg, 1, P, s, "flash") for P, _ in rec["windows"]
+        for s in (_cache_slots(cfg, P + 1 + LONGFORM_MAX_NEW),
+                  cfg.n_audio_ctx))
+    line = {"phase": label, "model": cfg.name,
+            "dtype": cfg.compute_dtype, "audio_s": LONGFORM_S,
+            "max_new": LONGFORM_MAX_NEW, "windows": n,
+            "seek_offsets_s": rec["offsets"],
+            "prompt_lens": [P for P, _ in rec["windows"]],
+            "steps": steps, "segments": len(r.segments or ()),
+            "words": len(r.words or ()), "wall_s": wall,
+            "audio_s_per_wall_s": LONGFORM_S / wall,
+            "align_ms": 1e3 * rec["align_s"],
+            "align_probs_ms": 1e3 * rec["probs_s"],
+            "align_median_ms": 1e3 * rec["median_s"],
+            "align_dtw_ms": 1e3 * rec["dtw_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "expected_launches": expect,
+            "card": card}
+    emit(line)
+    require(launches == expect, f"longform {cfg.name}: launches {launches} "
+                                f"!= {expect}")
+    require(n >= 3 and r.tokens.count(cfg.sot_token) == n,
+            f"longform {cfg.name}: {n} windows")
+    require(len(rec["offsets"]) == n and rec["offsets"][0] == 0.0
+            and all(b - a >= 1.0 - 1e-9 for a, b in
+                    zip(rec["offsets"], rec["offsets"][1:])),
+            f"longform {cfg.name}: seek offsets {rec['offsets']}")
+    require(bool(r.words) and all(0.0 <= w.start <= w.end
+                                  for w in r.words),
+            f"longform {cfg.name}: no word timings, or times out of order")
+    if profile:
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            longform_transcribe(pipe, audio)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        emit({"phase": f"profile_{label}", "walls_s": walls,
+              "card": card})
+    return line
+
+
+def longform_fp32_parity(params, card: str) -> None:
+    """Tiny fp32 long-form on the card against the port on the CPU, from
+    the same params: window offsets, tokens, text and segments equal; word
+    times within one encoder frame (WORD_TIME_TOL), the number that
+    differ reported."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    audio = longform_clip(LONGFORM_S, seed=1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        pipe = WhisperPipeline.from_params(params, "tiny", dtype="float32",
+                                           device=device, quant="off")
+        with longform_recorder(pipe) as rec:
+            t0 = time.perf_counter()
+            r = longform_transcribe(pipe, audio)
+            runs[device] = (r, time.perf_counter() - t0, rec["offsets"])
+        del pipe
+        torch.cuda.empty_cache()
+    gpu, cpu = runs["cuda"][0], runs["cpu"][0]
+    words_g, words_c = gpu.words or [], cpu.words or []
+    diffs = [max(abs(a.start - b.start), abs(a.end - b.end))
+             for a, b in zip(words_g, words_c)]
+    line = {"phase": "longform_fp32_parity", "model": "tiny",
+            "audio_s": LONGFORM_S, "windows":
+            gpu.tokens.count(get_config("tiny").sot_token),
+            "seek_offsets_s": runs["cuda"][2],
+            "tokens_identical": gpu.tokens == cpu.tokens,
+            "text_identical": gpu.text == cpu.text,
+            "segments_identical": gpu.segments == cpu.segments,
+            "words": len(words_g),
+            "words_same_text": [w.word for w in words_g]
+            == [w.word for w in words_c],
+            "word_times_differing": sum(d > 0 for d in diffs),
+            "word_time_max_abs_diff_s": max(diffs, default=0.0),
+            "gpu_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "card": card}
+    emit(line)
+    require(line["tokens_identical"] and line["text_identical"]
+            and line["segments_identical"] and line["words_same_text"]
+            and runs["cuda"][2] == runs["cpu"][2],
+            "longform fp32: the card's transcript differs from the CPU's")
+    require(len(words_g) > 0 and line["word_time_max_abs_diff_s"]
+            <= WORD_TIME_TOL, f"longform fp32: word times differ by "
+                              f"{line['word_time_max_abs_diff_s']} s")
+
+
+def speculative_phase(kernels: dict, card: str, profile: bool) -> dict:
+    """Speculative decoding with medium at full width and depth as the
+    target (weights drawn on the card), k = SPEC_K, SPEC_MAX_NEW tokens
+    with EOT banned, batch 1: the tiny draft and medium as its own draft,
+    in fp32 and bf16, the tokens required equal to the target's greedy,
+    with the rounds, the acceptance rate and the decode wall against
+    greedy's. Then spec_transcribe_window under attn_backend "pallas"
+    (bf16 and fp32, the tiny draft): every prefill and verify read one
+    flash_attention launch, every draft T==1 read one decode_attention_bh
+    launch, each encoder layer one tail launch; the counts are required
+    equal to those the round statistics imply. Returns the launches of
+    the bf16 run."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.decode import greedy_decode
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.speculative import (
+        spec_transcribe_window,
+        speculative_decode,
+    )
+    mcfg, tcfg = get_config("medium"), get_config("tiny")
+    mparams, tparams = card_init_params(mcfg, 0), card_init_params(tcfg, 1)
+    clip = bench_audio(mcfg, 1)
+    bias = torch.zeros(mcfg.vocab_size, device="cuda")
+    bias[mcfg.eot_token] = -1e9
+    reps = 3 if profile else 1
+
+    def timed(fn):
+        fn()                                        # warm-up
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return out, min(walls)
+
+    for dtype in ("float32", "bfloat16"):
+        target = WhisperPipeline.from_params(mparams, mcfg, dtype=dtype,
+                                             device="cuda", quant="off")
+        draft = WhisperPipeline.from_params(tparams, tcfg, dtype=dtype,
+                                            device="cuda", quant="off")
+        t_enc = target._encode_audio(clip)
+        prompt = target.prompt(1)
+        ref, greedy_s = timed(lambda: greedy_decode(
+            target.params, target.cfg, t_enc, prompt, max_new=SPEC_MAX_NEW,
+            logit_bias=bias))
+        for name, d in (("tiny", draft), ("medium_self", target)):
+            d_enc = t_enc if d is target else d._encode_audio(clip)
+            (res, stats), spec_s = timed(lambda: speculative_decode(
+                target.params, target.cfg, d.params, d.cfg, t_enc, d_enc,
+                prompt, max_new=SPEC_MAX_NEW, k=SPEC_K, logit_bias=bias,
+                return_stats=True))
+            same = bool(torch.equal(res.tokens, ref.tokens)
+                        and torch.equal(res.lengths, ref.lengths))
+            emit({"phase": "speculative", "target": "medium", "draft": name,
+                  "dtype": dtype, "k": SPEC_K, "max_new": SPEC_MAX_NEW,
+                  "tokens_equal_greedy": same, **stats,
+                  "acceptance_rate": stats["accepted_drafts"]
+                  / (stats["rounds"] * SPEC_K),
+                  "spec_decode_s": spec_s, "greedy_decode_s": greedy_s,
+                  "spec_over_greedy": spec_s / greedy_s,
+                  "sum_logprobs_abs_diff": float(
+                      (res.sum_logprobs - ref.sum_logprobs).abs().max()),
+                  "card": card})
+            require(same, f"speculative {dtype} with the {name} draft: "
+                          f"tokens differ from the target's greedy")
+            if name == "medium_self":
+                require(stats["rounds"] == -(-SPEC_MAX_NEW // (SPEC_K + 1)),
+                        f"speculative {dtype}: the target as its own draft "
+                        f"took {stats['rounds']} rounds")
+        del target, draft, t_enc
+        torch.cuda.empty_cache()
+
+    # under "pallas", through the user entry point, the tiny draft
+    audio = clip[0, :mcfg.sample_rate * 20]
+    Lt, Ld = mcfg.n_text_layers, tcfg.n_text_layers
+    for dtype in ("bfloat16", "float32"):
+        target = WhisperPipeline.from_params(
+            mparams, mcfg.replace(attn_backend="pallas"), dtype=dtype,
+            device="cuda", quant="off")
+        draft = WhisperPipeline.from_params(
+            tparams, tcfg.replace(attn_backend="pallas"), dtype=dtype,
+            device="cuda", quant="off")
+        spec_transcribe_window(target, draft, audio, max_new=SPEC_MAX_NEW,
+                               k=SPEC_K)            # warm-up
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        r = spec_transcribe_window(target, draft, audio,
+                                   max_new=SPEC_MAX_NEW, k=SPEC_K)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        rounds, fills = r.timings["verify_rounds"], r.timings["draft_fills"]
+        expect = {name: 0 for name in kernels}
+        expect.update({
+            "encoder_block_tail": mcfg.n_audio_layers + tcfg.n_audio_layers,
+            "flash_attention": 2 * (Lt + Ld) + 2 * Lt * rounds,
+            "decode_attention_bh": 2 * Ld * (SPEC_K * rounds + fills)})
+        # greedy under "pallas" reads through decoder_step_ip's einsums at
+        # every step, the verify through flash: equality is reported, not
+        # required (the contract holds for the default backend, above)
+        want = target.transcribe_window(audio, max_new=SPEC_MAX_NEW)
+        emit({"phase": "speculative_pallas", "target": "medium",
+              "draft": "tiny", "dtype": dtype, "k": SPEC_K,
+              "rounds": rounds,
+              "accepted_drafts": r.timings["accepted_drafts"],
+              "draft_fills": fills, "tokens": len(r.tokens),
+              "tokens_equal_greedy": r.tokens == want.tokens,
+              "decode_s": r.timings["decode_s"], "launches": launches,
+              "expected_launches": expect, "card": card})
+        require(launches == expect, f"speculative_pallas {dtype}: launches "
+                                    f"{launches} != {expect}")
+        if dtype == "bfloat16":
+            bf16_launches = launches
+        del target, draft
+    del mparams, tparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16_launches
+
+
+def cli_longform(card: str) -> None:
+    """The CLI in process: a CLI_LONG_S WAV at 22.05 kHz, read by the
+    native loader and transcribed long-form with word timestamps, the
+    previous window's text and the VAD gate, rendered as SRT; then a
+    speculative run, small with the tiny draft, whose tokens are required
+    equal to small's greedy run of the CLI."""
+    import io
+
+    from whisper_tpu_torch import cli, native
+    from whisper_tpu_torch.config import get_config
+    sot = get_config("tiny").sot_token
+
+    def run(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        text = out.getvalue()
+        lines = [ln.split(":", 1)[1].strip() for ln in text.splitlines()
+                 if ln.startswith("tokens:")]
+        return rc, (json.loads(lines[0]) if lines else None), \
+            time.perf_counter() - t0, text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        long_wav = os.path.join(tmp, "long.wav")
+        write_wav(long_wav, longform_clip(CLI_LONG_S, CLI_LONG_RATE, seed=2),
+                  CLI_LONG_RATE)
+        srt = os.path.join(tmp, "out.srt")
+        rc, tokens, wall, _ = run([
+            "--random-weights", "--audio", long_wav, "--max-new", "32",
+            "--word-timestamps", "--output-format", "srt",
+            "--condition-on-previous", "--vad-db", "-40", "--output", srt])
+        rendered = open(srt, encoding="utf-8").read() if rc == 0 else ""
+        emit({"phase": "cli_longform", "rc": rc, "audio_s": CLI_LONG_S,
+              "rate": CLI_LONG_RATE, "native_loader": native.available(),
+              "windows": tokens.count(sot) if tokens else 0,
+              "srt_blocks": rendered.count(" --> "), "wall_s": wall,
+              "card": card})
+        require(rc == 0 and tokens and tokens.count(sot) >= 2
+                and rendered.startswith("1\n00:00:"),
+                f"cli long-form returned {rc}")
+        short_wav = os.path.join(tmp, "short.wav")
+        write_wav(short_wav, longform_clip(8.0, seed=3), 16_000)
+        base = ["--model", "small", "--random-weights", "--audio", short_wav,
+                "--max-new", "24"]
+        rc_s, spec, spec_wall, text = run(base + ["--draft-model", "tiny"])
+        rc_g, greedy, greedy_wall, _ = run(base)
+        emit({"phase": "cli_speculative", "rc": rc_s, "rc_greedy": rc_g,
+              "tokens_equal_greedy": spec == greedy,
+              "timings": next((ln for ln in text.splitlines()
+                               if ln.startswith("timings:")), None),
+              "wall_s": spec_wall, "greedy_wall_s": greedy_wall,
+              "card": card})
+        require(rc_s == 0 and rc_g == 0 and spec and spec == greedy,
+                "cli --draft-model: tokens differ from greedy's")
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name (each counts its launches
+    in its `launches` attribute)."""
+    from whisper_tpu_torch.ops.cache_append import (
+        cache_append_rows,
+        cache_append_rows_ragged,
+    )
+    from whisper_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_bg,
+        decode_attention_bh,
+        decode_attention_q8,
+        decode_attention_q8_bh,
+    )
+    from whisper_tpu_torch.ops.decoder_step import fused_decoder_step
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_q8,
+    )
+    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    return {"encoder_block_tail": encoder_block_tail,
+            "encoder_block_tail_q8": encoder_block_tail_q8,
+            "cache_append_rows": cache_append_rows,
+            "flash_attention": flash_attention,
+            "cache_append_rows_ragged": cache_append_rows_ragged,
+            "decode_attention_q8_bh": decode_attention_q8_bh,
+            "decode_attention_q8": decode_attention_q8,
+            "fused_decoder_step": fused_decoder_step,
+            "decode_attention_bh": decode_attention_bh,
+            "decode_attention_bg": decode_attention_bg,
+            "decode_attention": decode_attention}
+
+
+def pipeline_layer(card: str) -> None:
+    """The pipeline layer's phases alone (--only pipeline): tiny fp32
+    long-form against the CPU, the CLI's long WAV and speculative flags,
+    speculative decoding at medium, and turbo long-form (weights drawn on
+    the card)."""
+    import torch
+
+    from whisper_tpu_torch import get_config, weights
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    kernels = kernel_wrappers()
+    tiny = get_config("tiny")
+    longform_fp32_parity(weights.init_params(tiny, seed=0), card)
+    cli_longform(card)
+    speculative_phase(kernels, card, False)
+    tcfg = get_config(TURBO)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = write_v3_vocab(Tokenizer(config=tiny).tokens, tmp)
+        pipe = WhisperPipeline.from_params(card_init_params(tcfg, 0), TURBO,
+                                           dtype="bfloat16", device="cuda",
+                                           vocab_path=vocab, quant="off")
+        longform_path(pipe, kernels, card, False)
+    del pipe
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3177,17 +3665,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config("tiny")
-    kernels = {"encoder_block_tail": encoder_block_tail,
-               "encoder_block_tail_q8": encoder_block_tail_q8,
-               "cache_append_rows": cache_append_rows,
-               "flash_attention": flash_attention,
-               "cache_append_rows_ragged": cache_append_rows_ragged,
-               "decode_attention_q8_bh": decode_attention_q8_bh,
-               "decode_attention_q8": decode_attention_q8,
-               "fused_decoder_step": fused_decoder_step,
-               "decode_attention_bh": decode_attention_bh,
-               "decode_attention_bg": decode_attention_bg,
-               "decode_attention": decode_attention}
+    kernels = kernel_wrappers()
     # every greedy run without the fused step or "pallas" launches none of
     # these
     no_q8 = {"decode_attention_q8_bh": 0, "decode_attention_q8": 0,
@@ -3501,8 +3979,17 @@ def main() -> int:
     emit({"phase": "cli", "rc": rc, "rc_quant_flags": rc_q})
     require(rc == 0 and rc_q == 0, f"cli returned {rc}, {rc_q}")
     cli_beam(clips[0], card)
+
+    # 6b. the pipeline layer at tiny: long-form fp32 on the card against
+    # the CPU, and the CLI's long WAV and speculative flags
+    longform_fp32_parity(params, card)
+    cli_longform(card)
     del params
     torch.cuda.empty_cache()
+
+    # 6c. speculative decoding: medium at full width and depth, the tiny
+    # draft and medium as its own draft, then under "pallas"
+    spec_launches = speculative_phase(kernels, card, opts.profile)
 
     # 7. large-v3-turbo at full width and depth: the tail, one launch a
     # layer
@@ -3527,6 +4014,8 @@ def main() -> int:
                             "cache_append_rows_ragged": 0, **no_q8}, card)
         turbo_launches, turbo_peak = line["launches"], line["peak_mem_gb"]
         main_path_stages(pipe, audio, bias, card)
+        # 7-longform. a 75 s clip long-form on the same pipeline
+        longform = longform_path(pipe, kernels, card, opts.profile)
         # 7-off. the tail-off encoder (WHISPER_TPU_FUSED_ENCODER=0: flash,
         # then cuBLAS and torch epilogues), its launches, and its wall in
         # turns against the tail
@@ -3669,7 +4158,10 @@ def main() -> int:
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
          "launches": tiny_launches["encoder_block_tail"],
-         "turbo_launches": turbo_launches["encoder_block_tail"], **tail},
+         "turbo_launches": turbo_launches["encoder_block_tail"],
+         "longform_launches": longform["launches"]["encoder_block_tail"],
+         "speculative_launches": spec_launches["encoder_block_tail"],
+         **tail},
         # the int8 form (mlp_q, o_q), timed at tiny b32 (turbo's beside);
         # launches from encoder_int8_path (turbo serving's and the medium
         # engine's beside); no one PyTorch call computes it (tail_int8_time
@@ -3683,6 +4175,7 @@ def main() -> int:
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",
          "launches": tiny_launches["cache_append_rows"],
+         "longform_launches": longform["launches"]["cache_append_rows"],
          "max_abs_err": append_err,
          "ms": append_ms, "plain_ms": append_plain_ms, **append_bound,
          "library_ms": append_plain_ms},
@@ -3693,6 +4186,8 @@ def main() -> int:
          "source": "whisper_tpu_torch/csrc/flash_attention.cu",
          "replaces": "whisper_tpu/ops/flash_attention.py:112",
          "launches": tail_off_launches["flash_attention"],
+         "speculative_launches": spec_launches["flash_attention"],
+         "longform_launches": longform["launches"]["flash_attention"],
          "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
          "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
@@ -3738,6 +4233,7 @@ def main() -> int:
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:297",
          "launches": bh_launches["decode_attention_bh"],
+         "speculative_launches": spec_launches["decode_attention_bh"],
          "max_abs_err": decode_err["decode_attention_bh"],
          **decode["decode_attention_bh"]},
         {"name": "decode_attention_bg", "route": "cuda",

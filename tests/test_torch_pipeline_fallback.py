@@ -192,8 +192,21 @@ def test_window_segments_and_word_timestamps(pipes, monkeypatch):
         timestamps=True), window_offset_s=30.0)
     assert logs["port"] == logs["jax"]
     assert got.segments == want.segments and got.segments[0]["start"] == 30.1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tpipe.transcribe_window(audio, word_timestamps=True)
+    # word timestamps on the scripted text, with and without a
+    # <|startofprev|> prompt (whose text the alignment must skip): the
+    # words and their times equal JAX's, shifted by the window offset
+    loud = np.random.RandomState(4).randn(40_000).astype(np.float32) * 0.1
+    for prev in ((), tuple(PLAIN[10:16])):
+        kw = dict(opts=None, prev_tokens=prev, word_timestamps=True,
+                  window_offset_s=12.5)
+        want = jpipe.transcribe_window(loud, **kw)
+        got = tpipe.transcribe_window(loud, **kw)
+        assert got.words and [(w.word, w.start, w.end, w.tokens)
+                              for w in got.words] == \
+            [(w.word, w.start, w.end, w.tokens) for w in want.words]
+        assert got.tokens == want.tokens and got.tokens[0] == cfg.sot_token
+        assert all(12.5 <= w.start <= w.end <= 12.5 + 2.55
+                   for w in got.words)
 
 
 @pytest.fixture

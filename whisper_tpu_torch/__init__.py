@@ -35,7 +35,15 @@ cross/self/full KV caches, the serving policy):
                         detect_language)
   - serving_continuous.py <- whisper_tpu/serving_continuous.py (the
                         continuous-batching engine, seeded sampling)
-  - pipeline.py, cli.py (one window, with the temperature fallback)
+  - pipeline.py, cli.py (one window with the temperature fallback, and
+                        long-form `transcribe`: seek, conditioning, the
+                        VAD gate; the JAX CLI's flags)
+  - alignment.py     <- whisper_tpu/alignment.py (word timestamps)
+  - formats.py       <- whisper_tpu/formats.py (SRT, VTT, TSV, JSON)
+  - speculative.py   <- whisper_tpu/speculative.py (draft-and-verify
+                        greedy decoding)
+  - native.py        <- whisper_tpu/native.py, the audio part (its own
+                        ctypes binding of native/whisper_native.cpp)
 
 The package imports torch, and neither jax nor anything of whisper_tpu.
 """
@@ -43,7 +51,8 @@ The package imports torch, and neither jax nor anything of whisper_tpu.
 from whisper_tpu_torch.config import CONFIGS, WhisperConfig, get_config
 
 __all__ = ["WhisperConfig", "CONFIGS", "get_config", "WhisperPipeline",
-           "ContinuousBatcher", "QueueFull", "DecodeOptions"]
+           "ContinuousBatcher", "QueueFull", "DecodeOptions",
+           "speculative_decode", "spec_transcribe_window"]
 
 # name -> module, imported on first access (whisper_tpu/__init__.py:31-53)
 _LAZY = {
@@ -51,6 +60,8 @@ _LAZY = {
     "ContinuousBatcher": "whisper_tpu_torch.serving_continuous",
     "QueueFull": "whisper_tpu_torch.serving_continuous",
     "DecodeOptions": "whisper_tpu_torch.decode_rules",
+    "speculative_decode": "whisper_tpu_torch.speculative",
+    "spec_transcribe_window": "whisper_tpu_torch.speculative",
 }
 
 

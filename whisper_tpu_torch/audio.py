@@ -122,3 +122,24 @@ def pad_or_trim(audio: np.ndarray, n_samples: int) -> np.ndarray:
     if audio.shape[0] >= n_samples:
         return audio[:n_samples]
     return np.pad(audio, (0, n_samples - audio.shape[0]))
+
+
+def energy_vad(audio: np.ndarray, sample_rate: int = 16_000,
+               frame_ms: float = 30.0, threshold_db: float = -40.0,
+               min_speech_frames: int = 3) -> bool:
+    """Host-side energy voice-activity gate (whisper_tpu/audio.py:166):
+    True when at least `min_speech_frames` frames of `frame_ms` exceed
+    `threshold_db` dBFS RMS (audio in [-1, 1]). Long-form transcription
+    skips a window that fails it: no mel, no encoder, no decode. A clip
+    shorter than the quorum of full frames needs as many loud frames as
+    it has (at least one); an empty clip is silent."""
+    audio = np.asarray(audio, np.float32).reshape(-1)
+    if audio.size == 0:
+        return False
+    frame = max(int(sample_rate * frame_ms / 1000.0), 1)
+    n = (audio.size // frame) * frame
+    frames = audio[None, :] if n == 0 else audio[:n].reshape(-1, frame)
+    rms = np.sqrt(np.mean(np.square(frames), axis=1) + 1e-12)
+    db = 20.0 * np.log10(rms + 1e-12)
+    need = min(min_speech_frames, max(1, frames.shape[0]))
+    return int((db > threshold_db).sum()) >= need

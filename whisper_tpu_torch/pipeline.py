@@ -1,7 +1,10 @@
 """End-to-end transcription on one device (whisper_tpu/pipeline.py:64
-WhisperPipeline, the single-window part: greedy, beam search and
-sampling with the decode rules, language detection, and openai/whisper's
-temperature fallback with its gates).
+WhisperPipeline): one window (greedy, beam search and sampling with the
+decode rules, language detection, openai/whisper's temperature fallback
+with its gates, word timestamps), and long-form audio by `transcribe`
+(fixed 30 s windows, or seeking by the last closed segment when
+timestamps are on; conditioning on the previous window's text, an
+initial prompt, and the energy VAD gate).
 
 The pipeline owns the params on its device in the compute dtype and runs
 mel -> encoder -> prefill -> decode loop. It defaults to `cuda` and
@@ -39,7 +42,13 @@ from whisper_tpu_torch.tokenizer import (
     split_segments,
 )
 from whisper_tpu_torch import weights as weights_lib
-from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
+from whisper_tpu_torch.alignment import find_alignment_heads
+from whisper_tpu_torch.alignment import word_timestamps as align_words
+from whisper_tpu_torch.audio import (
+    energy_vad,
+    log_mel_spectrogram,
+    pad_or_trim,
+)
 from whisper_tpu_torch.decode import (
     DecodeResult,
     decode_from_encoder,
@@ -76,6 +85,7 @@ class Transcription:
     text: str
     tokens: list[int]
     timings: dict[str, float]
+    words: Optional[list] = None       # [alignment.WordTiming] on request
     segments: Optional[list] = None    # [{start, end, text}] with timestamps
 
 
@@ -92,14 +102,16 @@ def resolve_device(device) -> torch.device:
 class WhisperPipeline:
     def __init__(self, cfg: WhisperConfig | str, params,
                  device="cuda", tokenizer: Optional[Tokenizer] = None,
-                 quant: str = "off", batch_hint: Optional[int] = None):
+                 quant: str = "off", batch_hint: Optional[int] = None,
+                 alignment_heads: Optional[Sequence[tuple]] = None):
         """params: a params tree of CPU or device tensors (fp32). The
         pipeline casts it by the JAX package's rule (rank >= 2 leaves take
         the compute dtype, weights.to_device) and moves it to `device`.
         quant: "off" (default) or "auto" (the JAX serving policy, see the
         module docstring); batch_hint: effective decode rows (batch x beam
         width) for the policy's small-batch gate, None for batched
-        serving."""
+        serving. alignment_heads: the official (layer, head) table of word
+        alignment, None for the upper half of the decoder layers."""
         if quant not in ("auto", "off"):
             raise ValueError(f"quant must be 'auto' or 'off', got {quant!r}")
         self.cfg = get_config(cfg) if isinstance(cfg, str) else cfg
@@ -112,6 +124,7 @@ class WhisperPipeline:
         if self.cfg.weight_quant:
             self.params = quantize_weights_wq(self.params, self.cfg)
         self.tokenizer = tokenizer or Tokenizer(config=self.cfg)
+        self.alignment_heads = alignment_heads
 
     # ---- constructors (model: family name or a WhisperConfig) ----
     @staticmethod
@@ -126,43 +139,49 @@ class WhisperPipeline:
                       ) -> "WhisperPipeline":
         """Load a reference-format headerless fp32 weight blob. vocab_path:
         the model's vocab.txt (default: the bundled 51,865-entry table,
-        which large-v3 and turbo outgrow)."""
+        which large-v3 and turbo outgrow). An alignment-heads sidecar
+        beside the file is read (alignment.find_alignment_heads)."""
         cfg = cls._config(model, dtype)
         tokenizer = Tokenizer(vocab_path, config=cfg)
         return cls(cfg, weights_lib.from_flat_bin_path(path, cfg), device,
-                   tokenizer, quant, batch_hint)
+                   tokenizer, quant, batch_hint,
+                   alignment_heads=find_alignment_heads(path))
 
     @classmethod
     def from_npz(cls, path: str, model="tiny", dtype: str = "float32",
                  device="cuda", vocab_path: Optional[str] = None,
                  quant: str = "off", batch_hint: Optional[int] = None
                  ) -> "WhisperPipeline":
-        """Load an npz written by either package's save_npz (:121)."""
+        """Load an npz written by either package's save_npz (:121), and
+        the alignment-heads sidecar beside it, if any."""
         cfg = cls._config(model, dtype)
         return cls(cfg, weights_lib.load_npz(path, cfg), device,
-                   Tokenizer(vocab_path, config=cfg), quant, batch_hint)
+                   Tokenizer(vocab_path, config=cfg), quant, batch_hint,
+                   alignment_heads=find_alignment_heads(path))
 
     @classmethod
     def from_random(cls, model="tiny", seed: int = 0, dtype: str = "float32",
                     device="cuda", vocab_path: Optional[str] = None,
-                    quant: str = "off", batch_hint: Optional[int] = None
+                    quant: str = "off", batch_hint: Optional[int] = None,
+                    alignment_heads: Optional[Sequence[tuple]] = None
                     ) -> "WhisperPipeline":
         """Random weights from a numpy seed, for benchmarks and tests."""
         cfg = cls._config(model, dtype)
         tokenizer = Tokenizer(vocab_path, config=cfg)
         return cls(cfg, weights_lib.init_params(cfg, seed), device, tokenizer,
-                   quant, batch_hint)
+                   quant, batch_hint, alignment_heads=alignment_heads)
 
     @classmethod
     def from_params(cls, params, model="tiny", dtype: str = "float32",
                     device="cuda", vocab_path: Optional[str] = None,
-                    quant: str = "off", batch_hint: Optional[int] = None
+                    quant: str = "off", batch_hint: Optional[int] = None,
+                    alignment_heads: Optional[Sequence[tuple]] = None
                     ) -> "WhisperPipeline":
         """A params tree of the port's tensors (weights.from_jax_params
         converts the JAX package's tree)."""
         cfg = cls._config(model, dtype)
         return cls(cfg, params, device, Tokenizer(vocab_path, config=cfg),
-                   quant, batch_hint)
+                   quant, batch_hint, alignment_heads=alignment_heads)
 
     # ---- decode options ----
     def make_options(self, timestamps: bool = False,
@@ -241,11 +260,10 @@ class WhisperPipeline:
         (opts.beam_size) runs only at temperature 0; temperature i of the
         list samples from a generator seeded seed + i. The silence gate
         drops the text when P(no speech) > no_speech_threshold and the
-        avg logprob is below LOGPROB_THRESHOLD."""
-        if word_timestamps:
-            raise NotImplementedError(
-                "word timestamps (alignment.py) are not ported yet (ROADMAP "
-                "Queue 1 item 5)")
+        avg logprob is below LOGPROB_THRESHOLD. word_timestamps aligns the
+        window's text with its audio (alignment.word_timestamps, past the
+        prompt and any <|startofprev|> text); word and segment times are
+        shifted by window_offset_s."""
         cfg = self.cfg
         t0 = time.perf_counter()
         enc_out = self._encode_audio(pad_or_trim(audio, cfg.n_samples)[None])
@@ -263,14 +281,17 @@ class WhisperPipeline:
         base = opts or DecodeOptions()
         temps = tuple(fallback_temperatures) or (base.temperature,)
 
-        def strip_prev(ids_full: list) -> list:
-            """Drop the <|startofprev|> region (:197): the gates and the
-            text read this window's tokens only."""
+        def strip_prev(ids_full: list) -> tuple[list, int]:
+            """Drop the <|startofprev|> region (:197): the gates, the text
+            and the alignment read this window's tokens only. Returns (ids
+            from SOT, SOT's offset in the buffer)."""
             if prev_tokens and cfg.sot_token in ids_full:
-                return ids_full[ids_full.index(cfg.sot_token):]
-            return ids_full
+                off = ids_full.index(cfg.sot_token)
+                return ids_full[off:], off
+            return ids_full, 0
 
         ids: list[int] = []
+        sot_off = 0
         res = None
         for ti, temp in enumerate(temps):
             generator = None
@@ -281,7 +302,8 @@ class WhisperPipeline:
                 self.params, cfg, enc_out, prompt, max_new=max_new,
                 opts=base._replace(temperature=float(temp)),
                 beam_size=beam if temp == 0 else 1, generator=generator)
-            ids = strip_prev(res.tokens[0, :int(res.lengths[0])].tolist())
+            ids, sot_off = strip_prev(
+                res.tokens[0, :int(res.lengths[0])].tolist())
             if len(temps) == 1:
                 break
             avg_lp = float(res.avg_logprob(P)[0])
@@ -295,7 +317,16 @@ class WhisperPipeline:
                 and float(res.avg_logprob(P)[0]) < LOGPROB_THRESHOLD):
             ids = []
         text = self.tokenizer.decode(ids)
-        segments = None
+        words = segments = None
+        if word_timestamps and ids:
+            secs = min(len(audio) / cfg.sample_rate, cfg.chunk_length_s)
+            words = align_words(self.params, cfg, self.tokenizer, ids,
+                                enc_out, audio_seconds=max(secs, 1.0),
+                                alignment_heads=self.alignment_heads,
+                                prompt_len=P - sot_off)
+            for w in words:
+                w.start += window_offset_s
+                w.end += window_offset_s
         if opts is not None and opts.timestamps and ids:
             segments = split_segments(cfg, ids, self.tokenizer,
                                       window_offset_s=window_offset_s)
@@ -304,12 +335,84 @@ class WhisperPipeline:
             text=text, tokens=ids,
             timings={"mel_s": t1 - t0, "decode_s": t2 - t1,
                      "detok_s": t3 - t2, "total_s": t3 - t0},
-            segments=segments)
+            words=words, segments=segments)
+
+    def transcribe(self, audio: np.ndarray, language: str = "en",
+                   task: str = "transcribe",
+                   max_new: Optional[int] = None,
+                   opts: Optional[DecodeOptions] = None,
+                   condition_on_previous: bool = False,
+                   fallback_temperatures: Sequence[float] = (),
+                   initial_prompt: Optional[str] = None,
+                   word_timestamps: bool = False,
+                   no_speech_threshold: Optional[float] = None,
+                   vad_threshold_db: Optional[float] = None,
+                   seed: int = 0) -> Transcription:
+        """Long-form audio (:270): one transcribe_window per 30 s window.
+        With timestamp decoding (opts.timestamps) a window starts where
+        the previous one's last closed segment ended (openai/whisper's
+        seek), at least 1 s further on; otherwise windows are a fixed
+        30 s apart. initial_prompt conditions the first window through
+        <|startofprev|>; condition_on_previous conditions each later one on
+        the previous window's text tokens (the last n_text_ctx // 2 - 8).
+        vad_threshold_db skips a window that audio.energy_vad finds silent
+        (no mel, encoder or decode). Texts, tokens, words, segments and
+        timings are concatenated or summed over the windows. seed: every
+        window's sampling seed (transcribe_window's; JAX's transcribe
+        passes none, so its windows take 0, the default here)."""
+        cfg = self.cfg
+        audio = np.asarray(audio, dtype=np.float32).reshape(-1)
+        texts, all_ids = [], []
+        all_words: list = []
+        all_segments: list = []
+        prev: tuple = (tuple(self.tokenizer.encode(initial_prompt))
+                       if initial_prompt else ())
+        timings = {"mel_s": 0.0, "decode_s": 0.0, "detok_s": 0.0,
+                   "total_s": 0.0}
+        seek = 0
+        use_seek = bool(opts and opts.timestamps)
+        while seek < max(len(audio), 1):
+            offset_s = seek / cfg.sample_rate
+            chunk = audio[seek:seek + cfg.n_samples]
+            if vad_threshold_db is not None and not energy_vad(
+                    chunk, cfg.sample_rate, threshold_db=vad_threshold_db):
+                seek += cfg.n_samples
+                if len(chunk) < cfg.n_samples:
+                    break
+                continue
+            r = self.transcribe_window(
+                chunk, language, task, max_new=max_new, opts=opts,
+                prev_tokens=prev,
+                fallback_temperatures=fallback_temperatures,
+                no_speech_threshold=no_speech_threshold,
+                seed=seed, word_timestamps=word_timestamps,
+                window_offset_s=offset_s)
+            texts.append(r.text)
+            all_ids.extend(r.tokens)
+            all_words.extend(r.words or ())
+            all_segments.extend(r.segments or ())
+            if condition_on_previous:
+                gen = [t for t in r.tokens if t < cfg.eot_token]
+                prev = tuple(gen[-(cfg.n_text_ctx // 2 - 8):])
+            for k in timings:
+                timings[k] += r.timings[k]
+            advance_s = float(cfg.chunk_length_s)
+            if use_seek and r.segments:
+                last_end = r.segments[-1].get("end")
+                if last_end is not None:
+                    advance_s = max(last_end - offset_s, 1.0)
+            seek += int(round(advance_s * cfg.sample_rate))
+            if len(chunk) < cfg.n_samples:
+                break                       # that was the final window
+        return Transcription(text="".join(texts), tokens=all_ids,
+                             timings=timings, words=all_words or None,
+                             segments=all_segments or None)
 
 
 def load_wav(path: str, target_rate: int = 16_000) -> np.ndarray:
     """WAV file -> mono fp32 at target_rate (whisper_tpu/pipeline.py:348
-    load_wav; linear-interpolation resampling)."""
+    load_wav): FFT resampling with scipy.signal.resample, as JAX does
+    (:369-376), and linear interpolation only where scipy is missing."""
     import wave
 
     with wave.open(path, "rb") as w:
@@ -328,7 +431,12 @@ def load_wav(path: str, target_rate: int = 16_000) -> np.ndarray:
     if channels > 1:
         x = x.reshape(-1, channels).mean(axis=1)
     if rate != target_rate:
-        t_old = np.arange(len(x)) / rate
-        t_new = np.arange(int(len(x) * target_rate / rate)) / target_rate
-        x = np.interp(t_new, t_old, x).astype(np.float32)
+        try:
+            from scipy.signal import resample
+            x = resample(x, int(len(x) * target_rate / rate)).astype(
+                np.float32)
+        except ImportError:
+            t_old = np.arange(len(x)) / rate
+            t_new = np.arange(int(len(x) * target_rate / rate)) / target_rate
+            x = np.interp(t_new, t_old, x).astype(np.float32)
     return x
