@@ -69,16 +69,27 @@ draft, k = 4, in fp32 and bf16 (tokens equal to the target's greedy),
 and under "pallas" (flash and decode_attention_bh launches as the round
 statistics imply); and the CLI with a 45 s 22.05 kHz WAV (the native
 loader, word timestamps, SRT, the VAD gate) and with small and the tiny
-draft.
+draft. Then the serving layer: `python -m whisper_tpu_torch.server` as a
+user starts it (tiny from a flat-bin file, bf16 under quant="auto", three
+processes: the continuous engine under benchmarks/server_load.py's mix of
+8 clients at 22.05 kHz, half on SSE, every 4th a 75 s file; a
+--max-queue 1 server under a burst, which answers 503 with Retry-After;
+the dynamic batcher gathering 8 concurrent 30 s posts into one batch);
+large-v3-turbo at full width and depth under quant="auto" behind the HTTP
+front (16 SSE clients through a ContinuousEngine of 8 slots: TTFT,
+inter-token gap, completion wall, RTFx, launches as the fills and steps
+imply, each short request equal to its solo run; a BatchedTranscriber
+batch of 8; recovery from a poisoned step); and tiny fp32 served by
+both engines on the card, its tokens equal to the CPU's.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--only pipeline` runs the pipeline layer's phases alone (turbo's
-weights drawn on the card). `--profile` adds the kernels' build timed
-serial against parallel, three more turbo long-form walls, the
-speculative walls as the best of three, the
-tail's launches at turbo b32 by kernel, the int8 engines under
+weights drawn on the card), `--only serving` the serving layer's.
+`--profile` adds the kernels' build timed serial against parallel,
+three more turbo long-form walls, the speculative walls as the best of
+three, the tail's launches at turbo b32 by kernel, the int8 engines under
 torch.profiler, the
 names of SDPA's fp32 kernels, the decode kernel by replay at forced split
 counts, and after each greedy main path (of the "pallas" ones, tiny's):
@@ -258,6 +269,14 @@ FUSED_PHASE_STEPS = 20
 # tokens, EOT banned) and the CLI's long WAV (CLI_LONG_S at 22.05 kHz)
 LONGFORM_S, LONGFORM_MAX_NEW = 75.0, 32
 SPEC_K, SPEC_MAX_NEW = 4, 32
+# the serving phases: tokens a window; benchmarks/server_load.py's mix
+# (22.05 kHz clips of 5 s, every 4th client a 75 s file)
+SERVE_MAX_NEW = 24
+SERVE_RATE, SERVE_SHORT_S, SERVE_LONG_S, SERVE_LONG_EVERY = 22_050, 5.0, \
+    75.0, 4
+# the dynamic server's grace window: far wider than the spread of 8
+# concurrent 30 s posts, so that they make one batch
+DYNAMIC_WAIT_MS = 15_000
 CLI_LONG_S, CLI_LONG_RATE = 45.0, 22_050
 # word times on the card against the CPU: at most one encoder frame
 WORD_TIME_TOL = 0.02 + 1e-9
@@ -270,7 +289,7 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time",
-        "pipeline": "pipeline_layer"}
+        "pipeline": "pipeline_layer", "serving": "serving_group"}
 
 
 def emit(obj: dict) -> None:
@@ -3544,6 +3563,616 @@ def cli_longform(card: str) -> None:
                 "cli --draft-model: tokens differ from greedy's")
 
 
+# ---------------------------------------------------------------------------
+# the serving layer: the HTTP/SSE server, the dynamic batcher and
+# the long-form driver on the card
+# ---------------------------------------------------------------------------
+
+def wav_bytes(x: np.ndarray, rate: int) -> bytes:
+    """x as a mono 16-bit PCM WAV file's bytes."""
+    import io
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def serve_mix(n: int, seed: int) -> list:
+    """benchmarks/server_load.py's mix at SERVE_RATE: client i sends a
+    SERVE_LONG_S file when i % SERVE_LONG_EVERY == SERVE_LONG_EVERY - 1,
+    else a SERVE_SHORT_S clip. Returns [(WAV bytes, audio seconds)]."""
+    out = []
+    for i in range(n):
+        secs = (SERVE_LONG_S if i % SERVE_LONG_EVERY == SERVE_LONG_EVERY - 1
+                else SERVE_SHORT_S)
+        out.append((wav_bytes(longform_clip(secs, SERVE_RATE, seed + i),
+                              SERVE_RATE), secs))
+    return out
+
+
+def serve_request(port: int, body: bytes, sse: bool) -> dict:
+    """One client's POST of a WAV body. SSE: the token events with their
+    arrival times and the final event; else the JSON reply. Returns the
+    status, Retry-After, the result, the streamed tokens, the seconds to
+    the first token and between tokens, and the wall."""
+    import urllib.error
+    import urllib.request
+    query = "?stream=1" if sse else ""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/audio/transcriptions{query}",
+        data=body, headers={"Content-Type": "audio/wav"}, method="POST")
+    out = {"sse": sse, "streamed": [], "stamps": []}
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out["status"] = r.status
+            if not sse:
+                out["result"] = json.loads(r.read())
+            else:
+                for raw in r:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: "):
+                        continue
+                    ev = json.loads(line[6:])
+                    if "token" in ev:
+                        out["streamed"].append(ev["token"])
+                        out["stamps"].append(time.perf_counter() - t0)
+                    else:
+                        out["result"] = ev
+    except urllib.error.HTTPError as e:
+        out["status"] = e.code
+        out["retry_after"] = e.headers.get("Retry-After")
+        out["result"] = json.loads(e.read() or b"{}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def run_clients(port: int, bodies: list, sse: list) -> tuple[list, float]:
+    """Every client in its own thread, released together; returns the
+    replies in client order and the wall from the release to the last
+    reply."""
+    import concurrent.futures
+    import threading
+    gate = threading.Barrier(len(bodies) + 1)
+
+    def client(i):
+        gate.wait()
+        return serve_request(port, bodies[i], sse[i])
+
+    with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+        futs = [pool.submit(client, i) for i in range(len(bodies))]
+        gate.wait()
+        t0 = time.perf_counter()
+        replies = [f.result() for f in futs]
+    return replies, time.perf_counter() - t0
+
+
+def http_json(port: int, path: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def served_windows(tokens: list, prompt: list, max_new: int, eot: int,
+                   label: str) -> list:
+    """The generated tokens of each window of a served result: every
+    window is the SOT-led prompt, then the first pick and up to max_new
+    more, ending at the cap or after an EOT. Fails on any other layout."""
+    windows, i = [], 0
+    while i < len(tokens):
+        require(tokens[i:i + len(prompt)] == prompt,
+                f"{label}: window {len(windows)} does not start with the "
+                f"SOT prompt")
+        i += len(prompt)
+        gen = []
+        while i < len(tokens) and len(gen) < max_new + 1:
+            gen.append(tokens[i])
+            i += 1
+            if gen[-1] == eot:
+                break
+        windows.append(gen)
+    return windows
+
+
+def check_replies(replies: list, secs: list, cfg, max_new: int,
+                  label: str) -> None:
+    """Every reply 200 with the SOT prompt, a window per 30 s of audio
+    (three for 75 s), and on SSE the streamed tokens equal to the final
+    event's generated tokens."""
+    from whisper_tpu_torch.tokenizer import build_prompt
+    prompt = build_prompt(cfg)
+    for i, (r, s) in enumerate(zip(replies, secs)):
+        require(r["status"] == 200, f"{label}: client {i} got "
+                                    f"{r['status']}: {r.get('result')}")
+        wins = served_windows(r["result"]["tokens"], prompt, max_new,
+                              cfg.eot_token, f"{label} client {i}")
+        require(len(wins) == -(-int(s) // cfg.chunk_length_s),
+                f"{label}: client {i} ({s} s) has {len(wins)} windows")
+        if r["sse"]:
+            require(r["result"].get("done") is True,
+                    f"{label}: client {i} has no done event")
+            require(r["streamed"] == [t for w in wins for t in w],
+                    f"{label}: client {i}'s streamed tokens differ from the "
+                    f"final event's")
+
+
+def latency(replies: list, wall: float, audio_s: float) -> dict:
+    """TTFT p50 and p95 and the median inter-token gap over the SSE
+    clients; the completion wall, the aggregate audio RTFx over all
+    clients, and the streamed tokens per second."""
+    sse = [r for r in replies if r["sse"] and r["stamps"]]
+    ttft = [r["stamps"][0] for r in sse]
+    gaps = [b - a for r in sse for a, b in zip(r["stamps"], r["stamps"][1:])]
+    tokens = sum(len(r["streamed"]) for r in sse)
+    return {"ttft_p50_s": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_p95_s": float(np.percentile(ttft, 95)) if ttft else None,
+            "gap_p50_ms": float(np.median(gaps)) * 1e3 if gaps else None,
+            "completion_wall_s": wall, "audio_s": audio_s,
+            "audio_rtfx": audio_s / wall,
+            "sse_tokens": tokens, "sse_tokens_per_s": tokens / wall}
+
+
+class ServerProcess:
+    """`python -m whisper_tpu_torch.server` in a process of its own, from
+    this checkout, started at once; `wait()` waits for its startup line
+    and its /healthz; `stop()` interrupts it and waits for it (killing it
+    past a timeout)."""
+
+    def __init__(self, args: list, log_dir: str, name: str):
+        import queue
+        import threading
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        self.name = name
+        self.err_path = os.path.join(log_dir, f"{name}.err")
+        self._err = open(self.err_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "whisper_tpu_torch.server", *args],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+        self.lines: queue.Queue = queue.Queue()
+        self.out: list = []
+
+        def read():
+            for line in self.proc.stdout:
+                self.out.append(line.rstrip())
+                self.lines.put(line)
+            self.lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def _fail(self, why: str):
+        self.stop()
+        with open(self.err_path) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"chip_smoke: server {self.name} {why}; stdout "
+                           f"{self.out[-5:]}; stderr:\n{tail}")
+
+    def wait(self, timeout: float = 300.0) -> tuple[int, str, float]:
+        """(port, startup line, seconds from the spawn to /healthz)."""
+        import queue
+        import re
+        import urllib.request
+        deadline = self.t0 + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.1, deadline
+                                                  - time.perf_counter()))
+            except queue.Empty:
+                self._fail("printed no startup line in time")
+            if line is None:
+                self._fail(f"exited with {self.proc.wait()}")
+            m = re.match(r"serving \S+ on \S+:(\d+) \((.*)\)", line)
+            if m:
+                break
+        port = int(m.group(1))
+        while True:
+            try:
+                require(http_json(port, "/healthz")["status"] == "ok",
+                        f"server {self.name}: /healthz not ok")
+                break
+            except OSError:
+                if time.perf_counter() > deadline:
+                    self._fail("never answered /healthz")
+                time.sleep(0.1)
+        return port, line.strip(), time.perf_counter() - self.t0
+
+    def stop(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._err.close()
+
+
+def server_entry(card: str) -> None:
+    """The daemon as a user starts it: tiny's random weights written by
+    weights.to_flat_bin, then `python -m whisper_tpu_torch.server --model
+    tiny --flat-bin ... --engine continuous --port 0 --max-batch 8` (the
+    JAX server's defaults: bf16, quant="auto", warmup), beside the same
+    binary with --max-queue 1 and with --engine dynamic, the three started
+    together. The continuous server takes benchmarks/server_load.py's mix
+    (8 clients at 22.05 kHz, 5 s clips, every 4th a 75 s file, half of
+    them on SSE); the --max-queue 1 server a burst of 16 posts; the
+    dynamic server 8 concurrent 30 s posts."""
+    import torch
+
+    from whisper_tpu_torch import get_config, native, weights
+    cfg = get_config("tiny")
+    # built here once, not by three servers at once
+    require(native.available(), "the native library did not build")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tiny.bin")
+        with open(path, "wb") as f:
+            f.write(weights.to_flat_bin(weights.init_params(cfg, seed=0),
+                                        cfg))
+        base = ["--model", "tiny", "--flat-bin", path, "--port", "0",
+                "--host", "127.0.0.1", "--max-batch", "8"]
+        new = ["--max-new", str(SERVE_MAX_NEW)]
+        procs = {
+            "continuous": ServerProcess(base + ["--engine", "continuous"]
+                                        + new, tmp, "continuous"),
+            # the default cap (195 tokens) keeps the 8 slots busy through
+            # the burst
+            "max_queue_1": ServerProcess(base + ["--engine", "continuous",
+                                                 "--max-queue", "1"], tmp,
+                                         "max_queue_1"),
+            # a grace window wide enough to gather the 8 posts: each
+            # handler decodes and resamples its 30 s WAV on the host
+            # first (about 0.7 s of CPU a post), and on a loaded host the
+            # posts reach the queue more than a second apart. A full batch
+            # launches at once, so the width costs nothing once all 8 are in
+            "dynamic": ServerProcess(base + ["--engine", "dynamic",
+                                             "--max-wait-ms",
+                                             str(DYNAMIC_WAIT_MS)] + new,
+                                     tmp, "dynamic")}
+        try:
+            ports = {k: p.wait() for k, p in procs.items()}
+            kind = torch.cuda.get_device_name(0)
+            for name, (_, line, _) in ports.items():
+                require("device=cuda" in line and kind in line,
+                        f"server {name}: the startup line names no card: "
+                        f"{line}")
+            # the mix, half of the clients on SSE
+            mix = serve_mix(8, seed=40)
+            replies, wall = run_clients(ports["continuous"][0],
+                                        [b for b, _ in mix],
+                                        [i % 2 == 0 for i in range(8)])
+            secs = [s for _, s in mix]
+            check_replies(replies, secs, cfg, SERVE_MAX_NEW,
+                          "server_entry")
+            stats = http_json(ports["continuous"][0], "/v1/stats")
+            require(stats["completed"] == stats["received"] == 8
+                    and stats["failed"] == 0 and stats["in_flight"] == 0,
+                    f"server_entry: /v1/stats {stats}")
+            # the admission bound
+            clip = wav_bytes(longform_clip(SERVE_SHORT_S, SERVE_RATE, 7),
+                             SERVE_RATE)
+            burst, burst_wall = run_clients(ports["max_queue_1"][0],
+                                            [clip] * 16, [False] * 16)
+            codes = [r["status"] for r in burst]
+            n503 = sum(c == 503 and r.get("retry_after") == "1"
+                       for c, r in zip(codes, burst))
+            require(n503 >= 1 and n503 + codes.count(200) == 16,
+                    f"server_entry: the --max-queue 1 burst gave {codes}")
+            # the dynamic batcher
+            long30 = [wav_bytes(longform_clip(30.0, SERVE_RATE, 60 + i),
+                                SERVE_RATE) for i in range(8)]
+            dyn, dyn_wall = run_clients(ports["dynamic"][0], long30,
+                                        [False] * 8)
+            check_replies(dyn, [30.0] * 8, cfg, SERVE_MAX_NEW,
+                          "server_entry dynamic")
+            sizes = [r["result"]["batch_size"] for r in dyn]
+            # the batch's first post waited for the rest: how far apart
+            # the 8 posts reached the queue
+            waits = [r["result"]["queued_s"] for r in dyn]
+            require(max(sizes) == 8, f"server_entry: dynamic batch sizes "
+                                     f"{sizes}, none 8 (queued_s {waits})")
+        finally:
+            for p in procs.values():
+                p.stop()
+    emit({"phase": "server_entry", "model": "tiny", "dtype": "bfloat16",
+          "quant": "auto", "slots": 8, "max_new": SERVE_MAX_NEW,
+          "startup_s": {k: v[2] for k, v in ports.items()},
+          "startup_line": ports["continuous"][1],
+          **latency(replies, wall, sum(secs)),
+          "stats": stats, "burst_codes": codes, "burst_503": n503,
+          "burst_wall_s": burst_wall, "dynamic_batch_sizes": sizes,
+          "dynamic_wait_ms": DYNAMIC_WAIT_MS,
+          "dynamic_arrival_spread_s": max(waits) - min(waits),
+          "dynamic_wall_s": dyn_wall,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+
+
+def record_fills(b) -> list:
+    """Wraps the engine's slot fill: each fill appends (its prompt
+    bucket, the audio of every request it took). Returns that list."""
+    fills = []
+    real = b._fill_free_slots
+
+    def recorded():
+        free = sum(s is None for s in b._slots)
+        taken = [req[1] for req in b._queue[:free]]
+        before = dict(b.fill_buckets)
+        real()
+        grown = [p for p, n in b.fill_buckets.items()
+                 if n > before.get(p, 0)]
+        if grown:
+            fills.append((grown[0], taken))
+
+    b._fill_free_slots = recorded
+    return fills
+
+
+def solo_tokens(eng, audio: np.ndarray, p_pad: int) -> list:
+    """One request alone on the server's engine (the same slot count), its
+    batched prefill in the bucket its crowded fill had: a fill above the
+    8 bucket crosses the 16 MiB gate and reads through flash, which rounds
+    otherwise than the reference read."""
+    b = eng._b
+    b._P_BUCKETS = tuple(p for p in type(b)._P_BUCKETS if p >= p_pad)
+    try:
+        return eng.transcribe(audio).tokens
+    finally:
+        del b._P_BUCKETS
+
+
+def server_turbo(card: str, kernels: dict) -> dict:
+    """large-v3-turbo at full width and depth, bf16, the serving policy as
+    the JAX server applies it (quant="auto", no batch hint): a
+    TranscriptionServer over a ContinuousEngine of 8 slots, 16 SSE clients
+    at 22.05 kHz, every 4th a 75 s file; every count set to 0 just before
+    the clients are released and read after the last reply. Each short
+    request's tokens equal its solo run on the engine. Then a
+    BatchedTranscriber with max_batch 8 and 8 concurrent 30 s requests
+    (one batch), and fault recovery: a poisoned step fails the pending
+    request, the next one is served. Returns the launch counts."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.server import (
+        ContinuousEngine,
+        TranscriptionServer,
+        _decode_wav_bytes,
+    )
+    from whisper_tpu_torch.serving import BatchedTranscriber
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+    from whisper_tpu_torch.tokenizer import Tokenizer, build_prompt
+    t_phase = time.perf_counter()
+    tcfg = get_config(TURBO)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = write_v3_vocab(Tokenizer(config=get_config("tiny")).tokens,
+                               tmp)
+        pipe = WhisperPipeline.from_params(
+            card_init_params(tcfg, 0), TURBO, dtype="bfloat16",
+            device="cuda", vocab_path=vocab, quant="auto")
+    cfg = pipe.cfg
+    require(quant_flags(cfg) == ["weight_quant", "cross_kv_quant",
+                                 "encoder_mlp_quant", "encoder_qkv_quant"],
+            f"turbo serving quant: {quant_flags(cfg)}")
+    b = ContinuousBatcher(pipe.params, cfg, max_slots=8,
+                          max_new=SERVE_MAX_NEW, tokenizer=pipe.tokenizer)
+    eng = ContinuousEngine(b)
+    eng.warmup()
+    steps = [0]
+    step_device = b.step_device
+
+    def counted_step(k: int = 1):
+        steps[0] += k
+        step_device(k)
+
+    b.step_device = counted_step
+    fills = record_fills(b)
+    mix = serve_mix(16, seed=80)
+    secs = [s for _, s in mix]
+    with TranscriptionServer(eng, cfg, host="127.0.0.1", port=0) as srv:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        steps[0] = 0
+        replies, wall = run_clients(srv.port, [body for body, _ in mix],
+                                    [True] * 16)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_replies(replies, secs, cfg, SERVE_MAX_NEW, "server_turbo")
+        stats = http_json(srv.port, "/v1/stats")
+        require(stats["completed"] == 16 and stats["failed"] == 0,
+                f"server_turbo: /v1/stats {stats}")
+        line = {"phase": "server_turbo", "model": cfg.name,
+                "dtype": cfg.compute_dtype, "quant": quant_flags(cfg),
+                "slots": b.B, "clients": 16, "max_new": SERVE_MAX_NEW,
+                **latency(replies, wall, sum(secs)),
+                "queue_stats": stats["queue"], "peak_mem_gb": peak,
+                "launches": launches, "fills": len(fills),
+                "fill_buckets": dict(b.fill_buckets),
+                "engine_steps": steps[0], "detect_language_calls": 0,
+                "card": card}
+        counts = check_engine_launches(line, b, cfg, 0)
+        require(counts["encoder_block_tail_q8"]
+                == tcfg.n_audio_layers * len(fills) > 0,
+                "server_turbo: not one int8 tail launch a layer a fill")
+        # each short request against its solo run
+        solo_same = []
+        for i, (body, s) in enumerate(mix):
+            if s != SERVE_SHORT_S:
+                continue
+            audio = _decode_wav_bytes(body, cfg.sample_rate)
+            p_pad = [p for p, taken in fills
+                     if any(len(a) == len(audio) and np.array_equal(a, audio)
+                            for a in taken)]
+            require(len(p_pad) == 1, f"server_turbo: client {i} was in "
+                                     f"{len(p_pad)} fills")
+            solo = solo_tokens(eng, audio, p_pad[0])
+            solo_same.append(solo == replies[i]["result"]["tokens"])
+        emit({"phase": "server_turbo_solo", "identical": solo_same,
+              "fill_buckets_of_fills": [p for p, _ in fills], "card": card})
+        require(all(solo_same), "server_turbo: a short request's tokens "
+                                "differ from its solo run")
+        # fault recovery on the card
+        clip = _decode_wav_bytes(mix[0][0], cfg.sample_rate)
+        want = solo_tokens(eng, clip, 8)
+
+        def poisoned(k: int = 1):
+            raise RuntimeError("poisoned step")
+
+        b.step_device = poisoned
+        try:
+            eng.transcribe(clip)
+            raised = False
+        except RuntimeError as e:
+            raised = "poisoned" in str(e)
+        recovered = (all(s is None for s in b._slots) and not eng._pending
+                     and not b._queue)
+        b.step_device = step_device
+        again = eng.transcribe(clip).tokens
+        emit({"phase": "server_turbo_fault", "raised": raised,
+              "slots_reset": recovered, "next_equal_solo": again == want,
+              "card": card})
+        require(raised and recovered and again == want,
+                "server_turbo: no recovery from a poisoned step")
+    del eng, b
+    gc.collect()
+    # the dynamic batcher: 8 concurrent 30 s requests, one batch
+    bt = BatchedTranscriber(pipe.params, cfg, pipe.tokenizer, max_batch=8,
+                            max_wait_ms=1000, max_new=SERVE_MAX_NEW)
+    batches = [0]
+    transcribe_batch = bt._transcribe_batch
+
+    def counted_batch(audio, prompts):
+        batches[0] += 1
+        return transcribe_batch(audio, prompts)
+
+    bt._transcribe_batch = counted_batch
+    try:
+        clips = bench_audio(cfg, 8)
+        bt.transcribe(clips[0])                      # warm-up, one row
+        batches[0] = 0
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = [f.result() for f in [bt.submit(c) for c in clips]]
+        bwall = time.perf_counter() - t0
+        blaunch = {name: fn.launches for name, fn in kernels.items()}
+    finally:
+        bt.close()
+    prompt = build_prompt(cfg)
+    bline = {"phase": "server_turbo_batcher", "max_batch": 8,
+             "batches": batches[0], "batch_sizes": [r.batch_size for r in res],
+             "wall_s": bwall, "audio_rtfx": 8 * cfg.chunk_length_s / bwall,
+             "launches": blaunch, "card": card}
+    emit(bline)
+    require(batches[0] == 1 and all(r.batch_size == 8 for r in res),
+            "server_turbo_batcher: not one batch of 8")
+    require(all(r.tokens[:len(prompt)] == prompt
+                and len(r.tokens) == len(prompt) + 1 + SERVE_MAX_NEW
+                for r in res), "server_turbo_batcher: not every row ran to "
+                               "its cap after the SOT prompt")
+    # the bf16 greedy batch of 8: one int8 tail launch a layer, one append
+    # a loop step; the 4-token prefill's B=8 reads stay under the gate
+    for name, want in {"encoder_block_tail_q8": tcfg.n_audio_layers,
+                       "cache_append_rows": SERVE_MAX_NEW,
+                       "encoder_block_tail": 0, "flash_attention": 0,
+                       "cache_append_rows_ragged": 0, **NO_DECODE,
+                       "decode_attention_q8_bh": 0,
+                       "fused_decoder_step": 0}.items():
+        require(blaunch[name] == want, f"server_turbo_batcher: {name} "
+                                       f"launches {blaunch[name]} != {want}")
+    del pipe, bt
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "server_turbo_seconds",
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return {"engine": counts, "batcher": blaunch}
+
+
+def server_fp32_parity(card: str, kernels: dict) -> dict:
+    """Tiny fp32 (token-parity mode) through both servers in turn, on the
+    card and then on the CPU (device="cpu"): the served tokens of 4
+    requests (5, 10 and 20 s, and a 75 s file) equal bit for bit. Returns
+    the card's launches, by engine."""
+    from whisper_tpu_torch import get_config, weights
+    from whisper_tpu_torch.server import ContinuousEngine, TranscriptionServer
+    from whisper_tpu_torch.serving import BatchedTranscriber
+    from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+    t_phase = time.perf_counter()
+    cfg = get_config("tiny")
+    params = weights.init_params(cfg, seed=0)
+    secs = (5.0, 10.0, 20.0, SERVE_LONG_S)
+    bodies = [wav_bytes(longform_clip(s, SERVE_RATE, 90 + i), SERVE_RATE)
+              for i, s in enumerate(secs)]
+
+    def make(engine: str, device: str):
+        if engine == "dynamic":
+            return BatchedTranscriber(params, cfg, max_batch=4,
+                                      max_new=SERVE_MAX_NEW, device=device)
+        return ContinuousEngine(ContinuousBatcher(
+            params, cfg, max_slots=4, max_new=SERVE_MAX_NEW, device=device))
+
+    served, launches = {}, {}
+    for engine in ("dynamic", "continuous"):
+        for device in ("cuda", "cpu"):
+            for fn in kernels.values():
+                fn.launches = 0
+            with TranscriptionServer(make(engine, device), cfg,
+                                     host="127.0.0.1", port=0) as srv:
+                replies, _ = run_clients(srv.port, bodies, [False] * 4)
+            check_replies(replies, list(secs), cfg, SERVE_MAX_NEW,
+                          f"server_fp32_parity {engine} {device}")
+            served[engine, device] = [r["result"]["tokens"] for r in replies]
+            if device == "cuda":
+                launches[engine] = {n: fn.launches
+                                    for n, fn in kernels.items()}
+    same = {e: served[e, "cuda"] == served[e, "cpu"]
+            for e in ("dynamic", "continuous")}
+    emit({"phase": "server_fp32_parity", "requests_s": list(secs),
+          "identical": same,
+          "tokens": [len(t) for t in served["continuous", "cuda"]],
+          "launches": launches, "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    require(all(same.values()), f"server_fp32_parity: card tokens differ "
+                                f"from the CPU's: {same}")
+    require(launches["dynamic"]["encoder_block_tail"] > 0
+            and launches["continuous"]["cache_append_rows_ragged"] > 0,
+            "server_fp32_parity: the card's servers launched no kernel")
+    return launches
+
+
+def serving_counts(serving: dict, name: str) -> dict:
+    """One kernel's launches in each serving phase that counts them."""
+    return {"turbo_engine": serving["turbo"]["engine"][name],
+            "turbo_batcher": serving["turbo"]["batcher"][name],
+            "fp32_dynamic": serving["fp32"]["dynamic"][name],
+            "fp32_continuous": serving["fp32"]["continuous"][name]}
+
+
+def serving_group(card: str) -> dict:
+    """The serving layer's phases (--only serving): server_entry,
+    server_turbo, server_fp32_parity. Returns their launch counts."""
+    kernels = kernel_wrappers()
+    t0 = time.perf_counter()
+    server_entry(card)
+    turbo = server_turbo(card, kernels)
+    fp32 = server_fp32_parity(card, kernels)
+    emit({"phase": "serving_group", "seconds": time.perf_counter() - t0,
+          "card": card})
+    return {"turbo": turbo, "fp32": fp32}
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name (each counts its launches
     in its `launches` attribute)."""
@@ -3991,6 +4620,11 @@ def main() -> int:
     # draft and medium as its own draft, then under "pallas"
     spec_launches = speculative_phase(kernels, card, opts.profile)
 
+    # 6d. the serving layer: the daemon as a process, turbo behind the HTTP
+    # front (the engine and the dynamic batcher), tiny fp32 served on the
+    # card against the CPU
+    serving = serving_group(card)
+
     # 7. large-v3-turbo at full width and depth: the tail, one launch a
     # layer
     tcfg = get_config(TURBO)
@@ -4155,6 +4789,8 @@ def main() -> int:
         # timed at tiny b32 bf16 (turbo's beside); launches from the tiny
         # main path (turbo's beside)
         {"name": "encoder_block_tail", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "encoder_block_tail"),
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
          "launches": tiny_launches["encoder_block_tail"],
@@ -4167,11 +4803,15 @@ def main() -> int:
         # engine's beside); no one PyTorch call computes it (tail_int8_time
         # gives the composed library calls as context)
         {"name": "encoder_block_tail_q8", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "encoder_block_tail_q8"),
          "source": "whisper_tpu_torch/csrc/encoder_tail.cu",
          "replaces": "whisper_tpu/ops/encoder_layer.py:240",
          "launches": tail8_launches, "turbo_launches": serving_turbo_q8,
          "medium_engine_launches": medium_tail8, **tail8},
         {"name": "cache_append_rows", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "cache_append_rows"),
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:62",
          "launches": tiny_launches["cache_append_rows"],
@@ -4183,6 +4823,8 @@ def main() -> int:
         # (WHISPER_TPU_FUSED_ENCODER=0; with the tail on it runs inside
         # the tail, not through this wrapper)
         {"name": "flash_attention", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "flash_attention"),
          "source": "whisper_tpu_torch/csrc/flash_attention.cu",
          "replaces": "whisper_tpu/ops/flash_attention.py:112",
          "launches": tail_off_launches["flash_attention"],
@@ -4193,6 +4835,8 @@ def main() -> int:
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
          "shapes": flash["shapes"]},
         {"name": "cache_append_rows_ragged", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "cache_append_rows_ragged"),
          "source": "whisper_tpu_torch/csrc/cache_append.cu",
          "replaces": "whisper_tpu/ops/cache_append.py:133",
          "launches": engine_launches["cache_append_rows_ragged"],
@@ -4207,6 +4851,8 @@ def main() -> int:
          "replaces": "whisper_tpu/ops/cache_append.py:133",
          "launches": medium_ragged, **ragged8},
         {"name": "decode_attention_q8_bh", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "decode_attention_q8_bh"),
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:464",
          "launches": q8_launches["decode_attention_q8_bh"],
@@ -4216,6 +4862,8 @@ def main() -> int:
         # the JAX package calls decode_attention_q8 from no path (tests
         # only): its launches on the main path are 0
         {"name": "decode_attention_q8", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "decode_attention_q8"),
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:525",
          "launches": q8_launches["decode_attention_q8"],
@@ -4223,6 +4871,8 @@ def main() -> int:
         # timed at tiny b32 bf16, pos 48; its error over fused_vs_plain's
         # tiny b32 bf16 cases; no PyTorch call computes a decoder step
         {"name": "fused_decoder_step", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "fused_decoder_step"),
          "source": "whisper_tpu_torch/csrc/decoder_step.cu",
          "replaces": "whisper_tpu/ops/decoder_step.py:320",
          "launches": fused_launches["fused_decoder_step"],
@@ -4230,6 +4880,8 @@ def main() -> int:
         # the three below timed at tiny b32's bf16 cross read (B=32, H=6,
         # 1500 keys); their error over decode_vs_plain's bf16 cases
         {"name": "decode_attention_bh", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "decode_attention_bh"),
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:297",
          "launches": bh_launches["decode_attention_bh"],
@@ -4237,6 +4889,8 @@ def main() -> int:
          "max_abs_err": decode_err["decode_attention_bh"],
          **decode["decode_attention_bh"]},
         {"name": "decode_attention_bg", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "decode_attention_bg"),
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:185",
          "launches": bg_launches["decode_attention_bg"],
@@ -4245,6 +4899,8 @@ def main() -> int:
         # the JAX package calls decode_attention from no path (tests only):
         # its launches on the main path are 0
         {"name": "decode_attention", "route": "cuda",
+         "serving_launches": serving_counts(serving,
+                                            "decode_attention"),
          "source": "whisper_tpu_torch/csrc/decode_attention.cu",
          "replaces": "whisper_tpu/ops/decode_attention.py:354",
          "launches": bg_launches["decode_attention"],

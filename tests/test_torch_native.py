@@ -161,3 +161,111 @@ def test_fallback_without_the_library(tmp_path, monkeypatch):
         native.resample(np.zeros(10, np.float32), 8_000, 16_000)
     with pytest.raises(RuntimeError, match="unavailable"):
         native.decode_wav(path.read_bytes())
+
+
+# ---- MappedWeights and NativeDetokenizer (whisper_tpu/native.py:156-230)
+
+@needs_gxx
+def test_native_detokenizer_matches_jax_and_tokenizer():
+    """tests/test_native.py:87's case against the JAX binding and the
+    port's Tokenizer: byte-level and reference decoding of seeded ids,
+    specials skipped and kept."""
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    vocab = "whisper_tpu_torch/assets/vocab.txt"
+    nd = native.NativeDetokenizer(vocab)
+    jd = jax_native.NativeDetokenizer("whisper_tpu/assets/vocab.txt")
+    tok = Tokenizer(vocab)
+    assert nd.vocab_size == jd.vocab_size == tok.vocab_size
+    rng = np.random.RandomState(3)
+    for n in (0, 1, 30, 300):
+        for _ in range(5):
+            ids = rng.randint(0, tok.vocab_size, size=n).tolist()
+            assert nd.decode(ids) == jd.decode(ids) == tok.decode(ids)
+            assert (nd.decode(ids, reference_mode=True)
+                    == jd.decode(ids, reference_mode=True)
+                    == tok.decode_reference(ids))
+            assert (nd.decode(ids, skip_special=False)
+                    == jd.decode(ids, skip_special=False))
+    nd.close()
+    nd.close()                                  # a second close is a no-op
+
+
+def test_native_detokenizer_needs_the_library(monkeypatch):
+    monkeypatch.setattr(native, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        native.NativeDetokenizer("whisper_tpu_torch/assets/vocab.txt")
+
+
+@pytest.mark.parametrize("with_library", [True, False])
+def test_mapped_weights_zero_copy_matches_read(tmp_path, monkeypatch,
+                                               with_library):
+    """tests/test_native.py:100's case, by the native map and by the
+    np.memmap fallback, against the JAX binding's view."""
+    if with_library and shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    if not with_library:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    data = np.random.RandomState(4).randn(1000).astype("<f4")
+    p = tmp_path / "w.bin"
+    p.write_bytes(data.tobytes())
+    with native.MappedWeights(str(p)) as m, \
+            jax_native.MappedWeights(str(p)) as jm:
+        assert (m._addr is not None) == with_library
+        np.testing.assert_array_equal(np.asarray(m.floats), data)
+        np.testing.assert_array_equal(np.asarray(m.floats),
+                                      np.asarray(jm.floats))
+    assert m.floats is None and m._addr is None
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("with_library", [True, False])
+def test_flat_bin_path_loader_reads_through_the_map(tmp_path, monkeypatch,
+                                                    with_library):
+    """tests/test_native.py:109's case: to_flat_bin, then
+    from_flat_bin_path through MappedWeights gives the same tree as JAX's
+    loader on the same file, and every param is read after the map is
+    closed (none aliases it)."""
+    import jax
+
+    from whisper_tpu.config import get_config
+    from whisper_tpu.models.whisper import init_params
+    from whisper_tpu.weights import from_flat_bin_path as jax_from_path
+    from whisper_tpu.weights import to_flat_bin
+    from whisper_tpu_torch import weights
+
+    if with_library and shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    if not with_library:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    cfg = get_config("tiny").replace(
+        name="torch-native-nano", d_model=64, n_heads=2, n_audio_layers=1,
+        n_text_layers=1, n_audio_ctx=8, n_text_ctx=8, vocab_size=256,
+        n_mels=4, eot_token=250, n_languages=2)
+    p = tmp_path / "w.bin"
+    p.write_bytes(to_flat_bin(init_params(cfg, jax.random.PRNGKey(0)), cfg))
+    maps = []
+    real = native.MappedWeights
+
+    class Recorded(real):
+        def __init__(self, path):
+            super().__init__(path)
+            maps.append(self)
+
+    monkeypatch.setattr(native, "MappedWeights", Recorded)
+    got = weights.from_flat_bin_path(str(p), cfg)
+    assert len(maps) == 1 and maps[0].floats is None     # closed on return
+    assert (maps[0]._size > 0 if with_library else True)
+    want = jax.tree_util.tree_map(np.asarray, jax_from_path(str(p), cfg))
+    got_leaves, want_leaves = list(_leaves(got)), list(_leaves(want))
+    assert [k for k, _ in got_leaves] == [k for k, _ in want_leaves]
+    for (k, a), (_, b) in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=k)
+    with pytest.raises(ValueError, match="does not match"):
+        weights.from_flat_bin_path(str(p), cfg.replace(n_text_ctx=9))

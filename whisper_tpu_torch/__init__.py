@@ -9,7 +9,8 @@ weights are stored (in, out)), so a reader can put the two side by side.
 Covered so far, for every model of the family (tiny to large-v3-turbo),
 in fp32 (token-parity mode) and bf16, greedy, beam-search and sampled
 decoding, also with the int8 serving stack (weight-only int8, int8
-cross/self/full KV caches, the serving policy):
+cross/self/full KV caches, the serving policy), up to the serving layer
+(the dynamic batcher, the long-form driver, the HTTP/SSE server):
   - config.py        <- whisper_tpu/config.py (WhisperConfig, CONFIGS)
   - tokenizer.py     <- whisper_tpu/tokenizer.py, with its own copy of the
                         bundled table (assets/vocab.txt)
@@ -42,8 +43,18 @@ cross/self/full KV caches, the serving policy):
   - formats.py       <- whisper_tpu/formats.py (SRT, VTT, TSV, JSON)
   - speculative.py   <- whisper_tpu/speculative.py (draft-and-verify
                         greedy decoding)
-  - native.py        <- whisper_tpu/native.py, the audio part (its own
-                        ctypes binding of native/whisper_native.cpp)
+  - native.py        <- whisper_tpu/native.py (its own ctypes binding of
+                        native/whisper_native.cpp: WAV decoding, the
+                        resampler, MappedWeights, NativeDetokenizer)
+  - serving.py       <- whisper_tpu/serving.py (BatchedTranscriber, the
+                        dynamic batcher)
+  - serving_longform.py <- whisper_tpu/serving_longform.py
+                        (LongFormDriver: long files chained window by
+                        window through the continuous engine)
+  - server.py        <- whisper_tpu/server.py (the HTTP/SSE daemon,
+                        `python -m whisper_tpu_torch.server`)
+  - utils/           <- whisper_tpu/utils (metrics, profiling, the
+                        roofline cost model with the H100's peaks)
 
 The package imports torch, and neither jax nor anything of whisper_tpu.
 """
@@ -51,14 +62,19 @@ The package imports torch, and neither jax nor anything of whisper_tpu.
 from whisper_tpu_torch.config import CONFIGS, WhisperConfig, get_config
 
 __all__ = ["WhisperConfig", "CONFIGS", "get_config", "WhisperPipeline",
-           "ContinuousBatcher", "QueueFull", "DecodeOptions",
-           "speculative_decode", "spec_transcribe_window"]
+           "BatchedTranscriber", "ContinuousBatcher", "QueueFull",
+           "LongFormDriver", "TranscriptionServer", "Tokenizer",
+           "DecodeOptions", "speculative_decode", "spec_transcribe_window"]
 
 # name -> module, imported on first access (whisper_tpu/__init__.py:31-53)
 _LAZY = {
     "WhisperPipeline": "whisper_tpu_torch.pipeline",
+    "BatchedTranscriber": "whisper_tpu_torch.serving",
     "ContinuousBatcher": "whisper_tpu_torch.serving_continuous",
     "QueueFull": "whisper_tpu_torch.serving_continuous",
+    "LongFormDriver": "whisper_tpu_torch.serving_longform",
+    "TranscriptionServer": "whisper_tpu_torch.server",
+    "Tokenizer": "whisper_tpu_torch.tokenizer",
     "DecodeOptions": "whisper_tpu_torch.decode_rules",
     "speculative_decode": "whisper_tpu_torch.speculative",
     "spec_transcribe_window": "whisper_tpu_torch.speculative",

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -94,22 +95,44 @@ def compute_dtype(cfg: WhisperConfig) -> torch.dtype:
                          f"{sorted(_DTYPES)}") from None
 
 
+_fp32_lock = threading.Lock()
+_fp32_depth = 0           # blocks open with `on`, across every thread
+_fp32_saved: tuple = ()   # the flags as the outermost such block found them
+
+
 @contextlib.contextmanager
 def full_fp32(on: bool = True):
     """TF32 trap: cuDNN runs fp32 convolutions in TF32 by default, and TF32
     keeps ~3 decimal digits, enough to flip fp32 token parity. JAX runs
     the conv stem (:404-409), the mel matmuls and the logits at HIGHEST
     precision, so inside this block (when `on`) TF32 is off for matmuls
-    and cuDNN alike. The caller's settings come back on exit."""
+    and cuDNN alike.
+
+    The flags are process-global, so the blocks are counted across
+    threads: the first to open saves the caller's settings and turns TF32
+    off, the last to close restores them. Two device threads in fp32 (two
+    servers in one process) cannot then switch TF32 back on under each
+    other."""
+    global _fp32_depth, _fp32_saved
+    if not on:
+        yield
+        return
     matmul = torch.backends.cuda.matmul
-    saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    if on:
+    with _fp32_lock:
+        if _fp32_depth == 0:
+            _fp32_saved = (matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+        _fp32_depth += 1
         matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        with _fp32_lock:
+            _fp32_depth -= 1
+            if _fp32_depth == 0:
+                matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+                    _fp32_saved
 
 
 def layer_index(tree, i: int):

@@ -17,12 +17,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -92,11 +92,24 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return r
 
 
-@functools.lru_cache(maxsize=None)
+_load_lock = threading.Lock()
+_library: ctypes.CDLL | None = None
+
+
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once, and declare every entry point's C
     signature (pointers and the stream as c_void_p, so none is cut to 32
-    bits)."""
+    bits). Thread-safe: threads whose first calls meet wait for one build
+    and one load."""
+    global _library
+    if _library is None:
+        with _load_lock:
+            if _library is None:
+                _library = _load_library()
+    return _library
+
+
+def _load_library() -> ctypes.CDLL:
     so, _, _ = build()
     lib = ctypes.CDLL(str(so))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -342,14 +342,18 @@ def to_flat_bin(params: Params, cfg: WhisperConfig) -> bytes:
 
 
 def from_flat_bin_path(path: str, cfg: WhisperConfig) -> Params:
-    """Read a flat-bin file through a read-only memmap."""
-    try:
-        return from_flat_bin(np.memmap(path, dtype="<f4", mode="r"), cfg)
-    except ValueError as e:
-        raise ValueError(
-            f"{path} does not match the {cfg.name!r} layout ({e}). The "
-            f"flat-bin format is positional — pass the model the file was "
-            f"exported for.") from None
+    """Read a flat-bin file through a read-only map of it
+    (native.MappedWeights: wn_mmap_open, else np.memmap; :141). The params
+    are copies: none aliases the map, which is closed on return."""
+    from whisper_tpu_torch.native import MappedWeights
+    with MappedWeights(path) as m:
+        try:
+            return from_flat_bin(m.floats, cfg)
+        except ValueError as e:
+            raise ValueError(
+                f"{path} does not match the {cfg.name!r} layout ({e}). The "
+                f"flat-bin format is positional — pass the model the file "
+                f"was exported for.") from None
 
 
 # ---------------------------------------------------------------------------
