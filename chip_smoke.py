@@ -80,13 +80,24 @@ front (16 SSE clients through a ContinuousEngine of 8 slots: TTFT,
 inter-token gap, completion wall, RTFx, launches as the fills and steps
 imply, each short request equal to its solo run; a BatchedTranscriber
 batch of 8; recovery from a poisoned step); and tiny fp32 served by
-both engines on the card, its tokens equal to the CPU's.
+both engines on the card, its tokens equal to the CPU's. Then
+fine-tuning: the teacher-forced train step (whisper_tpu_torch.train) in
+fp32 on tiny at full width and depth (6 steps on a fixed batch of 16 x
+224 tokens: the loss falls, each step's forward launches the tail once a
+layer and flash for each decoder read, the backward launches none, every
+gradient finite and every leaf's non-zero but the key biases'), one
+step's gradients on the card against the CPU (B=8), large-v3-turbo at
+full width and depth (2 steps of 4 rows, the first update at lr 1e-4:
+the loss moves, every leaf's gradient non-zero but the key biases'),
+and the two kernels' forward
+and backward (the plain twin's autograd) timed beside SDPA's.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--only pipeline` runs the pipeline layer's phases alone (turbo's
-weights drawn on the card), `--only serving` the serving layer's.
+weights drawn on the card), `--only serving` the serving layer's,
+`--only train` the train phases.
 `--profile` adds the kernels' build timed serial against parallel,
 three more turbo long-form walls, the speculative walls as the best of
 three, the tail's launches at turbo b32 by kernel, the int8 engines under
@@ -278,6 +289,26 @@ SERVE_RATE, SERVE_SHORT_S, SERVE_LONG_S, SERVE_LONG_EVERY = 22_050, 5.0, \
 # concurrent 30 s posts, so that they make one batch
 DYNAMIC_WAIT_MS = 15_000
 CLI_LONG_S, CLI_LONG_RATE = 45.0, 22_050
+# the train phases: a sequence of the 4-token prompt and 220 text tokens;
+# tiny's fixed batch of 16 for 6 steps at lr 1e-3 (warmup 1, total 50);
+# the card-against-CPU gradients at 8 rows, where both decoder reads
+# cross the 16 MiB flash gate (self 19.3 MB, cross 64.5 MB); turbo at 4
+# rows for 2 steps at lr 1e-4 with no warmup (a warmup's first update has
+# lr 0, and two steps must move the weights)
+TRAIN_T = 224
+TRAIN_TINY_BATCH, TRAIN_TINY_STEPS = 16, 6
+TRAIN_PARITY_BATCH = 8
+TRAIN_TURBO_BATCH, TRAIN_TURBO_STEPS = 4, 2
+# card against CPU, of each leaf's largest |g|: fp32 sums in other orders
+# over B*T = 1,792 positions, the tail's and flash's forwards on the card
+TRAIN_GRAD_RTOL = 1e-3
+# a key bias's true gradient is 0 (the softmax cancels a constant added to
+# every score): both devices must give noise there, below this share of
+# the largest |g| of any leaf
+KEY_BIAS_SHARE = 1e-5
+KEY_BIASES = ("['encoder']['layers']['attn']['k']['b']",
+              "['decoder']['layers']['attn']['k']['b']",
+              "['decoder']['layers']['cross_attn']['k']['b']")
 # word times on the card against the CPU: at most one encoder frame
 WORD_TIME_TOL = 0.02 + 1e-9
 
@@ -289,7 +320,8 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time",
-        "pipeline": "pipeline_layer", "serving": "serving_group"}
+        "pipeline": "pipeline_layer", "serving": "serving_group",
+        "train": "train_group"}
 
 
 def emit(obj: dict) -> None:
@@ -4173,6 +4205,380 @@ def serving_group(card: str) -> dict:
     return {"turbo": turbo, "fp32": fp32}
 
 
+def train_batch(cfg, B: int, seed: int, device: str = "cuda"):
+    """A fixed teacher-forcing batch: the log-mel of the bench's clips,
+    the 4-token prompt and 220 seeded text tokens below EOT, the loss on
+    every text token (mask 1 from the prompt's last position)."""
+    import torch
+
+    from whisper_tpu_torch.audio import log_mel_spectrogram
+    from whisper_tpu_torch.tokenizer import build_prompt
+    from whisper_tpu_torch.train import TrainBatch
+    prompt = build_prompt(cfg)
+    P = len(prompt)
+    rng = np.random.RandomState(seed)
+    text = rng.randint(0, cfg.eot_token, (B, TRAIN_T - P))
+    tokens = np.concatenate([np.tile(prompt, (B, 1)), text], axis=1)
+    mask = np.ones((B, TRAIN_T), np.float32)
+    mask[:, :P - 1] = 0.0
+    mel = log_mel_spectrogram(torch.from_numpy(bench_audio(cfg, B)).cuda(),
+                              cfg)
+    return TrainBatch(mel.to(device), torch.from_numpy(tokens).to(device),
+                      torch.from_numpy(mask).to(device))
+
+
+def grad_leaves(params) -> dict:
+    """The gradients of a trainable tree in the JAX package's layout (the
+    fused qkv split again), on the CPU, by JAX key path."""
+    from whisper_tpu_torch.weights import _keystr_leaves, _tree_map, from_device
+    return dict(_keystr_leaves(from_device(_tree_map(lambda p: p.grad,
+                                                     params))))
+
+
+def check_grads(grads: dict, label: str) -> float:
+    """Every gradient finite; every leaf's non-zero but the key biases',
+    which must be noise (below KEY_BIAS_SHARE of the largest |g|): a
+    kernel output with no graph would leave the leaves below it at zero.
+    Returns the largest |g|."""
+    import torch
+    top = max(float(g.abs().max()) for g in grads.values())
+    for key, g in grads.items():
+        require(bool(torch.isfinite(g).all()),
+                f"{label}: non-finite grad {key}")
+        m = float(g.abs().max())
+        if key in KEY_BIASES:
+            require(m <= KEY_BIAS_SHARE * top,
+                    f"{label}: key-bias grad {key} {m} of {top}")
+        else:
+            require(m > 0, f"{label}: zero gradient at {key}")
+    return top
+
+
+def counted(kernels: dict) -> dict:
+    """The kernels launched since their counts were set to 0."""
+    return {name: fn.launches for name, fn in kernels.items() if fn.launches}
+
+
+def zero_counts(kernels: dict) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def train_steps(params, opt, cfg, batch, steps: int, kernels: dict,
+                expect: dict, label: str) -> dict:
+    """`steps` train_step calls, each with the launch counts set to 0 just
+    before it and read just after it (each must equal `expect`: the
+    forward's, since the backward launches none); the losses, pre-clip
+    norms and host walls."""
+    import torch
+
+    from whisper_tpu_torch.train import train_step
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    for i in range(steps):
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(params, opt, cfg, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        launches = counted(kernels)
+        require(launches == expect,
+                f"{label} step {i}: launches {launches} != {expect}")
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        require(np.isfinite(out["losses"][-1])
+                and np.isfinite(out["grad_norms"][-1]),
+                f"{label} step {i}: loss {out['losses'][-1]}, norm "
+                f"{out['grad_norms'][-1]}")
+    out["launches_per_step"] = launches   # the last step's, as counted
+    return out
+
+
+def forward_backward(params, cfg, batch, kernels: dict) -> dict:
+    """One loss_fn and one backward, each timed on the host around work
+    that ends in a synchronize and each with its own launch counts; the
+    parameters are left as they were (the gradients stay in .grad)."""
+    import torch
+
+    from whisper_tpu_torch.models.whisper import full_fp32, tree_leaves
+    from whisper_tpu_torch.train import loss_fn
+    for p in tree_leaves(params):
+        p.grad = None
+    with full_fp32():
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = counted(kernels)
+        zero_counts(kernels)
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return {"loss": loss.item(), "forward_s": t1 - t0,
+            "backward_s": t2 - t1, "forward_launches": fwd,
+            "backward_launches": counted(kernels)}
+
+
+def train_expect(cfg, B: int) -> dict:
+    """The launches of one training forward: the tail once per encoder
+    layer, and flash for each decoder read the 16 MiB gate sends to it
+    (the causal self read over the 448 slots of JAX's cache, the cross
+    read over 1500 positions)."""
+    n_flash = cfg.n_text_layers * sum(
+        routed(cfg, B, TRAIN_T, S, "flash")
+        for S in (cfg.n_text_ctx, cfg.n_audio_ctx))
+    return {"encoder_block_tail": cfg.n_audio_layers,
+            **({"flash_attention": n_flash} if n_flash else {})}
+
+
+def train_tiny(card: str, kernels: dict) -> dict:
+    """Tiny at full width and depth in fp32: 6 train_step calls on one
+    fixed batch of 16 (lr 1e-3, warmup 1, total 50), weights drawn on the
+    card. The loss falls below 0.95 of the first; then one forward and
+    backward apart (the backward launches no kernel; every gradient
+    finite, every leaf's non-zero but the key biases')."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.train import make_optimizer
+    from whisper_tpu_torch.weights import trainable
+    cfg = get_config("tiny")
+    params = trainable(card_init_params(cfg, 0), "cuda")
+    opt = make_optimizer(params, lr=1e-3, warmup_steps=1, total_steps=50)
+    batch = train_batch(cfg, TRAIN_TINY_BATCH, seed=0)
+    expect = train_expect(cfg, TRAIN_TINY_BATCH)
+    require(expect == {"encoder_block_tail": 4, "flash_attention": 8},
+            f"train_tiny: the gate gives {expect}")
+    torch.cuda.reset_peak_memory_stats()
+    run = train_steps(params, opt, cfg, batch, TRAIN_TINY_STEPS, kernels,
+                      expect, "train_tiny")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = forward_backward(params, cfg, batch, kernels)
+    top = check_grads(grad_leaves(params), "train_tiny")
+    line = {"phase": "train_tiny", "model": cfg.name, "dtype": "float32",
+            "batch": TRAIN_TINY_BATCH, "tokens": TRAIN_T, **run,
+            "median_step_s": float(np.median(run["step_s"][1:])),
+            "peak_mem_gb": peak, **split,
+            "backward_share": split["backward_s"]
+            / (split["forward_s"] + split["backward_s"]),
+            "max_abs_grad": top, "card": card}
+    emit(line)
+    require(run["losses"][-1] < 0.95 * run["losses"][0],
+            f"train_tiny: loss {run['losses'][0]} -> {run['losses'][-1]}")
+    require(split["forward_launches"] == expect,
+            f"train_tiny: forward launches {split['forward_launches']}")
+    require(split["backward_launches"] == {},
+            f"train_tiny: the backward launched {split['backward_launches']}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return run["launches_per_step"]
+
+
+def train_grad_parity(card: str, kernels: dict) -> None:
+    """One step's gradients of tiny (B=8: both decoder reads through
+    flash) on the card against the port on the CPU, from the same weights
+    and batch: the loss to 1e-5 of itself, every leaf to TRAIN_GRAD_RTOL
+    of its largest |g|, the key biases as noise on both."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.models.whisper import full_fp32
+    from whisper_tpu_torch.train import TrainBatch, loss_fn
+    from whisper_tpu_torch.weights import _tree_map, trainable
+    cfg = get_config("tiny")
+    tree = card_init_params(cfg, 1)
+    batch = train_batch(cfg, TRAIN_PARITY_BATCH, seed=1)
+    expect = train_expect(cfg, TRAIN_PARITY_BATCH)
+    out, seen = {}, None
+    for dev in ("cuda", "cpu"):
+        params = trainable(_tree_map(lambda t: t.to(dev), tree), dev)
+        b = TrainBatch(*(t.to(dev) for t in batch))
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        with full_fp32():
+            loss = loss_fn(params, cfg, b)
+            loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            seen = counted(kernels)
+            require(seen == expect, f"train_grad_parity: launches {seen}")
+        out[dev] = (loss.item(), grad_leaves(params),
+                    time.perf_counter() - t0)
+        del params
+    (lc, g_card, sc), (lh, g_host, sh) = out["cuda"], out["cpu"]
+    check_grads(g_card, "train_grad_parity cuda")
+    check_grads(g_host, "train_grad_parity cpu")
+    worst, worst_key = 0.0, None
+    for key, want in g_host.items():
+        if key in KEY_BIASES:
+            continue
+        err = float((g_card[key] - want).abs().max())
+        share = err / float(want.abs().max())
+        if share > worst:
+            worst, worst_key = share, key
+    emit({"phase": "train_grad_parity", "model": cfg.name,
+          "batch": TRAIN_PARITY_BATCH, "tokens": TRAIN_T, "loss_cuda": lc,
+          "loss_cpu": lh, "worst_leaf_err_share": worst,
+          "worst_leaf": worst_key, "launches": seen, "cuda_s": sc,
+          "cpu_s": sh, "card": card})
+    require(abs(lc - lh) <= 1e-5 * abs(lh), f"train loss {lc} vs CPU {lh}")
+    require(worst <= TRAIN_GRAD_RTOL,
+            f"train_grad_parity: {worst_key} off by {worst} of its max")
+    torch.cuda.empty_cache()
+
+
+def train_turbo(card: str, kernels: dict) -> dict:
+    """large-v3-turbo at full width and depth in fp32: 2 train_step calls
+    on a batch of 4 (weights drawn on the card; lr 1e-4 with no warmup, so
+    the first update moves the weights): finite losses, a second loss
+    unlike the first, 32 tail and 8 flash launches a step, every gradient
+    finite and every leaf's non-zero but the key biases', the peak memory
+    and the step walls."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.models.whisper import tree_leaves
+    from whisper_tpu_torch.train import make_optimizer
+    from whisper_tpu_torch.weights import trainable
+    cfg = get_config(TURBO)
+    params = trainable(card_init_params(cfg, 0), "cuda")
+    opt = make_optimizer(params, lr=1e-4, warmup_steps=0, total_steps=50)
+    batch = train_batch(cfg, TRAIN_TURBO_BATCH, seed=2)
+    expect = train_expect(cfg, TRAIN_TURBO_BATCH)
+    require(expect == {"encoder_block_tail": 32, "flash_attention": 8},
+            f"train_turbo: the gate gives {expect}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    run = train_steps(params, opt, cfg, batch, TRAIN_TURBO_STEPS, kernels,
+                      expect, "train_turbo")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    top = check_grads(grad_leaves(params), "train_turbo")
+    emit({"phase": "train_turbo", "model": cfg.name, "dtype": "float32",
+          "batch": TRAIN_TURBO_BATCH, "tokens": TRAIN_T, **run,
+          "peak_mem_gb": peak, "resident_gb_before": resident,
+          "n_params": sum(p.numel() for p in tree_leaves(params)),
+          "max_abs_grad": top, "card": card})
+    require(run["losses"][-1] != run["losses"][0],
+            f"train_turbo: the update left the loss at {run['losses'][0]}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches_per_step"]
+
+
+def train_kernel_time(card: str) -> dict:
+    """The train path's two kernels at tiny's training shapes (B=16, fp32):
+    each forward (the kernel) and backward (the plain twin's autograd),
+    timed by CUDA events beside the forward's bound, the plain forward and,
+    for flash, SDPA's forward and backward on the same inputs (SDPA is
+    timed here only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.ops.encoder_layer import (
+        encoder_block_tail,
+        encoder_block_tail_plain,
+    )
+    from whisper_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    cfg = get_config("tiny")
+    B, H, D = TRAIN_TINY_BATCH, cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device="cpu").manual_seed(5)
+    lines = {}
+
+    def timed(name, kernel, plain, args, flops, sdpa=None, read=None):
+        args = [a.requires_grad_() for a in args]
+        grad_out = torch.randn(kernel(*args).shape, generator=g).cuda()
+        # each input read once, at the extent the function reads (`read`
+        # elements; all of every input unless given), the output written
+        # once
+        full = sum(a.numel() for a in args)
+        read = full if read is None else read
+        moved = 4 * (read + grad_out.numel())
+        with torch.no_grad():
+            fwd, plain_ms = alternate_ms(lambda: plain(*args),
+                                         lambda: kernel(*args), iters=10)
+        out = kernel(*args)
+        bwd = cuda_ms(lambda: torch.autograd.grad(out, args, grad_out,
+                                                  retain_graph=True), 5)
+        line = {"ms": fwd, "plain_ms": plain_ms, "backward_ms": bwd,
+                **bound(moved, flops, "float32"),
+                # the backward's five products (q.k, p.v, and dv, dp, dq
+                # and dk: 2.5 times the forward's), its inputs (at their
+                # read extent) and the output gradient read, the input
+                # gradients written whole
+                "backward_bound_ms": bound(moved + 4 * full, 2.5 * flops,
+                                           "float32")["bound_ms"]}
+        if sdpa is not None:
+            with torch.no_grad():
+                line["library_ms"] = cuda_ms(lambda: sdpa(*args), 10)
+            lout = sdpa(*args)
+            line["library_backward_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(lout, args, grad_out,
+                                            retain_graph=True), 5)
+        else:
+            line["library_ms"] = None
+        lines[name] = line
+        emit({"phase": "train_kernel_time", "kernel": name, "batch": B,
+              "dtype": "float32", **line, "card": card})
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g).cuda()
+
+    def sdpa_of(kv_len, causal):
+        def f(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k[:, :, :kv_len], v[:, :, :kv_len],
+                is_causal=causal).transpose(1, 2)
+        return f
+
+    T, S = TRAIN_T, cfg.n_text_ctx
+    for name, s_len, kv_len, causal in (
+            ("flash_self", S, T, True),
+            ("flash_cross", cfg.n_audio_ctx, cfg.n_audio_ctx, False)):
+        # causal: the kernel reads T (T + 1) / 2 key rows, 4 flops a
+        # query-key-dim product pair (q.k and p.v); k and v are read
+        # only below kv_len
+        pairs = T * (T + 1) // 2 if causal else T * kv_len
+        timed(name,
+              functools.partial(flash_attention, kv_len=kv_len,
+                                causal=causal),
+              functools.partial(flash_attention_plain, kv_len=kv_len,
+                                causal=causal),
+              [r(B, T, H, D), r(B, H, s_len, D), r(B, H, s_len, D)],
+              4 * B * H * pairs * D, sdpa_of(kv_len, causal),
+              read=B * T * H * D + 2 * B * H * min(s_len, kv_len) * D)
+    tail = tail_inputs(cfg, B, torch.float32, seed=6)
+    Ta, d, ff = cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
+    timed("encoder_block_tail", encoder_block_tail,
+          encoder_block_tail_plain, tail,
+          4 * B * H * Ta * Ta * D + 2 * B * Ta * (d * d + 2 * d * ff))
+    torch.cuda.empty_cache()
+    return lines
+
+
+def train_group(card: str) -> dict:
+    """The train phases (--only train): train_tiny, train_grad_parity,
+    train_turbo and the two kernels' forward and backward times. Returns
+    the launches a step of tiny and of turbo."""
+    kernels = kernel_wrappers()
+    t0 = time.perf_counter()
+    tiny = train_tiny(card, kernels)
+    train_grad_parity(card, kernels)
+    turbo = train_turbo(card, kernels)
+    times = train_kernel_time(card)
+    emit({"phase": "train_group", "seconds": time.perf_counter() - t0,
+          "card": card})
+    return {"tiny": tiny, "turbo": turbo, "times": times}
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name (each counts its launches
     in its `launches` attribute)."""
@@ -4625,6 +5031,10 @@ def main() -> int:
     # card against the CPU
     serving = serving_group(card)
 
+    # 6e. fine-tuning: tiny's train steps, its gradients on the card
+    # against the CPU, turbo's train steps, the two kernels' backwards
+    train = train_group(card)
+
     # 7. large-v3-turbo at full width and depth: the tail, one launch a
     # layer
     tcfg = get_config(TURBO)
@@ -4785,7 +5195,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 9. results
-    emit({"kernels": [
+    rows = [
         # timed at tiny b32 bf16 (turbo's beside); launches from the tiny
         # main path (turbo's beside)
         {"name": "encoder_block_tail", "route": "cuda",
@@ -4906,7 +5316,18 @@ def main() -> int:
          "launches": bg_launches["decode_attention"],
          "max_abs_err": decode_err["decode_attention"],
          **decode["decode_attention"]},
-    ]})
+    ]
+    for row in rows:
+        # launches a train step (the backward launches none), tiny's and
+        # turbo's
+        row["train_launches"] = train["tiny"].get(row["name"], 0)
+        row["train_turbo_launches"] = train["turbo"].get(row["name"], 0)
+    by_name = {row["name"]: row for row in rows}
+    by_name["encoder_block_tail"]["train_time"] = \
+        train["times"]["encoder_block_tail"]
+    by_name["flash_attention"]["train_time"] = {
+        k: train["times"][k] for k in ("flash_self", "flash_cross")}
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1237,3 +1237,140 @@ def test_fused_greedy_on_the_card_matches_the_cpu(dev):
             assert fused_decoder_step.launches - fused == 10
             assert cache_append_rows.launches - append == 10
     assert torch.equal(toks["cuda"], toks["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# under autograd (the train step): the tail and flash carry the plain
+# version's gradient; every other wrapper raises
+# ---------------------------------------------------------------------------
+
+def _grads_of(fn, args, w):
+    return torch.autograd.grad((fn(*args) * w).sum(), args)
+
+
+@pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal", [
+    (2, 224, 448, 6, 224, 0, True),     # tiny's training self read
+    (2, 224, 1500, 6, None, 0, False),  # tiny's training cross read
+    (2, 40, 448, 2, 140, 100, True),    # causal, q_offset 100
+    (1, 130, 200, 2, 150, 20, True),    # several q tiles under causal
+])
+def test_flash_gradient_is_the_plain_gradient(dev, B, T, S, H, kv_len,
+                                              q_offset, causal):
+    """The flash wrapper under autograd: the value is the kernel's (one
+    launch; the backward launches none), each input's gradient the plain
+    version's autograd gradient at the same inputs."""
+    args = [a.requires_grad_() for a in
+            _flash_args(B, T, S, H, torch.float32, dev, seed=3)]
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    w = torch.randn(B, T, H, 64, generator=torch.Generator().manual_seed(4)
+                    ).to(dev)
+    n = flash_attention.launches
+    out = flash_attention(*args, **kw)
+    assert out.requires_grad and flash_attention.launches == n + 1
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(*args, **kw))
+    got = torch.autograd.grad((out * w).sum(), args)
+    assert flash_attention.launches == n + 2
+    want = _grads_of(lambda *a: flash_attention_plain(*a, **kw), args, w)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, atol=1e-6, rtol=1e-6)
+
+
+def test_flash_gradient_through_fused_qkv_views(dev):
+    """q a strided view of one fused projection, as the decoder gives it:
+    the gradient reaches the projection."""
+    g = torch.Generator().manual_seed(6)
+    qkv = torch.randn(2, 100, 3 * 128, generator=g).to(dev).requires_grad_()
+    q = qkv[..., :128].reshape(2, 100, 2, 64)
+    k = qkv[..., 128:256].reshape(2, 100, 2, 64).permute(0, 2, 1, 3)
+    v = qkv[..., 256:].reshape(2, 100, 2, 64).permute(0, 2, 1, 3)
+    got = torch.autograd.grad(flash_attention(q, k, v, causal=True).sum(),
+                              qkv)[0]
+    want = torch.autograd.grad(
+        flash_attention_plain(q, k, v, causal=True).sum(), qkv)[0]
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("B,T,H,ff", [(2, 100, 6, 1536), (1, 1500, 6, 1536),
+                                      (1, 64, 20, 5120)])
+def test_tail_gradient_is_the_plain_gradient(dev, B, T, H, ff):
+    """encoder_block_tail under autograd: the kernel's value (one launch),
+    every one of the twelve inputs' gradients the plain version's."""
+    args = [a.requires_grad_() for a in
+            _tail_args(B, T, H, ff, torch.float32, dev, seed=7,
+                       fan_in=H > 8)]
+    w = torch.randn(B, T, H * 64, generator=torch.Generator().manual_seed(8)
+                    ).to(dev)
+    n = encoder_block_tail.launches
+    out = encoder_block_tail(*args)
+    assert out.requires_grad and encoder_block_tail.launches == n + 1
+    got = torch.autograd.grad((out * w).sum(), args)
+    assert encoder_block_tail.launches == n + 1
+    want = _grads_of(encoder_block_tail_plain, args, w)
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g, x, atol=1e-5, rtol=1e-5)
+
+
+def _no_backward_calls(dev):
+    """Every wrapper without a backward, with CUDA inputs of which one
+    requires grad."""
+    g = torch.Generator().manual_seed(9)
+
+    def r(*s, dtype=torch.float32):
+        return torch.randn(*s, generator=g).to(dev, dtype)
+
+    q = r(2, 1, 2, 64).requires_grad_()
+    k, v = r(2, 2, 8, 64), r(2, 2, 8, 64)
+    k8 = torch.ones(2, 2, 8, 64, dtype=torch.int8, device=dev)
+    ks = r(2, 2, 8, 1).abs()
+    ck, cv = r(2, 2, 2, 8, 64), r(2, 2, 2, 8, 64)
+    kn, vn = r(2, 2, 2, 64).requires_grad_(), r(2, 2, 2, 64)
+    L, B, H, d = 2, 2, 2, 128
+    packed = PackedDecoder(
+        r(L, d, 3 * d), r(L, d, d), r(L, d, d), r(L, d, d), r(L, d, d),
+        r(L, d, d), r(L, vec_offsets(d, d)["end"]))
+    h8 = r(1, 4, 2, 64, dtype=torch.bfloat16)
+    i8 = torch.ones(d, d, dtype=torch.int8, device=dev)
+    return {
+        "decode_attention_bh": lambda: decode_attention_bh(q, k, v, 5),
+        "decode_attention_bg": lambda: decode_attention_bg(q, k, v, 5,
+                                                           block_b=2),
+        "decode_attention": lambda: decode_attention(q, k, v, 5),
+        "decode_attention_q8_bh": lambda: decode_attention_q8_bh(
+            q, k8, ks, k8, ks, 5),
+        "decode_attention_q8": lambda: decode_attention_q8(q, k8, ks, k8, ks,
+                                                           5),
+        "cache_append_rows": lambda: cache_append_rows(ck, cv, kn, vn, 3),
+        "cache_append_rows_ragged": lambda: cache_append_rows_ragged(
+            ck, cv, kn, vn, torch.tensor([1, 4], device=dev)),
+        "fused_decoder_step": lambda: fused_decoder_step(
+            r(B, d).requires_grad_(), packed, r(L, B, H, 8, 64),
+            r(L, B, H, 8, 64), r(L, B, H, 10, 64), r(L, B, H, 10, 64), 4,
+            n_heads=H),
+        "encoder_block_tail_q8": lambda: encoder_block_tail_q8(
+            h8.requires_grad_(), r(1, 2, 4, 64, dtype=torch.bfloat16),
+            r(1, 2, 4, 64, dtype=torch.bfloat16),
+            r(1, 4, d, dtype=torch.bfloat16), i8, i8, i8, r(d), r(d), r(d),
+            r(d), r(d), r(d).abs(), r(d).abs(), r(d).abs()),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "decode_attention_bh", "decode_attention_bg", "decode_attention",
+    "decode_attention_q8_bh", "decode_attention_q8", "cache_append_rows",
+    "cache_append_rows_ragged", "fused_decoder_step",
+    "encoder_block_tail_q8"])
+def test_wrappers_without_backward_raise_under_grad_on_the_card(dev, name):
+    """No kernel output without a graph reaches a loss: under autograd the
+    wrapper raises before it launches; under no_grad the same call
+    launches."""
+    call = _no_backward_calls(dev)[name]
+    fn = globals()[name]
+    n = fn.launches
+    with pytest.raises(RuntimeError, match=name + ": no backward"):
+        call()
+    assert fn.launches == n
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1

@@ -55,6 +55,10 @@ cross/self/full KV caches, the serving policy), up to the serving layer
                         `python -m whisper_tpu_torch.server`)
   - utils/           <- whisper_tpu/utils (metrics, profiling, the
                         roofline cost model with the H100's peaks)
+  - train.py         <- whisper_tpu/train.py (the teacher-forced loss and
+                        the train step, fp32, on torch.optim.AdamW with
+                        optax's clip and schedule; gradients through the
+                        tail and flash kernels, ops/grad.py)
 
 The package imports torch, and neither jax nor anything of whisper_tpu.
 """
@@ -64,7 +68,8 @@ from whisper_tpu_torch.config import CONFIGS, WhisperConfig, get_config
 __all__ = ["WhisperConfig", "CONFIGS", "get_config", "WhisperPipeline",
            "BatchedTranscriber", "ContinuousBatcher", "QueueFull",
            "LongFormDriver", "TranscriptionServer", "Tokenizer",
-           "DecodeOptions", "speculative_decode", "spec_transcribe_window"]
+           "DecodeOptions", "speculative_decode", "spec_transcribe_window",
+           "TrainBatch", "loss_fn", "make_optimizer", "train_step"]
 
 # name -> module, imported on first access (whisper_tpu/__init__.py:31-53)
 _LAZY = {
@@ -78,6 +83,10 @@ _LAZY = {
     "DecodeOptions": "whisper_tpu_torch.decode_rules",
     "speculative_decode": "whisper_tpu_torch.speculative",
     "spec_transcribe_window": "whisper_tpu_torch.speculative",
+    "TrainBatch": "whisper_tpu_torch.train",
+    "loss_fn": "whisper_tpu_torch.train",
+    "make_optimizer": "whisper_tpu_torch.train",
+    "train_step": "whisper_tpu_torch.train",
 }
 
 

@@ -33,6 +33,8 @@ Differences from the JAX module, all deliberate:
   * The self cache is updated IN PLACE: decoder_forward writes the prompt
     rows into the given tensors and decoder_step_ip appends with the
     in-place kernel; both also return the cache for symmetry with JAX.
+    Under autograd (the train step) decoder_forward writes nothing in
+    place and returns a new cache, as JAX's does.
   * Outside the fused step (decode._make_fused_step, one
     fused_decoder_step launch for every layer) the decode step is
     decoder_step_ip (read-only cache inside the layer loop, the current
@@ -82,6 +84,7 @@ from whisper_tpu_torch.ops.encoder_layer import (
     qdot,
     tail_fits_smem,
 )
+from whisper_tpu_torch.ops.grad import tracks_grad
 
 Params = Any    # nested dict of torch tensors
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -140,6 +143,15 @@ def layer_index(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer_index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict, in its key order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
@@ -570,8 +582,18 @@ def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     kv_cache_quant. Writes the new K/V rows into kv_cache in place
     (quantized first into an int8 cache, :708-721), then attends with the
     (kv_len, causal, q_offset) mask through `_cache_attention`, as JAX
-    does (:731-741). Returns (logits (B, T, vocab) fp32, kv_cache)."""
-    h = decoder_hidden(params, cfg, tokens, pos_offset, kv_cache, cross_kv)
+    does (:731-741). Returns (logits (B, T, vocab) fp32, kv_cache).
+
+    Under autograd (grad mode on and a decoder parameter or the cross K/V
+    requiring grad: the train step) nothing is written in place: an
+    in-place row write would change the cache that an earlier layer's
+    attention saved for its backward. Each layer's K/V are then the
+    cache's slots with the new rows scattered in out of place, read with
+    the same extent (every slot, kv_len = pos_offset + T), and the cache
+    that comes back is a new one holding the same values; the given
+    tensors are left as they were. An int8 cache raises there."""
+    h, kv_cache = _decoder_layers(params, cfg, tokens, pos_offset, kv_cache,
+                                  cross_kv)
     return final_logits(params, cfg, h), kv_cache
 
 
@@ -582,26 +604,47 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     fills kv_cache in place and returns h (B, T, d). The engine's batched
     prefill calls it alone, where JAX leaves the unused logits to XLA's
     dead-code elimination (serving_continuous.py:56-58)."""
+    return _decoder_layers(params, cfg, tokens, pos_offset, kv_cache,
+                           cross_kv)[0]
+
+
+def _decoder_layers(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
+                    pos_offset: int, kv_cache: dict[str, torch.Tensor],
+                    cross_kv: dict[str, torch.Tensor]
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """decoder_forward's layers: (h (B, T, d), the cache)."""
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     B, T = tokens.shape
     h = tok_embed(dec, tokens, dtype) + \
         dec["pos_emb"][pos_offset:pos_offset + T].to(dtype)
     kv_len = pos_offset + T
+    grad = torch.is_grad_enabled() and tracks_grad(
+        *tree_leaves(dec), *cross_kv.values())
+    if grad and "k_s" in kv_cache:
+        raise ValueError("decoder_forward: no gradient through an int8 self "
+                         "cache")
+    entries = []
     for i in range(cfg.n_text_layers):
         lp = layer_index(dec["layers"], i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
-        for name, new in (("k", k_new), ("v", v_new)):
-            rows = (i, slice(None), slice(None), slice(pos_offset, kv_len))
-            if name + "_s" in kv_cache:
-                kv_cache[name][rows], kv_cache[name + "_s"][rows] = \
-                    quantize_kv(new)
-            else:
-                kv_cache[name][rows] = new
-        a = _cache_attention(q, layer_index(kv_cache, i), kv_len,
-                             causal=True, q_offset=pos_offset, cfg=cfg,
-                             dtype=dtype)
+        if grad:
+            entry = {name: kv_cache[name][i].slice_scatter(
+                new.to(kv_cache[name].dtype), dim=2, start=pos_offset,
+                end=kv_len) for name, new in (("k", k_new), ("v", v_new))}
+            entries.append(entry)
+        else:
+            for name, new in (("k", k_new), ("v", v_new)):
+                rows = (i, slice(None), slice(None), slice(pos_offset, kv_len))
+                if name + "_s" in kv_cache:
+                    kv_cache[name][rows], kv_cache[name + "_s"][rows] = \
+                        quantize_kv(new)
+                else:
+                    kv_cache[name][rows] = new
+            entry = layer_index(kv_cache, i)
+        a = _cache_attention(q, entry, kv_len, causal=True,
+                             q_offset=pos_offset, cfg=cfg, dtype=dtype)
         h = h + linear(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
@@ -611,7 +654,10 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
         h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
         h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
-    return h
+    if grad:
+        kv_cache = {name: torch.stack([e[name] for e in entries])
+                    for name in ("k", "v")}
+    return h, kv_cache
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, D: int, fp32_mode: bool

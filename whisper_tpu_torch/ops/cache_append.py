@@ -17,7 +17,8 @@ caches: an int8 self cache's rows arrive quantized (models/whisper.py
 decoder_step_ip, decoder_step_ragged), and the caller writes their scale
 rows. Both write into the given tensors and return them; neither makes a
 copy. The ragged wrapper never reads
-`pos` on the host: the kernel reads it from device memory.
+`pos` on the host: the kernel reads it from device memory. Neither has a
+backward: both raise under autograd (ops/grad.py).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.grad import refuse_grad
 
 # the kernels' element types, by the code their C entry points take
 _APPEND_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -61,7 +63,8 @@ def cache_append_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
     """Write k_new/v_new (L, B, H, D) at row `pos` of the (L, B, H, S, D)
     caches, in place; returns the same two tensors. CPU tensors take the
     plain version; CUDA tensors (fp32, bf16 or int8, contiguous) launch the
-    kernel or raise."""
+    kernel or raise. RuntimeError under autograd."""
+    refuse_grad("cache_append_rows", cache_k, cache_v, k_new, v_new)
     pos = int(pos)
     _check(cache_k, cache_v, k_new, v_new, pos)
     if cache_k.device.type == "cpu":
@@ -147,7 +150,8 @@ def cache_append_rows_ragged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     lies outside [0, S) is left untouched. pos: (B,) int64 on the caches'
     device. Returns the same two tensors. CPU tensors take the
     plain version; CUDA tensors (fp32, bf16 or int8, contiguous) launch
-    the kernel or raise."""
+    the kernel or raise. RuntimeError under autograd."""
+    refuse_grad("cache_append_rows_ragged", cache_k, cache_v, k_new, v_new)
     _check_ragged(cache_k, cache_v, k_new, v_new, pos)
     if cache_k.device.type == "cpu":
         return cache_append_rows_ragged_plain(cache_k, cache_v, k_new, v_new,

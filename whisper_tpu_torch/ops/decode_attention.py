@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the launch plan. A read splits its keys only when its B*H rows fill at
@@ -229,8 +230,10 @@ def _stream(q: torch.Tensor) -> int:
 def _run(fn, q, k, v, kv_len, *, cast_kv: bool, p_round: bool,
          plain) -> torch.Tensor:
     """An fp32/bf16 read: check, then the plain version (CPU) or one
-    kernel launch counted on `fn.launches` (CUDA)."""
+    kernel launch counted on `fn.launches` (CUDA). RuntimeError under
+    autograd: no backward."""
     what = fn.__name__
+    refuse_grad(what, q, k, v)
     kv_len = _kv_len(k, kv_len)
     _check(what, q, kv_len, k=(k, q.shape[-1]), v=(v, q.shape[-1]))
     if q.device.type == "cpu":
@@ -255,8 +258,10 @@ def _run(fn, q, k, v, kv_len, *, cast_kv: bool, p_round: bool,
 
 def _run_q8(fn, q, k, k_scale, v, v_scale, kv_len) -> torch.Tensor:
     """An int8 read: check, then the plain version (CPU) or one kernel
-    launch counted on `fn.launches` (CUDA)."""
+    launch counted on `fn.launches` (CUDA). RuntimeError under autograd:
+    no backward."""
     what = fn.__name__
+    refuse_grad(what, q, k, k_scale, v, v_scale)
     kv_len = _kv_len(k, kv_len)
     D = q.shape[-1]
     _check(what, q, kv_len, k=(k, D), v=(v, D), k_scale=(k_scale, 1),

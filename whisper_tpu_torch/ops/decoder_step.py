@@ -46,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -284,7 +285,10 @@ def fused_decoder_step(h0: torch.Tensor, packed: PackedDecoder,
       k_new, v_new (L, B, H, D) in the cache's dtype: each layer's row for
       position kv_len - 1. CPU tensors take the plain version; CUDA
       tensors launch the kernel (one launch for all layers) or raise.
+      No backward: RuntimeError under autograd.
     """
+    refuse_grad("fused_decoder_step", h0, *packed, self_k, self_v, cross_k,
+                cross_v)
     kv_len = int(kv_len)
     _check(h0, packed, self_k, self_v, cross_k, cross_v, kv_len, n_heads)
     if stamps is not None:

@@ -25,13 +25,24 @@ vectors come as separate tensors instead of the packed fp32 `misc` row;
 the wrapper packs them for the kernel. The int8 form takes its matrices
 K-major, (out, in): the tensor cores read 8-bit operands K-major only,
 so the encoder transposes them once per call, where it quantizes them.
+
+Under autograd (the train step) the unquantized kernel's output carries
+the plain version's gradient (ops/grad.py); the int8 form has no
+backward and raises there.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.grad import (
+    kernel_with_plain_backward,
+    refuse_grad,
+    tracks_grad,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -267,7 +278,8 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
       (B, T, d) in h_in's dtype. CPU tensors take the plain version; CUDA
       tensors launch the kernel (head_dim 64, contiguous, a width that
-      `tail_fits_smem`) or raise.
+      `tail_fits_smem`) or raise. Under autograd the kernel's output
+      carries the plain version's gradient.
     """
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
     if h_in.device.type == "cpu":
@@ -277,6 +289,20 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"encoder_block_tail: no kernel for device "
                          f"{h_in.device}")
     _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs)
+    tensors = (q, k, v, h_in, wo, fc1_w, fc2_w, *vecs)
+    launch = functools.partial(_launch, eps=eps)
+    if tracks_grad(*tensors):
+        return kernel_with_plain_backward(
+            launch, functools.partial(encoder_block_tail_plain, eps=eps),
+            *tensors)
+    return launch(*tensors)
+
+
+def _launch(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b, ln2_g,
+            ln2_b, *, eps: float) -> torch.Tensor:
+    """One kernel launch on checked tensors, counted on
+    `encoder_block_tail.launches`."""
+    vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
     B, T, H, D = q.shape
     S, d, ff = k.shape[2], h_in.shape[-1], fc1_w.shape[-1]
     lib = _build.load_library()
@@ -367,9 +393,12 @@ def encoder_block_tail_q8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
       (B, T, d) bf16. CPU tensors take the plain version; CUDA tensors
       launch the kernel (head_dim 64, contiguous, a width that
-      `tail_fits_smem` takes in the int8 form) or raise.
+      `tail_fits_smem` takes in the int8 form) or raise. No backward:
+      RuntimeError under autograd.
     """
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
+    refuse_grad("encoder_block_tail_q8", q, k, v, h_in, wo_t, fc1_t, fc2_t,
+                *vecs, fc1_s, fc2_s, wo_s)
     if h_in.device.type == "cpu":
         return encoder_block_tail_q8_plain(q, k, v, h_in, wo_t, fc1_t, fc2_t,
                                            *vecs, fc1_s, fc2_s, wo_s, eps=eps)

@@ -10,15 +10,21 @@ Layouts and masking are the JAX kernel's: q (B, T, H, D) token-major,
 k and v (B, H, S, D) head-major; key s is visible to query t iff
 s < kv_len and, when causal, s <= q_offset + t. Keys at or past kv_len,
 and keys past the causal diagonal of the last query, are never read.
+
+Under autograd (the train step) the kernel's output carries the plain
+version's gradient (ops/grad.py): the backward recomputes
+`flash_attention_plain`, which is written without in-place ops for that.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.grad import kernel_with_plain_backward, tracks_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIM = 64                                       # every Whisper size
@@ -47,10 +53,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bthd,bhsd->bhts", q.float() * (D ** -0.5), k.float())
     if causal:
         q_pos = q_offset + torch.arange(T, device=q.device)[:, None]
-        s.masked_fill_(torch.arange(end, device=q.device)[None, :] > q_pos,
-                       _MASK_VALUE)
-    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()       # (B, H, T, S)
-    denom = p.sum(dim=-1, keepdim=True).clamp_min_(1e-30)  # (B, H, T, 1)
+        s = s.masked_fill(torch.arange(end, device=q.device)[None, :] > q_pos,
+                          _MASK_VALUE)
+    # out of place, for autograd; rebinding `s` frees each step's input
+    s = s - s.amax(dim=-1, keepdim=True)
+    p = s.exp()                                            # (B, H, T, S)
+    del s
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)   # (B, H, T, 1)
     pv = torch.einsum("bhts,bhsd->bthd", p.to(q.dtype).float(), v.float())
     return (pv / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
@@ -124,21 +133,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
       (B, T, H, D) in q's dtype, contiguous. CPU tensors take the plain
       version; CUDA tensors launch the kernel (fp32 or bf16, head_dim 64)
-      or raise.
+      or raise. Under autograd the kernel's output carries the plain
+      version's gradient.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, q_offset,
                                      causal=causal)
-    B, T, H, D = q.shape
     S = k.shape[2]
     kv_len = S if kv_len is None else int(kv_len)
+    q_offset = int(q_offset)
     k, v = k.to(q.dtype), v.to(q.dtype)
     _check(q, k, v, kv_len, q_offset)
+    launch = functools.partial(_launch, kv_len=kv_len, q_offset=q_offset,
+                               causal=causal)
+    if tracks_grad(q, k, v):
+        return kernel_with_plain_backward(
+            launch, functools.partial(flash_attention_plain, kv_len=kv_len,
+                                      q_offset=q_offset, causal=causal),
+            q, k, v)
+    return launch(q, k, v)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            kv_len: int, q_offset: int, causal: bool) -> torch.Tensor:
+    """One kernel launch on checked tensors, counted on
+    `flash_attention.launches`."""
+    B, T, H, D = q.shape
+    S = k.shape[2]
     lib = _build.load_library()
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     err = lib.wt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, T, S, H, D, kv_len, int(q_offset), int(causal),
+        B, T, S, H, D, kv_len, q_offset, int(causal),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)

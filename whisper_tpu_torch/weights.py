@@ -10,7 +10,9 @@ whisper_tpu/models/whisper.py:309 init_params):
   * k_proj's bias slot present and zero (HF k_proj has no bias);
   * conv weights in torch's (out, in, k) layout.
 `to_device` places a tree for the model and replaces each self-attention's
-q/k/v linears with one fused (d, 3d) `qkv` linear.
+q/k/v linears with one fused (d, 3d) `qkv` linear; `trainable` makes such a
+tree the train step's parameters, and `from_device` is the way back (q, k
+and v split again, for `save_npz` and the JAX package).
 """
 
 from __future__ import annotations
@@ -431,3 +433,42 @@ def to_device(params: Params, device, dtype: torch.dtype | None = None
         layers["attn"] = fuse(layers["attn"])
         params[part]["layers"] = layers
     return put(params)
+
+
+def trainable(params: Params, device="cuda") -> Params:
+    """The train step's parameters (whisper_tpu_torch/train.py): the
+    `to_device` tree (the fused `qkv` linears) on `device` in fp32, every
+    leaf a copy of its own that requires grad. Fusing q, k and v changes
+    nothing in training: AdamW, the clip and the global norm act on each
+    value or on sums over all of them. An int8 tree raises."""
+    def leaf(t):
+        if not t.is_floating_point():
+            raise ValueError(f"trainable: an int8 tree has no gradient "
+                             f"({t.dtype} leaf)")
+        return t.detach().to(torch.float32, copy=True).requires_grad_()
+    return _tree_map(leaf, to_device(params, device))
+
+
+def from_device(params: Params) -> Params:
+    """The way back from `to_device` and `trainable`: every leaf detached,
+    on the CPU and in fp32 (int8 leaves stay int8), and each fused `qkv`
+    linear split into JAX's q, k and v linears, so that `save_npz` writes
+    the JAX package's keys."""
+    def split(attn: dict) -> dict:
+        if "qkv" not in attn:
+            return attn
+        parts = {n: t.chunk(3, dim=-1) for n, t in attn["qkv"].items()}
+        return {**{p: {n: parts[n][j] for n in parts}
+                   for j, p in enumerate("qkv")}, "o": attn["o"]}
+
+    def leaf(t):
+        t = t.detach().to("cpu", copy=True)
+        return t.contiguous() if t.dtype == torch.int8 else \
+            t.float().contiguous()
+
+    params = {part: dict(sub) for part, sub in params.items()}
+    for part in ("encoder", "decoder"):
+        layers = dict(params[part]["layers"])
+        layers["attn"] = split(layers["attn"])
+        params[part]["layers"] = layers
+    return _tree_map(leaf, params)
