@@ -90,14 +90,30 @@ step's gradients on the card against the CPU (B=8), large-v3-turbo at
 full width and depth (2 steps of 4 rows, the first update at lr 1e-4:
 the loss moves, every leaf's gradient non-zero but the key biases'),
 and the two kernels' forward
-and backward (the plain twin's autograd) timed beside SDPA's.
+and backward (the plain twin's autograd) timed beside SDPA's. Then the
+meshes (whisper_tpu_torch.parallel): large-v3-turbo bf16 at full width
+and depth through ShardedPipeline on a world of one NCCL process that
+make_mesh opens itself (B=8, 32 greedy tokens, equal to
+WhisperPipeline's; one tail launch a layer, one append a step); then four
+gloo processes sharing the card (NCCL refuses two ranks on one device;
+their walls are no measure of multi-chip scaling): turbo fp32 with
+tok_emb x 4 through ShardedPipeline at (dp, tp) = (1, 4), (2, 2) and
+(dp, sp) = (2, 2), prefill logits and tokens against the one-card fp32
+run (flash launches per rank under tp, tail launches under sp), turbo's
+pipelined encoder and decoder at pp = 4, tiny's train step at pp = 4 and
+(dp, tp) = (2, 2) against the one-card train_step, the MoE at ep = 4,
+and a DCP checkpoint of tiny saved at tp = 4 and restored at tp = 2 and
+whole, bit-equal; which collectives gloo takes on CUDA tensors is tried
+on the card.
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus the measurements of PERF.md
 
 `--only pipeline` runs the pipeline layer's phases alone (turbo's
 weights drawn on the card), `--only serving` the serving layer's,
-`--only train` the train phases.
+`--only train` the train phases, `--only mesh` the mesh phase (~70 s of
+command); an `--only` run ends with the ok line but prints no kernels
+line.
 `--profile` adds the kernels' build timed serial against parallel,
 three more turbo long-form walls, the speculative walls as the best of
 three, the tail's launches at turbo b32 by kernel, the int8 engines under
@@ -302,6 +318,27 @@ TRAIN_TURBO_BATCH, TRAIN_TURBO_STEPS = 4, 2
 # card against CPU, of each leaf's largest |g|: fp32 sums in other orders
 # over B*T = 1,792 positions, the tail's and flash's forwards on the card
 TRAIN_GRAD_RTOL = 1e-3
+# the mesh phase (parallel/): (a) turbo bf16 through ShardedPipeline on a
+# world of one NCCL process, B=8, 32 greedy tokens; (b) four gloo
+# processes sharing the card: turbo fp32 with tok_emb x 4 (decisive
+# margins, as tests/test_sharded_inference.py:147-160), B=8, 24 tokens,
+# at (dp, tp, sp) in MESH_GLOO; turbo's pipelined forwards at pp=4; tiny's
+# train step at pp=4 and at (dp, tp) = (2, 2); the MoE at ep=4; a DCP
+# checkpoint of tiny at tp=4 restored at tp=2 and unsharded
+MESH_WORLD = 4
+MESH_BATCH = 8
+MESH_NCCL_TOKENS, MESH_GLOO_TOKENS = 32, 24
+MESH_GLOO = ((1, 4, 1), (2, 2, 1), (2, 1, 2))        # (dp, tp, sp)
+MESH_PP_T = 16                   # teacher-forced tokens of the pp decoder
+MESH_LOGITS_TOL = (2e-4, 1e-5)   # (atol, rtol): fp32, sharded vs one card
+MESH_ENC_TOL = (1e-4, 1e-5)      # the pp encoder (flash) vs the tail
+MESH_GRAD_SHARE = 1e-4           # of the one-card gradient's largest |g|
+MESH_LOSS_RTOL = 1e-4
+MESH_MOE = (1280, 5120, 8, 4, 64)   # d, ff, experts, B, T
+MESH_MOE_ATOL = 1e-4
+MESH_TIMEOUT_S = 600
+MESH_NOTE = ("the gloo ranks share one card: their walls are no measure "
+             "of multi-chip scaling")
 # a key bias's true gradient is 0 (the softmax cancels a constant added to
 # every score): both devices must give noise there, below this share of
 # the largest |g| of any leaf
@@ -321,7 +358,7 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time",
         "pipeline": "pipeline_layer", "serving": "serving_group",
-        "train": "train_group"}
+        "train": "train_group", "mesh": "mesh_group"}
 
 
 def emit(obj: dict) -> None:
@@ -4579,6 +4616,471 @@ def train_group(card: str) -> dict:
     return {"tiny": tiny, "turbo": turbo, "times": times}
 
 
+def mesh_eot_options(cfg):
+    """EOT banned at every step: the decode does fixed work, the same on
+    every path compared."""
+    from whisper_tpu_torch.decode_rules import DecodeOptions
+    return DecodeOptions(suppress_tokens=(cfg.eot_token,))
+
+
+def mesh_counts(kernels: dict) -> dict:
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def mesh_line(check: str, mesh: str, backend: str, world: int, card: str,
+              **fields) -> dict:
+    line = {"phase": "mesh", "check": check, "mesh": mesh,
+            "backend": backend, "world_size": world, **fields,
+            "card": card}
+    if backend == "gloo":
+        line["note"] = MESH_NOTE
+    emit(line)
+    return line
+
+
+def mesh_nccl(card: str, vocab: str) -> dict:
+    """(a) A world of one NCCL process that make_mesh opens itself: turbo
+    bf16 at full width and depth through ShardedPipeline(dp=1, tp=1), B=8,
+    32 greedy tokens with EOT banned; its tokens equal WhisperPipeline's
+    in this process; one tail launch a layer, one append a step."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.parallel.inference import ShardedPipeline
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    kernels = kernel_wrappers()
+    cfg = get_config(TURBO).replace(compute_dtype="bfloat16")
+    params = card_init_params(cfg, 0)
+    pipe = WhisperPipeline.from_params(params, cfg, dtype="bfloat16",
+                                       device="cuda", vocab_path=vocab,
+                                       quant="off")
+    audio = bench_audio(cfg, MESH_BATCH)
+    opts = mesh_eot_options(cfg)
+    max_new = MESH_NCCL_TOKENS - 1
+    res = pipe.transcribe_batch(audio, max_new=max_new, opts=opts)
+    want = [res.tokens[b, :res.lengths[b]].tolist()
+            for b in range(MESH_BATCH)]
+    del pipe, res
+    require(not dist.is_initialized(), "mesh: a process group exists")
+    spipe = ShardedPipeline(params, cfg, dp=1, tp=1, device="cuda",
+                            tokenizer=Tokenizer(vocab, config=cfg))
+    del params
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "mesh: make_mesh did not open a world of one NCCL process")
+    spipe.transcribe_batch(audio, max_new=max_new, opts=opts)   # warm-up
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = spipe.transcribe_batch(audio, max_new=max_new, opts=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mesh_counts(kernels)
+    dist.destroy_process_group()
+    del spipe
+    torch.cuda.empty_cache()
+    equal = [row["tokens"] for row in got] == want
+    line = mesh_line("nccl_world_of_one", "dp1_sp1_tp1", "nccl", 1, card,
+                     model=cfg.name, dtype="bfloat16", batch=MESH_BATCH,
+                     gen_tokens=MESH_NCCL_TOKENS, wall_s=wall,
+                     tokens_equal_one_card=equal,
+                     launches_by_rank=[launches])
+    require(equal, "mesh: ShardedPipeline tokens differ from "
+                   "WhisperPipeline's")
+    require(launches["encoder_block_tail"] == cfg.n_audio_layers,
+            f"mesh nccl: {launches['encoder_block_tail']} tail launches")
+    require(launches["cache_append_rows"] == max_new,
+            f"mesh nccl: {launches['cache_append_rows']} appends")
+    require(all(len(row["tokens"]) == 4 + MESH_NCCL_TOKENS for row in got),
+            "mesh nccl: token count")
+    return line
+
+
+def mesh_turbo_reference(audio: np.ndarray, vocab: str) -> dict:
+    """The one-card fp32 run that the gloo ranks are held to: turbo with
+    tok_emb x 4 (drawn on the card from seed 1), the prefill logits and
+    the greedy tokens of the B=8 batch, and the pipelined forwards' input
+    mel."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.audio import log_mel_spectrogram
+    from whisper_tpu_torch.decode import encode
+    from whisper_tpu_torch.models.whisper import (
+        decoder_forward,
+        full_fp32,
+        init_kv_cache,
+        precompute_cross_kv,
+    )
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.tokenizer import build_prompt
+    cfg = get_config(TURBO)
+    params = mesh_decisive(card_init_params(cfg, 1))
+    pipe = WhisperPipeline.from_params(params, cfg, dtype="float32",
+                                       device="cuda", vocab_path=vocab,
+                                       quant="off")
+    del params
+    res = pipe.transcribe_batch(audio, max_new=MESH_GLOO_TOKENS - 1,
+                                opts=mesh_eot_options(cfg))
+    tokens = [res.tokens[b, :res.lengths[b]].tolist()
+              for b in range(MESH_BATCH)]
+    prompt = torch.tensor([build_prompt(cfg)] * MESH_BATCH, device="cuda")
+    with torch.inference_mode(), full_fp32():
+        mel = log_mel_spectrogram(torch.from_numpy(audio).cuda(), cfg)
+        enc = encode(pipe.params, cfg, mel)
+        cross = precompute_cross_kv(pipe.params, cfg, enc)
+        cache = init_kv_cache(cfg, MESH_BATCH, torch.float32, 64, "cuda")
+        logits, _ = decoder_forward(pipe.params, cfg, prompt, 0, cache,
+                                    cross)
+    return {"pipe": pipe, "tokens": tokens, "logits": logits.cpu(),
+            "enc": enc, "mel": mel.cpu().numpy(),
+            "prompt": prompt.cpu().numpy()}
+
+
+def mesh_decisive(params: dict) -> dict:
+    params["decoder"]["tok_emb"] = params["decoder"]["tok_emb"] * 4.0
+    return params
+
+
+def mesh_close(got, want, tol) -> tuple[float, bool]:
+    """(max |got - want|, whether every value is within atol + rtol|want|)."""
+    import torch
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    err = (got - want).abs()
+    return float(err.max()), bool((err <= tol[0] + tol[1]
+                                   * want.abs()).all())
+
+
+def mesh_group(card: str) -> dict:
+    """The mesh phase (--only mesh): (a) in this process, (b) in four gloo
+    processes (mesh_rank), each check held to this process's one-card
+    runs. Returns each check's launches by rank, for the kernels line."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.models.whisper import decoder_forward, full_fp32
+    from whisper_tpu_torch.models.whisper import init_kv_cache
+    from whisper_tpu_torch.models.whisper import precompute_cross_kv
+    from whisper_tpu_torch.parallel import launch
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = write_v3_vocab(Tokenizer(config=get_config("tiny")).tokens,
+                               tmp)
+        line = mesh_nccl(card, vocab)
+        out["nccl_world_of_one"] = line["launches_by_rank"]
+        audio = bench_audio(get_config(TURBO), MESH_BATCH)
+        ref = mesh_turbo_reference(audio, vocab)
+        rng = np.random.RandomState(4)
+        cfg = get_config(TURBO)
+        pp_tokens = rng.randint(0, cfg.eot_token, (MESH_BATCH, MESH_PP_T))
+        t0 = time.perf_counter()
+        ranks = launch.run(
+            "chip_smoke:mesh_rank", MESH_WORLD,
+            (vocab, audio, ref["mel"], ref["prompt"], pp_tokens, tmp),
+            timeout=MESH_TIMEOUT_S, threads=2)
+        world_s = time.perf_counter() - t0
+        pipe = ref["pipe"]
+        # ShardedPipeline at every MESH_GLOO mesh
+        for dp, tp, sp in MESH_GLOO:
+            key = f"dp{dp}_sp{sp}_tp{tp}"
+            rows = [r["pipelines"][key] for r in ranks]
+            logits = torch.cat([torch.from_numpy(r["logits"])
+                                for r in rows if r["logits"] is not None])
+            err, ok = mesh_close(logits, ref["logits"], MESH_LOGITS_TOL)
+            equal = all(r["tokens"] == ref["tokens"] for r in rows)
+            launches = [r["launches"] for r in rows]
+            out[key] = launches
+            mesh_line("sharded_pipeline", key, "gloo", MESH_WORLD, card,
+                      model=cfg.name, dtype="float32", batch=MESH_BATCH,
+                      gen_tokens=MESH_GLOO_TOKENS,
+                      wall_s_by_rank=[r["wall_s"] for r in rows],
+                      prefill_logits_max_abs_err=err,
+                      tolerance=MESH_LOGITS_TOL,
+                      tokens_equal_one_card=equal,
+                      launches_by_rank=launches,
+                      transports_by_rank=[r["transports"] for r in rows])
+            require(ok, f"mesh {key}: prefill logits off by {err}")
+            require(equal, f"mesh {key}: tokens differ from the one card's")
+            steps = MESH_GLOO_TOKENS - 1
+            for r in launches:
+                require(r["cache_append_rows"] == steps,
+                        f"mesh {key}: {r['cache_append_rows']} appends")
+                if tp > 1:
+                    require(r["flash_attention"] == cfg.n_audio_layers
+                            and r["encoder_block_tail"] == 0,
+                            f"mesh {key}: flash {r['flash_attention']}, "
+                            f"tail {r['encoder_block_tail']}")
+                else:
+                    require(r["encoder_block_tail"] == cfg.n_audio_layers,
+                            f"mesh {key}: tail {r['encoder_block_tail']}")
+        # the pipelined forwards at pp = 4
+        pp = ranks[0]["pp"]
+        enc_err, enc_ok = mesh_close(pp["enc"], ref["enc"].cpu(),
+                                     MESH_ENC_TOL)
+        with torch.inference_mode(), full_fp32():
+            enc_pp = torch.from_numpy(pp["enc"]).cuda()
+            cross = precompute_cross_kv(pipe.params, cfg, enc_pp)
+            cache = init_kv_cache(cfg, MESH_BATCH, torch.float32, 64, "cuda")
+            want, _ = decoder_forward(pipe.params, cfg,
+                                      torch.from_numpy(pp_tokens).cuda(), 0,
+                                      cache, cross)
+        dec_err, dec_ok = mesh_close(pp["dec"], want.cpu(), MESH_LOGITS_TOL)
+        out["pp4_forward"] = [r["pp"]["launches"] for r in ranks]
+        mesh_line("pipelined_forwards", "pp4", "gloo", MESH_WORLD, card,
+                  model=cfg.name, dtype="float32", batch=MESH_BATCH,
+                  microbatches=4, encoder_max_abs_err=enc_err,
+                  encoder_tolerance=MESH_ENC_TOL,
+                  decoder_logits_max_abs_err=dec_err,
+                  decoder_tolerance=MESH_LOGITS_TOL,
+                  wall_s_by_rank=[r["pp"]["wall_s"] for r in ranks],
+                  launches_by_rank=out["pp4_forward"],
+                  transports_by_rank=[r["pp"]["transports"] for r in ranks])
+        require(enc_ok, f"mesh pp4: encoder off by {enc_err}")
+        require(dec_ok, f"mesh pp4: decoder logits off by {dec_err}")
+        for r in ranks:
+            require(r["pp"]["launches"]["flash_attention"]
+                    == cfg.n_audio_layers,
+                    f"mesh pp4: {r['pp']['launches']['flash_attention']} "
+                    f"flash launches on a rank")
+        del ref, pipe, enc_pp, cross, cache, want
+        torch.cuda.empty_cache()
+        # tiny's train steps, the MoE, the checkpoint: checked in the ranks
+        for name in ("train_pp4", "train_dp2_tp2"):
+            rows = [r[name] for r in ranks]
+            out[name] = [r["launches"] for r in rows]
+            mesh_line(name, name[6:], "gloo", MESH_WORLD, card,
+                      model="tiny", dtype="float32",
+                      loss=rows[0]["loss"], one_card_loss=rows[0]["ref_loss"],
+                      grad_max_abs_err=max(r["grad_err"] for r in rows),
+                      one_card_grad_max=rows[0]["ref_grad_max"],
+                      tolerance=MESH_GRAD_SHARE,
+                      wall_s_by_rank=[r["wall_s"] for r in rows],
+                      launches_by_rank=out[name],
+                      transports_by_rank=[r["transports"] for r in rows])
+        out["moe_ep4"] = [r["moe"]["launches"] for r in ranks]
+        mesh_line("moe_mlp_sharded", "dp1_ep4", "gloo", MESH_WORLD, card,
+                  shape=MESH_MOE,
+                  max_abs_err=max(r["moe"]["err"] for r in ranks),
+                  tolerance=MESH_MOE_ATOL,
+                  wall_s_by_rank=[r["moe"]["wall_s"] for r in ranks],
+                  launches_by_rank=out["moe_ep4"])
+        mesh_line("dcp_checkpoint", "tp4_to_tp2_and_unsharded", "gloo",
+                  MESH_WORLD, card, model="tiny",
+                  bit_equal_tp2=all(r["dcp"]["tp2"] for r in ranks),
+                  bit_equal_unsharded=ranks[0]["dcp"]["whole"],
+                  wall_s_by_rank=[r["dcp"]["wall_s"] for r in ranks])
+        mesh_line("gloo_cuda_probe", "world", "gloo", MESH_WORLD, card,
+                  probe=ranks[0]["probe"], world_s=world_s)
+    emit({"phase": "mesh_group", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return out
+
+
+def mesh_max_err(got: dict, want: dict) -> float:
+    """The largest |got - want| over two params trees, leaf by path (inf
+    when their paths or shapes differ)."""
+    from whisper_tpu_torch.weights import _keystr_leaves
+    got, want = dict(_keystr_leaves(got)), dict(_keystr_leaves(want))
+    if got.keys() != want.keys() or any(
+            got[k].shape != want[k].shape for k in want):
+        return float("inf")
+    return max(float((got[k].cpu().float() - want[k].cpu().float()).abs()
+                     .max()) for k in want)
+
+
+def mesh_probe() -> dict:
+    """Which collectives gloo runs on CUDA tensors on this card's torch:
+    each tried once on the world group, "ok" or the error's first line.
+    Point-to-point is not tried: gloo's send and recv pass the tensor's
+    pointer to its host transport (the helpers copy to the host)."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.ops.collectives import GLOO_CUDA_OPS
+    x = torch.ones(8, device="cuda")
+    trials = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(dist.get_world_size())], x),
+    }
+    out = {}
+    for name, fn in trials.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:200]
+        dist.barrier()
+    for name in GLOO_CUDA_OPS:
+        require(out.get(name) == "ok",
+                f"mesh: gloo refuses {name} on CUDA tensors: {out.get(name)}")
+    return out
+
+
+def _mesh_timed(kernels: dict, fn):
+    """fn() with every count and transport counter at 0 just before it and
+    read just after it: (result, wall s, launches, transports)."""
+    import torch
+
+    from whisper_tpu_torch.ops import collectives
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    collectives.TRANSPORTS.clear()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, mesh_counts(kernels),
+            {f"{op}:{how}": n for (op, how), n in
+             sorted(collectives.TRANSPORTS.items())})
+
+
+def mesh_rank(vocab: str, audio, mel, prompt, pp_tokens, tmp: str) -> dict:
+    """One of the four gloo ranks sharing the card (launch.run): the
+    transport probe, then each (b) check; returns what mesh_group holds
+    to the one-card runs."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch import get_config, train, weights
+    from whisper_tpu_torch.models.whisper import (
+        decoder_forward,
+        encoder_forward,
+        init_kv_cache,
+        precompute_cross_kv,
+        tree_leaves,
+    )
+    from whisper_tpu_torch.parallel import expert
+    from whisper_tpu_torch.parallel import pipeline_parallel as ppl
+    from whisper_tpu_torch.parallel.inference import ShardedPipeline
+    from whisper_tpu_torch.parallel.mesh import (
+        axes_mesh,
+        make_mesh,
+        shard_params,
+        shard_tensor,
+    )
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_wrappers()
+    out = {"probe": mesh_probe(), "pipelines": {}}
+    cfg = get_config(TURBO)
+    tok = Tokenizer(vocab, config=cfg)
+    full = mesh_decisive(card_init_params(cfg, 1))
+    opts = mesh_eot_options(cfg)
+    for dp, tp, sp in MESH_GLOO:
+        pipe = ShardedPipeline(full, cfg, dp=dp, tp=tp, sp=sp,
+                               device="cuda", tokenizer=tok)
+        with torch.inference_mode(), pipe.sharding():
+            m = pipe.rows(mel)
+            enc = encoder_forward(pipe.params, cfg, m)
+            cross = precompute_cross_kv(pipe.params, cfg, enc)
+            cache = init_kv_cache(cfg, m.shape[0], torch.float32, 64, "cuda")
+            logits, _ = decoder_forward(pipe.params, cfg, pipe.rows(prompt),
+                                        0, cache, cross)
+        first = (pipe.mesh.get_local_rank("sp") == 0
+                 and pipe.mesh.get_local_rank("tp") == 0)
+        del enc, cross, cache
+        got, wall, launches, transports = _mesh_timed(
+            kernels, lambda: pipe.transcribe_batch(
+                audio, max_new=MESH_GLOO_TOKENS - 1, opts=opts))
+        out["pipelines"][f"dp{dp}_sp{sp}_tp{tp}"] = {
+            "logits": logits.cpu().numpy() if first else None,
+            "tokens": [row["tokens"] for row in got], "wall_s": wall,
+            "launches": launches, "transports": transports}
+        del pipe, logits
+        torch.cuda.empty_cache()
+    # turbo's pipelined forwards at pp = 4: 8 encoder layers and 1 decoder
+    # layer on each rank
+    mesh = make_mesh(pp=MESH_WORLD)
+    local = weights.to_device(shard_params(full, mesh), "cuda")
+    del full
+    torch.cuda.empty_cache()
+
+    def forwards():
+        with torch.inference_mode():
+            e = ppl.encoder_forward_pp(local, cfg, torch.from_numpy(mel)
+                                       .cuda(), mesh, microbatches=4)
+            d = ppl.decoder_logits_pp(local, cfg, torch.from_numpy(pp_tokens)
+                                      .cuda(), e, mesh, microbatches=4)
+        return e, d
+
+    (e, d), wall, launches, transports = _mesh_timed(kernels, forwards)
+    first = dist.get_rank() == 0
+    out["pp"] = {"enc": e.cpu().numpy() if first else None,
+                 "dec": d.cpu().numpy() if first else None, "wall_s": wall,
+                 "launches": launches, "transports": transports}
+    del local, e, d
+    torch.cuda.empty_cache()
+    # tiny's train step at pp = 4 and at (dp, tp) = (2, 2), each against the
+    # one-card train_step on the same values, computed here
+    tiny = get_config("tiny")
+    params = card_init_params(tiny, 2)
+    batch = train_batch(tiny, MESH_BATCH, seed=5)
+    ref = weights.trainable(params, "cuda")
+    ref_out = train.train_step(ref, train.make_optimizer(ref), tiny, batch)
+    ref_grads = weights.from_device(weights._map_leaves(lambda t: t.grad,
+                                                        ref))
+    top = max(float(g.abs().max()) for g in tree_leaves(ref_grads))
+    for name, axes in (("train_pp4", {"pp": 4}),
+                       ("train_dp2_tp2", {"dp": 2, "tp": 2})):
+        mesh = make_mesh(**axes)
+        p = weights.trainable(shard_params(params, mesh), "cuda")
+        rows = train.TrainBatch(*(shard_tensor(t, ("dp",), mesh)
+                                  for t in batch))
+        res, wall, launches, transports = _mesh_timed(
+            kernels, lambda: ppl.train_step_pp(
+                p, train.make_optimizer(p), tiny, rows, mesh,
+                microbatches=4 if "pp" in axes else 1))
+        err = mesh_max_err(
+            weights.from_device(weights._map_leaves(lambda t: t.grad, p)),
+            shard_params(ref_grads, mesh))
+        loss, ref_loss = float(res["loss"]), float(ref_out["loss"])
+        require(abs(loss - ref_loss) <= MESH_LOSS_RTOL * abs(ref_loss),
+                f"mesh {name}: loss {loss} != one card's {ref_loss}")
+        require(err <= MESH_GRAD_SHARE * top,
+                f"mesh {name}: gradient off by {err} (max |g| {top})")
+        out[name] = {"loss": loss, "ref_loss": ref_loss, "grad_err": err,
+                     "ref_grad_max": top, "wall_s": wall,
+                     "launches": launches, "transports": transports}
+        del p
+    del ref, ref_grads
+    # the MoE at ep = 4 against the unsharded layer on the same values
+    d_model, d_ff, n_exp, B, T = MESH_MOE
+    moe = expert.init_moe_params(
+        torch.Generator(device="cuda").manual_seed(6), d_model, d_ff, n_exp)
+    x = torch.randn(B, T, d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(7))
+    mesh = axes_mesh({"dp": 1, "ep": MESH_WORLD})
+    local = expert.shard_moe_params(moe, mesh)
+    y, wall, launches, _ = _mesh_timed(
+        kernels, lambda: expert.moe_mlp_sharded(x, local, mesh))
+    err = float((y - expert.moe_mlp(x, moe)).abs().max())
+    require(err <= MESH_MOE_ATOL, f"mesh moe: off by {err}")
+    out["moe"] = {"err": err, "wall_s": wall, "launches": launches}
+    # tiny's checkpoint at tp = 4, restored at (dp, tp) = (2, 2) and whole
+    t0 = time.perf_counter()
+    m4 = make_mesh(tp=4)
+    path = os.path.join(tmp, "dcp_tp4")
+    weights.save_dcp(path, shard_params(params, m4), tiny, m4)
+    m22 = make_mesh(dp=2, tp=2)
+    tp2 = mesh_max_err(weights.load_dcp(path, tiny, m22),
+                       shard_params(params, m22)) == 0.0
+    whole = (mesh_max_err(weights.load_dcp(path, tiny), params) == 0.0
+             if dist.get_rank() == 0 else None)
+    require(tp2 and whole is not False, "mesh dcp: a restore differs")
+    out["dcp"] = {"tp2": tp2, "whole": whole,
+                  "wall_s": time.perf_counter() - t0}
+    return out
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name (each counts its launches
     in its `launches` attribute)."""
@@ -4665,7 +5167,8 @@ def main() -> int:
     ap.add_argument("--only", default="",
                     help="comma-separated standalone phases to run alone "
                          f"({', '.join(ONLY)}), after the card and build "
-                         f"lines; prints no result line")
+                         f"lines; ends with the ok line but prints no "
+                         f"kernels line")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4725,6 +5228,8 @@ def main() -> int:
     if opts.only:
         for name in opts.only.split(","):
             globals()[ONLY[name]](card)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
         return 0
     if opts.profile:
         profile_build(card)
@@ -5035,6 +5540,11 @@ def main() -> int:
     # against the CPU, turbo's train steps, the two kernels' backwards
     train = train_group(card)
 
+    # 6f. the meshes: turbo through ShardedPipeline on a world of one NCCL
+    # process, then four gloo processes sharing the card (dp/tp/sp, pp,
+    # the train step, the MoE, the checkpoint)
+    mesh = mesh_group(card)
+
     # 7. large-v3-turbo at full width and depth: the tail, one launch a
     # layer
     tcfg = get_config(TURBO)
@@ -5322,6 +5832,10 @@ def main() -> int:
         # turbo's
         row["train_launches"] = train["tiny"].get(row["name"], 0)
         row["train_turbo_launches"] = train["turbo"].get(row["name"], 0)
+        # each mesh check's launches, by rank
+        row["mesh_launches"] = {
+            check: [r.get(row["name"], 0) for r in by_rank]
+            for check, by_rank in mesh.items()}
     by_name = {row["name"]: row for row in rows}
     by_name["encoder_block_tail"]["train_time"] = \
         train["times"]["encoder_block_tail"]

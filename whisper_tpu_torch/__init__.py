@@ -6,7 +6,7 @@ its counterpart's name, public function names and tensor layouts (q is
 (B, T, H, D); K/V and the caches are head-major (L, B, H, S, D); linear
 weights are stored (in, out)), so a reader can put the two side by side.
 
-Covered so far, for every model of the family (tiny to large-v3-turbo),
+Covered, for every model of the family (tiny to large-v3-turbo),
 in fp32 (token-parity mode) and bf16, greedy, beam-search and sampled
 decoding, also with the int8 serving stack (weight-only int8, int8
 cross/self/full KV caches, the serving policy), up to the serving layer
@@ -59,6 +59,16 @@ cross/self/full KV caches, the serving policy), up to the serving layer
                         the train step, fp32, on torch.optim.AdamW with
                         optax's clip and schedule; gradients through the
                         tail and flash kernels, ops/grad.py)
+  - parallel/        <- whisper_tpu/parallel (on torch.distributed: the
+                        (dp, sp, tp, pp) mesh and its sharding rules,
+                        ShardedPipeline, GPipe pipelined_scan with its
+                        forwards and train step, the expert-parallel MoE,
+                        multihost initialize/global_batch; launch.py starts
+                        a world of processes; ops/collectives.py writes
+                        out the collectives GSPMD inserts) and
+                        weights.save_dcp /
+                        load_dcp, the sharded checkpoints that take orbax's
+                        place (torch.distributed.checkpoint)
 
 The package imports torch, and neither jax nor anything of whisper_tpu.
 """

@@ -43,6 +43,7 @@ from whisper_tpu_torch.models.whisper import (
     init_kv_cache,
     precompute_cross_kv,
     tok_embed,
+    tp_group,
 )
 from whisper_tpu_torch.ops.cache_append import cache_append_rows
 from whisper_tpu_torch.ops.decoder_step import (
@@ -110,7 +111,12 @@ def _make_fused_step(params, cfg: WhisperConfig, cross_kv):
     launch writing every layer's new row at `pos` (where JAX writes with
     a dynamic_update_slice), and the logits. The caches keep the port's
     layout: no head-outer copy. step(last (B, 1), pos, cache) ->
-    (logits (B, 1, vocab) fp32, cache)."""
+    (logits (B, 1, vocab) fp32, cache). Raises under tp > 1 (a
+    models.whisper.sharded block): every layer's row-parallel sums would
+    fall inside the one launch."""
+    if tp_group() is not None:
+        raise ValueError("the fused decoder step does not run under tp > 1: "
+                         "turn cfg.fused_step and WHISPER_TPU_FUSED off")
     dec = params["decoder"]
     dtype = compute_dtype(cfg)
     packed = pack_decoder_weights(dec["layers"], dtype)

@@ -55,6 +55,7 @@ Differences from the JAX module, all deliberate:
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import threading
 from typing import Any, Optional
@@ -84,6 +85,7 @@ from whisper_tpu_torch.ops.encoder_layer import (
     qdot,
     tail_fits_smem,
 )
+from whisper_tpu_torch.ops import collectives
 from whisper_tpu_torch.ops.grad import tracks_grad
 
 Params = Any    # nested dict of torch tensors
@@ -136,6 +138,93 @@ def full_fp32(on: bool = True):
             if _fp32_depth == 0:
                 matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
                     _fp32_saved
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism (parallel/: the meshes)
+# ---------------------------------------------------------------------------
+
+_shard = threading.local()     # .groups: (tp group, sp group) of this thread
+
+
+@contextlib.contextmanager
+def sharded(tp=None, sp=None):
+    """Run the model's functions on a rank's shard: `tp` and `sp` are the
+    mesh's process groups (None, or a group of one rank, for an axis that
+    is not split). The params are the rank's local tree
+    (parallel/mesh.shard_params, then weights.to_device) and the inputs
+    its rows. Inside the block, on this thread:
+      * tp: every self and cross attention runs on the rank's n_heads / tp
+        heads (`local_heads`; head_dim stays d_model / n_heads); the
+        row-parallel products (the o-projections, fc2) sum their partial
+        products over tp and add the bias once (`linear_row`); the token
+        embedding is a masked lookup of the rank's vocab rows summed over
+        tp, and the logits are the rank's vocab slice gathered over tp
+        and cut to cfg.vocab_size, so every rank takes the same argmax.
+        The encoder's fused tail is off (it fuses the o-projection's sum
+        into one launch): each rank launches the flash kernel on its heads
+        through the tail-off branch. The fused decoder step raises.
+      * sp: the encoder runs its stem whole, keeps the rank's frames,
+        gathers every layer's keys and values over sp (each rank's
+        queries read all 1500 frames), and gathers its output before the
+        decoder, which runs whole on every sp rank.
+    The groups reach the model through this thread-local block (as the
+    fp32 switch `full_fp32` is a block), not through arguments, so that
+    the decode loops run unchanged; each model function reads them once
+    per call (`tp_linears`, `local_heads`), and outside the block the
+    layers call the plain `linear`. Under autograd the collectives carry
+    Megatron's gradients (ops/collectives.py)."""
+    saved = getattr(_shard, "groups", (None, None))
+    _shard.groups = tuple(g if collectives.size(g) > 1 else None
+                          for g in (tp, sp))
+    try:
+        yield
+    finally:
+        _shard.groups = saved
+
+
+def tp_group():
+    """The tp group of the enclosing `sharded` block (None outside, or
+    for one rank)."""
+    return getattr(_shard, "groups", (None, None))[0]
+
+
+def sp_group():
+    """The sp group of the enclosing `sharded` block (None outside, or
+    for one rank)."""
+    return getattr(_shard, "groups", (None, None))[1]
+
+
+def local_heads(cfg: WhisperConfig, tp) -> int:
+    """Attention heads on a rank of tp group `tp`: n_heads / tp."""
+    return cfg.n_heads // collectives.size(tp)
+
+
+def linear_col(x: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """A column-parallel product (q/k/v, fc1, the cross q/k/v): the rank's
+    output columns of a replicated input. Under autograd the input's
+    gradient is summed over tp group `tp`."""
+    return linear(collectives.copy_to(x, tp), p)
+
+
+def linear_row(x: torch.Tensor, p: Params, tp) -> torch.Tensor:
+    """A row-parallel product (the o-projections, fc2): x holds the rank's
+    slice of the input features; the partial products are summed over tp
+    group `tp`, then the bias is added once."""
+    if "w_s" in p:
+        raise NotImplementedError("an int8 linear under tp > 1 (shard the "
+                                  "unquantized tree)")
+    return collectives.reduce_from(x @ p["w"], tp) + p["b"]
+
+
+def tp_linears(tp):
+    """(column-parallel, row-parallel) products for tp group `tp`, read
+    once per model call: the plain `linear` for both when tp is None, so
+    the unsharded layers make no extra call."""
+    if tp is None:
+        return linear, linear
+    return (functools.partial(linear_col, tp=tp),
+            functools.partial(linear_row, tp=tp))
 
 
 def layer_index(tree, i: int):
@@ -205,12 +294,13 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, t, h * dh)
 
 
-def qkv_fused(y: torch.Tensor, attn: Params, n_heads: int
+def qkv_fused(y: torch.Tensor, attn: Params, n_heads: int, col=linear
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One (d -> 3d) projection through the fused `qkv` linear that
     weights.to_device builds, then split (:89): q (B,T,H,Dh), k and v
-    (B,H,T,Dh)."""
-    q, k, v = linear(y, attn["qkv"]).chunk(3, dim=-1)
+    (B,H,T,Dh). `col`: the column-parallel product of `tp_linears` (under
+    tp, the rank's heads)."""
+    q, k, v = col(y, attn["qkv"]).chunk(3, dim=-1)
     return (split_heads(q, n_heads), split_heads_hm(k, n_heads),
             split_heads_hm(v, n_heads))
 
@@ -344,10 +434,13 @@ def _encoder_tail_mode(cfg: WhisperConfig, device: torch.device,
     (:435-451), which are TPU calibration; WHISPER_TPU_FUSED_ENCODER=1
     (JAX: on whatever the size) and "pallas" (JAX: on at every width) give
     the same answer, since the rule takes every width the kernel runs. The
-    CPU answers as an H100 would, so both devices run the same branch."""
+    CPU answers as an H100 would, so both devices run the same branch.
+    Inside a `sharded` block with tp > 1 the answer is 'off': the kernel
+    fuses the o-projection, whose partial products a tp shard must sum
+    first."""
     backend = cfg.attn_backend or default_backend()
     if (os.environ.get("WHISPER_TPU_FUSED_ENCODER") == "0"
-            or backend == "reference"):
+            or backend == "reference" or tp_group() is not None):
         return "off"
     return ("tail" if tail_fits_smem(cfg.d_model, cfg.d_ff, device, mlp_q)
             else "off")
@@ -427,9 +520,16 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
     branch."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
-    x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(dtype)
+    x = encoder_input(enc, cfg, mel)
     quant = dtype != torch.float32
     enc_i8 = quant and _encoder_i8(cfg)
+    tp, sp = tp_group(), sp_group()
+    col, row = tp_linears(tp)
+    heads = local_heads(cfg, tp)
+    if enc_i8 and tp is not None:
+        raise NotImplementedError(
+            "encoder_quant under tp > 1: its row-parallel products quantize "
+            "each row over the full input width, which a tp shard lacks")
     enc_i8k = quant and not enc_i8 and _encoder_i8k(cfg)
     tail = "off" if enc_i8 else _encoder_tail_mode(cfg, x.device, enc_i8k)
     enc_i8k = enc_i8k and tail == "tail"
@@ -441,9 +541,11 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
         lp = layer_index(enc["layers"], i)
         y = layer_norm(x, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
         if enc_i8 or (enc_i8k and _encoder_i8q(cfg)):
-            q, k, v = qkv_fused_i8dyn(y, lp["attn"], cfg.n_heads, dtype)
+            q, k, v = qkv_fused_i8dyn(y, lp["attn"], heads, dtype)
         else:
-            q, k, v = qkv_fused(y, lp["attn"], cfg.n_heads)
+            q, k, v = qkv_fused(y, lp["attn"], heads, col)
+        if sp is not None:
+            k, v = (collectives.gather_partial(t, sp, 2) for t in (k, v))
         if enc_i8:
             a = multi_head_attention(q, k, v, backend=cfg.attn_backend)
             x = x + linear_i8dyn(merge_heads(a), lp["attn"]["o"], dtype)
@@ -470,10 +572,33 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
                     *vecs, eps=cfg.ln_eps)
             continue
         a = multi_head_attention(q, k, v, backend=cfg.attn_backend)
-        x = x + linear(merge_heads(a), lp["attn"]["o"])
+        x = x + row(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(x, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
-        x = x + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
-    return layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"], cfg.ln_eps)
+        x = x + row(gelu(col(y, lp["fc1"])), lp["fc2"])
+    return encoder_output(enc, cfg, x)
+
+
+def encoder_input(enc: Params, cfg: WhisperConfig, mel: torch.Tensor
+                  ) -> torch.Tensor:
+    """The blocks' input: the conv stem plus the positions, (B,
+    n_audio_ctx, d). Under sp the stem runs whole (a sliced stem would
+    need halo frames, and it is cheap) and this rank keeps its frames."""
+    x = conv_stem(enc, cfg, mel) + enc["pos_emb"].to(compute_dtype(cfg))
+    g = sp_group()
+    if g is None:
+        return x
+    n = collectives.size(g)
+    if x.shape[1] % n:
+        raise ValueError(f"sp={n} does not divide {x.shape[1]} encoder "
+                         f"frames")
+    return x.chunk(n, dim=1)[collectives.rank(g)]
+
+
+def encoder_output(enc: Params, cfg: WhisperConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """The final LayerNorm; under sp every rank's frames, gathered."""
+    x = layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"], cfg.ln_eps)
+    return collectives.gather_from(x, sp_group(), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +618,8 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype: torch.dtype,
     (decode._cache_slots). With kv_cache_quant, or self_kv_quant outside
     fp32 (fp32 ignores it), the values are int8 and the per-vector scales
     {"k_s", "v_s"} (L, B, H, s_max, 1) fp32 start at 1e-10."""
-    shape = (cfg.n_text_layers, batch, cfg.n_heads, s_max, cfg.head_dim)
+    shape = (cfg.n_text_layers, batch, local_heads(cfg, tp_group()), s_max,
+             cfg.head_dim)
     if cfg.kv_cache_quant or (cfg.self_kv_quant and dtype != torch.float32):
         def scales():
             return torch.full(shape[:-1] + (1,), 1e-10, dtype=torch.float32,
@@ -516,10 +642,13 @@ def precompute_cross_kv(params: Params, cfg: WhisperConfig,
     quant = cfg.kv_cache_quant or cfg.cross_kv_quant
     out = {name: [] for name in (("k", "k_s", "v", "v_s") if quant
                                  else ("k", "v"))}
+    tp = tp_group()
+    col, _ = tp_linears(tp)
+    heads = local_heads(cfg, tp)
     for i in range(cfg.n_text_layers):
         ca = layer_index(layers["cross_attn"], i)
         for name in ("k", "v"):
-            x = split_heads_hm(linear(enc_out, ca[name]), cfg.n_heads)
+            x = split_heads_hm(col(enc_out, ca[name]), heads)
             if quant:       # layer by layer: fp32 temporaries of one layer
                 x, x_s = quantize_kv(x)
                 out[name + "_s"].append(x_s)
@@ -545,7 +674,19 @@ def _cache_attention(q: torch.Tensor, entry: dict[str, torch.Tensor],
 
 def tok_embed(dec: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Token embedding; an int8 table's rows take their per-row scale
-    after the gather (:187)."""
+    after the gather (:187). Under tp the table holds this rank's vocab
+    rows: the lookup takes the tokens that fall in them, zeros for the
+    rest, and sums over tp (one rank holds each row)."""
+    g = tp_group()
+    if g is not None:
+        if "tok_emb_s" in dec:
+            raise NotImplementedError("an int8 token table under tp > 1")
+        rows = dec["tok_emb"].shape[0]
+        local = tokens - rows * collectives.rank(g)
+        hit = (local >= 0) & (local < rows)
+        e = dec["tok_emb"][local.clamp(0, rows - 1)].to(dtype)
+        return collectives.reduce_from(
+            torch.where(hit.unsqueeze(-1), e, torch.zeros_like(e)), g)
     e = dec["tok_emb"][tokens].to(dtype)
     if "tok_emb_s" in dec:
         return e * dec["tok_emb_s"][tokens].unsqueeze(-1).to(dtype)
@@ -563,14 +704,23 @@ def final_logits(params: Params, cfg: WhisperConfig, h: torch.Tensor
     both operands are upcast: bf16 x bf16 products are exact in fp32, so
     this is the same sum with an fp32 output. In fp32 mode it is the
     HIGHEST-precision product (:772-774). An int8 table is dequantized
-    per row in the compute dtype first (:775-782)."""
+    per row in the compute dtype first (:775-782).
+
+    Under tp each rank multiplies by its vocab rows; the slices are
+    gathered over tp. A table padded past cfg.vocab_size (the tp shards'
+    zero rows) gives exact-zero logits there, cut off here."""
     dec = params["decoder"]
+    g = tp_group()
     h = layer_norm(h, dec["ln"]["g"], dec["ln"]["b"], cfg.ln_eps)
     emb = dec["tok_emb"]
     if "tok_emb_s" in dec:
         dtype = compute_dtype(cfg)
         emb = emb.to(dtype) * dec["tok_emb_s"].unsqueeze(-1).to(dtype)
-    return h.float() @ emb.float().t()
+    logits = collectives.gather_from(
+        collectives.copy_to(h.float(), g) @ emb.float().t(), g, -1)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = logits[..., :cfg.vocab_size]
+    return logits
 
 
 def decoder_forward(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
@@ -619,6 +769,9 @@ def _decoder_layers(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     h = tok_embed(dec, tokens, dtype) + \
         dec["pos_emb"][pos_offset:pos_offset + T].to(dtype)
     kv_len = pos_offset + T
+    tp = tp_group()
+    col, row = tp_linears(tp)
+    heads = local_heads(cfg, tp)
     grad = torch.is_grad_enabled() and tracks_grad(
         *tree_leaves(dec), *cross_kv.values())
     if grad and "k_s" in kv_cache:
@@ -628,7 +781,7 @@ def _decoder_layers(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
     for i in range(cfg.n_text_layers):
         lp = layer_index(dec["layers"], i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
-        q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
+        q, k_new, v_new = qkv_fused(y, lp["attn"], heads, col)
         if grad:
             entry = {name: kv_cache[name][i].slice_scatter(
                 new.to(kv_cache[name].dtype), dim=2, start=pos_offset,
@@ -645,15 +798,15 @@ def _decoder_layers(params: Params, cfg: WhisperConfig, tokens: torch.Tensor,
             entry = layer_index(kv_cache, i)
         a = _cache_attention(q, entry, kv_len, causal=True,
                              q_offset=pos_offset, cfg=cfg, dtype=dtype)
-        h = h + linear(merge_heads(a), lp["attn"]["o"])
+        h = h + row(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
-        q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
+        q = split_heads(col(y, lp["cross_attn"]["q"]), heads)
         a = _cache_attention(q, layer_index(cross_kv, i), None,
                              causal=False, q_offset=0, cfg=cfg, dtype=dtype)
-        h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
+        h = h + row(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
-        h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
+        h = h + row(gelu(col(y, lp["fc1"])), lp["fc2"])
     if grad:
         kv_cache = {name: torch.stack([e[name] for e in entries])
                     for name in ("k", "v")}
@@ -807,6 +960,9 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
                          "serving mode only (fp32 ignores self_kv_quant)")
     D = cfg.head_dim
     h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos].to(dtype)
+    tp = tp_group()
+    col, row = tp_linears(tp)
+    heads = local_heads(cfg, tp)
 
     reference = (cfg.attn_backend or default_backend()) == "reference"
     block_b = None if fp32_mode else _ip_cross_block()
@@ -830,7 +986,7 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
         lp = layer_index(dec["layers"], i)
         cache_l = layer_index(kv_cache, i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
-        q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
+        q, k_new, v_new = qkv_fused(y, lp["attn"], heads, col)
         if q8_self:
             a = _self_attention_extra_q8(
                 q, cache_l["k"], cache_l["k_s"], cache_l["v"], cache_l["v_s"],
@@ -838,14 +994,14 @@ def decoder_step_ip(params: Params, cfg: WhisperConfig, tokens1: torch.Tensor,
         else:
             a = _self_attention_extra(q, cache_l["k"], cache_l["v"], k_new,
                                       v_new, pos, D, dtype)
-        h = h + linear(merge_heads(a), lp["attn"]["o"])
+        h = h + row(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
-        q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
+        q = split_heads(col(y, lp["cross_attn"]["q"]), heads)
         a = att_cross(q, layer_index(cross_kv, i))
-        h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
+        h = h + row(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
-        h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
+        h = h + row(gelu(col(y, lp["fc1"])), lp["fc2"])
         k_news.append(k_new[:, :, 0, :])
         v_news.append(v_new[:, :, 0, :])
     k_rows, v_rows = torch.stack(k_news), torch.stack(v_news)
@@ -896,12 +1052,15 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
                and not cfg.kv_cache_quant and not fp32_mode)
     inplace = "k_s" not in kv_cache or q8_self
     h = tok_embed(dec, tokens1, dtype) + dec["pos_emb"][pos][:, None].to(dtype)
+    tp = tp_group()
+    col, row = tp_linears(tp)
+    heads = local_heads(cfg, tp)
     k_news, v_news = [], []
     for i in range(cfg.n_text_layers):
         lp = layer_index(dec["layers"], i)
         cache_l = layer_index(kv_cache, i)
         y = layer_norm(h, lp["attn_ln"]["g"], lp["attn_ln"]["b"], cfg.ln_eps)
-        q, k_new, v_new = qkv_fused(y, lp["attn"], cfg.n_heads)
+        q, k_new, v_new = qkv_fused(y, lp["attn"], heads, col)
         if not inplace:
             for name, new in (("k", k_new), ("v", v_new)):
                 qv, sc = quantize_kv(new[:, :, 0])
@@ -917,19 +1076,19 @@ def decoder_step_ragged(params: Params, cfg: WhisperConfig,
             a = _self_attention_extra(q, cache_l["k"].to(dtype),
                                       cache_l["v"].to(dtype), k_new, v_new,
                                       pos, D, dtype)
-        h = h + linear(merge_heads(a), lp["attn"]["o"])
+        h = h + row(merge_heads(a), lp["attn"]["o"])
         y = layer_norm(h, lp["cross_ln"]["g"], lp["cross_ln"]["b"],
                        cfg.ln_eps)
-        q = split_heads(linear(y, lp["cross_attn"]["q"]), cfg.n_heads)
+        q = split_heads(col(y, lp["cross_attn"]["q"]), heads)
         cross_l = layer_index(cross_kv, i)
         if "k_s" in cross_l and not fp32_mode:
             a = _att_cross_q8(q, cross_l, D, dtype)
         else:
             a = _cache_attention(q, cross_l, None, causal=False, q_offset=0,
                                  cfg=cfg, dtype=dtype)
-        h = h + linear(merge_heads(a), lp["cross_attn"]["o"])
+        h = h + row(merge_heads(a), lp["cross_attn"]["o"])
         y = layer_norm(h, lp["mlp_ln"]["g"], lp["mlp_ln"]["b"], cfg.ln_eps)
-        h = h + linear(gelu(linear(y, lp["fc1"])), lp["fc2"])
+        h = h + row(gelu(col(y, lp["fc1"])), lp["fc2"])
         if inplace:
             k_news.append(k_new[:, :, 0, :])
             v_news.append(v_new[:, :, 0, :])

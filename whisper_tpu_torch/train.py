@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -97,13 +97,18 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: list, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax.clip_by_global_norm(max_norm), in place: where the global
     norm |g| (optax's global_norm: the root of the sum of every value's
     square) is >= max_norm every gradient becomes (g / |g|) * max_norm,
-    else it is left as it is. No host read. Returns |g| before the clip,
-    a 0-d fp32 tensor."""
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    else it is left as it is. No host read. `norm`: |g| when the caller
+    has it (a sharded step, whose grads are shards of the whole), else
+    computed from `grads`. Returns |g| before the clip, a 0-d fp32
+    tensor."""
+    if norm is None:
+        norm = torch.stack([g.float().square().sum()
+                            for g in grads]).sum().sqrt()
     keep = norm < max_norm
     div = torch.where(keep, torch.ones_like(norm), norm)
     mul = torch.where(keep, torch.ones_like(norm),
@@ -147,16 +152,18 @@ def train_step(params: Params, opt: Optimizer, cfg: WhisperConfig,
     return {"loss": loss.detach(), "grad_norm": norm}
 
 
-def optimizer_step(params: Params, opt: Optimizer) -> torch.Tensor:
+def optimizer_step(params: Params, opt: Optimizer,
+                   norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax's update from the leaves' `.grad`: the clip, then AdamW at
     the scheduled lr; counts the update. A leaf with no gradient takes a
-    zero one (optax decays and moves it). Returns the global norm before
-    the clip."""
+    zero one (optax decays and moves it). `norm`: the global norm when
+    the leaves are shards (parallel/pipeline_parallel.train_step_pp).
+    Returns the global norm before the clip."""
     leaves = list(tree_leaves(params))
     for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    norm = clip_by_global_norm([p.grad for p in leaves], MAX_GRAD_NORM)
+    norm = clip_by_global_norm([p.grad for p in leaves], MAX_GRAD_NORM, norm)
     for group in opt.adamw.param_groups:
         group["lr"] = opt.schedule(opt.count)
     opt.adamw.step()

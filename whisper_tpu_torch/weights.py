@@ -472,3 +472,137 @@ def from_device(params: Params) -> Params:
         layers["attn"] = split(layers["attn"])
         params[part]["layers"] = layers
     return _tree_map(leaf, params)
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints (whisper_tpu/weights.py:276-311 save_orbax/load_orbax)
+# on torch.distributed.checkpoint
+# ---------------------------------------------------------------------------
+
+def _cpu_mesh(mesh):
+    """The mesh's axis groups as a CPU mesh: the checkpoint's DTensors
+    hold host copies of the shards."""
+    from torch.distributed.device_mesh import DeviceMesh
+    names = mesh.mesh_dim_names
+    return DeviceMesh.from_group([mesh.get_group(n) for n in names], "cpu",
+                                 mesh=mesh.mesh, mesh_dim_names=names)
+
+
+def _placements(spec: tuple, names: tuple) -> list:
+    """A spec's DTensor placements over the mesh's axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [next((Shard(d) for d, a in enumerate(spec) if a == n),
+                 Replicate()) for n in names]
+
+
+_VOCAB_KEY = "['decoder']['tok_emb']"
+
+
+def _dcp_layout(cfg: WhisperConfig, mesh):
+    """(global shape by key, spec by key, tp) of cfg's tree on `mesh`: the
+    rules of parallel/mesh.py; the token embedding's spec is left out
+    (save_dcp writes it whole)."""
+    from whisper_tpu_torch.parallel.mesh import (
+        axis_size,
+        param_pspecs,
+        sanitize_pspec,
+    )
+    names = mesh.mesh_dim_names
+    pipeline = "pp" in names and axis_size(mesh, "pp") > 1
+    shapes = dict(_keystr_leaves(param_shapes(cfg)))
+    tmpl = _map_leaves(lambda s: torch.empty(s, device="meta"),
+                       param_shapes(cfg))
+    specs = dict(_keystr_leaves(param_pspecs(tmpl, pipeline=pipeline)))
+    specs = {k: sanitize_pspec(shapes[k], specs[k], mesh) for k in shapes}
+    specs[_VOCAB_KEY] = (None, None)
+    return shapes, specs, axis_size(mesh, "tp") if "tp" in names else 1
+
+
+def save_dcp(path: str, params: Params, cfg: WhisperConfig,
+             mesh=None) -> None:
+    """Checkpoint a params tree with torch.distributed.checkpoint, each
+    rank writing its own shards (save_orbax, :276): the counterpart of
+    orbax's per-shard save, which the port cannot use (orbax imports
+    JAX). With a mesh, call it on every rank with the rank's local tree
+    (mesh.shard_params', before or after to_device, the layers over pp
+    when the mesh has pp > 1): every sharded leaf becomes a DTensor of its shard, so
+    that each shard is written once (a plain tensor would count as
+    replicated, and only rank 0's would be kept). The token embedding is
+    gathered over tp and saved without its pad rows, so that the
+    checkpoint restores at any tp and unsharded. Without a mesh, the whole
+    tree is written from this process. Values are written in fp32 (int8
+    trees are refused)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+    tree = from_device(params)
+    local = dict(_keystr_leaves(tree))
+    if any(t.dtype != torch.float32 for t in local.values()):
+        raise ValueError("save_dcp: int8 trees are not checkpointed")
+    if mesh is None:
+        dcp.save(local, checkpoint_id=path, no_dist=True)
+        return
+    from whisper_tpu_torch.ops import collectives
+    from whisper_tpu_torch.parallel.mesh import axis_group
+    shapes, specs, _ = _dcp_layout(cfg, mesh)
+    cpu_mesh, names = _cpu_mesh(mesh), mesh.mesh_dim_names
+    state = {}
+    for key, t in local.items():
+        if key == _VOCAB_KEY:
+            full = collectives.all_gather(t, axis_group(mesh, "tp"), 0)
+            state[key] = full[:cfg.vocab_size].contiguous()
+        else:
+            state[key] = DTensor.from_local(
+                t, cpu_mesh, _placements(specs[key], names))
+    dcp.save(state, checkpoint_id=path)
+
+
+def load_dcp(path: str, cfg: WhisperConfig, mesh=None) -> Params:
+    """Restore a save_dcp checkpoint (load_orbax, :293), whatever mesh
+    wrote it. Without a mesh: the whole tree, read in this process. With a
+    mesh, on every rank: the rank's local tree as mesh.shard_params gives
+    it (q, k and v apart, the vocab padded under tp), each shard read from
+    the shards that hold its rows."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.tensor import DTensor
+    if mesh is None:
+        state = {k: torch.zeros(s) for k, s in
+                 _keystr_leaves(param_shapes(cfg))}
+        dcp.load(state, checkpoint_id=path, no_dist=True)
+        return _unflatten(state)
+    from whisper_tpu_torch.parallel.mesh import (
+        axis_size,
+        pad_vocab,
+        shard_tensor,
+    )
+    shapes, specs, tp = _dcp_layout(cfg, mesh)
+    cpu_mesh, names = _cpu_mesh(mesh), mesh.mesh_dim_names
+    state = {}
+    for key, shape in shapes.items():
+        if key == _VOCAB_KEY:
+            state[key] = torch.zeros(shape)
+            continue
+        local = list(shape)
+        for d, a in enumerate(specs[key]):
+            if a is not None:
+                local[d] //= axis_size(mesh, a)
+        state[key] = DTensor.from_local(
+            torch.zeros(local), cpu_mesh, _placements(specs[key], names))
+    dcp.load(state, checkpoint_id=path)
+    out = {k: t.to_local().contiguous() for k, t in state.items()
+           if k != _VOCAB_KEY}
+    out[_VOCAB_KEY] = shard_tensor(pad_vocab(state[_VOCAB_KEY], tp),
+                                   ("tp", None) if tp > 1 else (None, None),
+                                   mesh)
+    return _unflatten(out)
+
+
+def _unflatten(flat: dict) -> Params:
+    """A {keystr path: leaf} dict as the nested tree."""
+    tree: dict = {}
+    for key, leaf in flat.items():
+        parts = key[2:-2].split("']['")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
