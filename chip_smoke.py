@@ -84,13 +84,16 @@ both engines on the card, its tokens equal to the CPU's. Then
 fine-tuning: the teacher-forced train step (whisper_tpu_torch.train) in
 fp32 on tiny at full width and depth (6 steps on a fixed batch of 16 x
 224 tokens: the loss falls, each step's forward launches the tail once a
-layer and flash for each decoder read, the backward launches none, every
-gradient finite and every leaf's non-zero but the key biases'), one
-step's gradients on the card against the CPU (B=8), large-v3-turbo at
-full width and depth (2 steps of 4 rows, the first update at lr 1e-4:
-the loss moves, every leaf's gradient non-zero but the key biases'),
-and the two kernels' forward
-and backward (the plain twin's autograd) timed beside SDPA's. Then the
+layer and flash for each decoder read, its backward their backward
+kernels as often, every gradient finite and every leaf's non-zero but
+the key biases'), one step's gradients on the card against the CPU
+(B=8), large-v3-turbo at full width and depth (2 steps of 4 rows, the
+first update at lr 1e-4: the loss moves, every leaf's gradient non-zero
+but the key biases'), each backward kernel against its plain twin on the
+forward kernel's residuals (tiny B=16, a turbo tail layer at B=4;
+bit-equal on a rerun, no (B, H, T, S) tensor's worth of memory), and
+the two kernels' forward and backward timed beside their plain versions,
+their bounds and SDPA's. Then the
 meshes (whisper_tpu_torch.parallel): large-v3-turbo bf16 at full width
 and depth through ShardedPipeline on a world of one NCCL process that
 make_mesh opens itself (B=8, 32 greedy tokens, equal to
@@ -318,6 +321,11 @@ TRAIN_TURBO_BATCH, TRAIN_TURBO_STEPS = 4, 2
 # card against CPU, of each leaf's largest |g|: fp32 sums in other orders
 # over B*T = 1,792 positions, the tail's and flash's forwards on the card
 TRAIN_GRAD_RTOL = 1e-3
+# a backward kernel against its plain twin on the card, each gradient:
+# max |got - want| <= BACKWARD_REL * max |want| + BACKWARD_ABS (fp32 FMAs,
+# ex2.approx and the forward's log-sum-exp against cuBLAS fp32 and exp,
+# summed in other orders)
+BACKWARD_REL, BACKWARD_ABS = 1e-5, 1e-6
 # the mesh phase (parallel/): (a) turbo bf16 through ShardedPipeline on a
 # world of one NCCL process, B=8, 32 greedy tokens; (b) four gloo
 # processes sharing the card: turbo fp32 with tok_emb x 4 (decisive
@@ -4305,8 +4313,8 @@ def train_steps(params, opt, cfg, batch, steps: int, kernels: dict,
                 expect: dict, label: str) -> dict:
     """`steps` train_step calls, each with the launch counts set to 0 just
     before it and read just after it (each must equal `expect`: the
-    forward's, since the backward launches none); the losses, pre-clip
-    norms and host walls."""
+    forward's and the backward's kernels); the losses, pre-clip norms and
+    host walls."""
     import torch
 
     from whisper_tpu_torch.train import train_step
@@ -4358,24 +4366,32 @@ def forward_backward(params, cfg, batch, kernels: dict) -> dict:
             "backward_launches": counted(kernels)}
 
 
-def train_expect(cfg, B: int) -> dict:
-    """The launches of one training forward: the tail once per encoder
-    layer, and flash for each decoder read the 16 MiB gate sends to it
-    (the causal self read over the 448 slots of JAX's cache, the cross
-    read over 1500 positions)."""
+def train_expect(cfg, B: int, backward: bool = False) -> dict:
+    """The launches of one training forward (or with `backward`, of its
+    backward): the tail once per encoder layer, and flash for each decoder
+    read the 16 MiB gate sends to it (the causal self read over the 448
+    slots of JAX's cache, the cross read over 1500 positions); the
+    backward launches each one's backward kernel as often."""
     n_flash = cfg.n_text_layers * sum(
         routed(cfg, B, TRAIN_T, S, "flash")
         for S in (cfg.n_text_ctx, cfg.n_audio_ctx))
-    return {"encoder_block_tail": cfg.n_audio_layers,
-            **({"flash_attention": n_flash} if n_flash else {})}
+    tail, flash = (("encoder_block_tail_backward", "flash_attention_backward")
+                   if backward else ("encoder_block_tail", "flash_attention"))
+    return {tail: cfg.n_audio_layers, **({flash: n_flash} if n_flash else {})}
+
+
+def train_step_expect(cfg, B: int) -> dict:
+    """The launches of one train step: its forward's and its backward's."""
+    return {**train_expect(cfg, B), **train_expect(cfg, B, backward=True)}
 
 
 def train_tiny(card: str, kernels: dict) -> dict:
     """Tiny at full width and depth in fp32: 6 train_step calls on one
     fixed batch of 16 (lr 1e-3, warmup 1, total 50), weights drawn on the
     card. The loss falls below 0.95 of the first; then one forward and
-    backward apart (the backward launches no kernel; every gradient
-    finite, every leaf's non-zero but the key biases')."""
+    backward apart (the backward launches the tail's backward kernel once
+    a layer and flash's once a decoder read; every gradient finite, every
+    leaf's non-zero but the key biases')."""
     import torch
 
     from whisper_tpu_torch import get_config
@@ -4385,8 +4401,12 @@ def train_tiny(card: str, kernels: dict) -> dict:
     params = trainable(card_init_params(cfg, 0), "cuda")
     opt = make_optimizer(params, lr=1e-3, warmup_steps=1, total_steps=50)
     batch = train_batch(cfg, TRAIN_TINY_BATCH, seed=0)
-    expect = train_expect(cfg, TRAIN_TINY_BATCH)
-    require(expect == {"encoder_block_tail": 4, "flash_attention": 8},
+    forward = train_expect(cfg, TRAIN_TINY_BATCH)
+    backward = train_expect(cfg, TRAIN_TINY_BATCH, backward=True)
+    expect = {**forward, **backward}
+    require(expect == {"encoder_block_tail": 4, "flash_attention": 8,
+                       "encoder_block_tail_backward": 4,
+                       "flash_attention_backward": 8},
             f"train_tiny: the gate gives {expect}")
     torch.cuda.reset_peak_memory_stats()
     run = train_steps(params, opt, cfg, batch, TRAIN_TINY_STEPS, kernels,
@@ -4404,9 +4424,9 @@ def train_tiny(card: str, kernels: dict) -> dict:
     emit(line)
     require(run["losses"][-1] < 0.95 * run["losses"][0],
             f"train_tiny: loss {run['losses'][0]} -> {run['losses'][-1]}")
-    require(split["forward_launches"] == expect,
+    require(split["forward_launches"] == forward,
             f"train_tiny: forward launches {split['forward_launches']}")
-    require(split["backward_launches"] == {},
+    require(split["backward_launches"] == backward,
             f"train_tiny: the backward launched {split['backward_launches']}")
     del params, opt
     torch.cuda.empty_cache()
@@ -4427,7 +4447,7 @@ def train_grad_parity(card: str, kernels: dict) -> None:
     cfg = get_config("tiny")
     tree = card_init_params(cfg, 1)
     batch = train_batch(cfg, TRAIN_PARITY_BATCH, seed=1)
-    expect = train_expect(cfg, TRAIN_PARITY_BATCH)
+    expect = train_step_expect(cfg, TRAIN_PARITY_BATCH)
     out, seen = {}, None
     for dev in ("cuda", "cpu"):
         params = trainable(_tree_map(lambda t: t.to(dev), tree), dev)
@@ -4470,9 +4490,9 @@ def train_turbo(card: str, kernels: dict) -> dict:
     """large-v3-turbo at full width and depth in fp32: 2 train_step calls
     on a batch of 4 (weights drawn on the card; lr 1e-4 with no warmup, so
     the first update moves the weights): finite losses, a second loss
-    unlike the first, 32 tail and 8 flash launches a step, every gradient
-    finite and every leaf's non-zero but the key biases', the peak memory
-    and the step walls."""
+    unlike the first, 32 tail and 8 flash launches a step and as many of
+    their backward kernels, every gradient finite and every leaf's
+    non-zero but the key biases', the peak memory and the step walls."""
     import torch
 
     from whisper_tpu_torch import get_config
@@ -4483,8 +4503,10 @@ def train_turbo(card: str, kernels: dict) -> dict:
     params = trainable(card_init_params(cfg, 0), "cuda")
     opt = make_optimizer(params, lr=1e-4, warmup_steps=0, total_steps=50)
     batch = train_batch(cfg, TRAIN_TURBO_BATCH, seed=2)
-    expect = train_expect(cfg, TRAIN_TURBO_BATCH)
-    require(expect == {"encoder_block_tail": 32, "flash_attention": 8},
+    expect = train_step_expect(cfg, TRAIN_TURBO_BATCH)
+    require(expect == {"encoder_block_tail": 32, "flash_attention": 8,
+                       "encoder_block_tail_backward": 32,
+                       "flash_attention_backward": 8},
             f"train_turbo: the gate gives {expect}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4507,67 +4529,128 @@ def train_turbo(card: str, kernels: dict) -> dict:
     return run["launches_per_step"]
 
 
+def train_kernel_cases(cfg, B: int, tail_only: bool = False):
+    """The train path's two kernels at cfg's training shapes for a batch
+    of B, fp32, made on the card from a seed: (name, forward wrapper, its
+    plain version, the inputs, keyword arguments, the backward wrapper,
+    its plain twin), for the causal self read over the 448 slots of JAX's
+    cache (kv_len 224), the cross read over 1500 positions, and one
+    encoder layer's tail."""
+    import torch
+
+    from whisper_tpu_torch.ops import encoder_layer as el
+    from whisper_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cpu").manual_seed(5)
+    H, D = cfg.n_heads, cfg.head_dim
+    cases = []
+    if not tail_only:
+        for name, s_len, kv_len, causal in (
+                ("flash_self", cfg.n_text_ctx, TRAIN_T, True),
+                ("flash_cross", cfg.n_audio_ctx, cfg.n_audio_ctx, False)):
+            args = [torch.randn(*shape, generator=g).cuda() for shape in
+                    ((B, TRAIN_T, H, D), (B, H, s_len, D), (B, H, s_len, D))]
+            cases.append((name, fa.flash_attention, fa.flash_attention_plain,
+                          args, dict(kv_len=kv_len, causal=causal),
+                          fa.flash_attention_backward,
+                          fa.flash_attention_backward_plain))
+    cases.append(("encoder_block_tail", el.encoder_block_tail,
+                  el.encoder_block_tail_plain,
+                  tail_inputs(cfg, B, torch.float32, seed=6), {},
+                  el.encoder_block_tail_backward,
+                  el.encoder_block_tail_backward_plain))
+    return cases
+
+
+def backward_inputs(name: str, args, kw: dict, seed: int):
+    """The backward's inputs as the train path gives them: the forward
+    kernel's residuals (flash: its output and lse; the tail: its attention
+    rows and lse, under autograd's forward) and a seeded output gradient."""
+    import torch
+
+    from whisper_tpu_torch.ops import encoder_layer as el
+    from whisper_tpu_torch.ops import flash_attention as fa
+    if name == "encoder_block_tail":
+        out, residuals = el._forward_for_grad(*args, eps=1e-5)
+    else:
+        S = args[1].shape[2]
+        out, residuals = fa._forward_for_grad(
+            *args, kv_len=kw.get("kv_len", S), q_offset=0,
+            causal=kw.get("causal", False))
+    d_out = torch.randn(out.shape, generator=torch.Generator(
+        device="cpu").manual_seed(seed)).cuda()
+    return [*args, *residuals, d_out]
+
+
+def train_backward_checks(card: str) -> dict:
+    """Each backward kernel against its plain twin on the card, on the
+    forward kernel's own residuals: tiny's training shapes (B=16: the
+    causal self read, the cross read, one tail layer) and one turbo tail
+    layer (B=4). Every gradient within BACKWARD_REL of its largest |g| +
+    BACKWARD_ABS, a second run bit-equal, and no (B, H, T, S) fp32 tensor's
+    worth of memory allocated by the kernel's call. Returns the largest
+    error of each backward kernel."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    worst = {"flash_attention_backward": 0.0,
+             "encoder_block_tail_backward": 0.0}
+    runs = [(get_config("tiny"), TRAIN_TINY_BATCH, False),
+            (get_config(TURBO), TRAIN_TURBO_BATCH, True)]
+    for cfg, B, tail_only in runs:
+        for name, _, _, args, kw, bwd, bwd_plain in train_kernel_cases(
+                cfg, B, tail_only):
+            bargs = backward_inputs(name, args, kw, seed=7)
+            T, S = args[0].shape[1], args[1].shape[2]
+            scores_bytes = 4 * B * cfg.n_heads * T * S
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = bwd(*bargs, **kw)
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            again = bwd(*bargs, **kw)
+            equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
+            want = bwd_plain(*bargs, **kw)
+            errs, shares = [], []
+            for a, b in zip(got, want):
+                err = float((a.double() - b.double()).abs().max())
+                top = float(b.double().abs().max())
+                errs.append(err)
+                shares.append(err / (BACKWARD_REL * top + BACKWARD_ABS))
+            key = bwd.__name__
+            worst[key] = max(worst[key], max(errs))
+            emit({"phase": "train_backward_check", "kernel": name,
+                  "model": cfg.name, "batch": B, "max_abs_err": errs,
+                  "err_over_tol": max(shares), "bit_equal_rerun": equal,
+                  "alloc_mb": extra / 1e6,
+                  "scores_tensor_mb": scores_bytes / 1e6, "card": card})
+            require(max(shares) <= 1.0,
+                    f"{name} backward ({cfg.name} B={B}) off its twin: "
+                    f"{max(shares)} of the tolerance")
+            require(equal, f"{name} backward ({cfg.name}): rerun differs")
+            require(extra < scores_bytes,
+                    f"{name} backward ({cfg.name}): {extra} bytes "
+                    f"allocated, a (B, H, T, S) tensor is {scores_bytes}")
+            del got, want, bargs, args
+            torch.cuda.empty_cache()
+    return worst
+
+
 def train_kernel_time(card: str) -> dict:
     """The train path's two kernels at tiny's training shapes (B=16, fp32):
-    each forward (the kernel) and backward (the plain twin's autograd),
-    timed by CUDA events beside the forward's bound, the plain forward and,
-    for flash, SDPA's forward and backward on the same inputs (SDPA is
-    timed here only; the port never calls it)."""
+    each forward kernel against its plain version, and each backward
+    kernel against its plain twin, in turns by CUDA events, beside the
+    bounds and, for flash, SDPA's forward and backward on the same inputs
+    (SDPA is timed here only; the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
     from whisper_tpu_torch import get_config
-    from whisper_tpu_torch.ops.encoder_layer import (
-        encoder_block_tail,
-        encoder_block_tail_plain,
-    )
-    from whisper_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_plain,
-    )
     cfg = get_config("tiny")
     B, H, D = TRAIN_TINY_BATCH, cfg.n_heads, cfg.head_dim
-    g = torch.Generator(device="cpu").manual_seed(5)
+    T, Ta, d, ff = TRAIN_T, cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
     lines = {}
-
-    def timed(name, kernel, plain, args, flops, sdpa=None, read=None):
-        args = [a.requires_grad_() for a in args]
-        grad_out = torch.randn(kernel(*args).shape, generator=g).cuda()
-        # each input read once, at the extent the function reads (`read`
-        # elements; all of every input unless given), the output written
-        # once
-        full = sum(a.numel() for a in args)
-        read = full if read is None else read
-        moved = 4 * (read + grad_out.numel())
-        with torch.no_grad():
-            fwd, plain_ms = alternate_ms(lambda: plain(*args),
-                                         lambda: kernel(*args), iters=10)
-        out = kernel(*args)
-        bwd = cuda_ms(lambda: torch.autograd.grad(out, args, grad_out,
-                                                  retain_graph=True), 5)
-        line = {"ms": fwd, "plain_ms": plain_ms, "backward_ms": bwd,
-                **bound(moved, flops, "float32"),
-                # the backward's five products (q.k, p.v, and dv, dp, dq
-                # and dk: 2.5 times the forward's), its inputs (at their
-                # read extent) and the output gradient read, the input
-                # gradients written whole
-                "backward_bound_ms": bound(moved + 4 * full, 2.5 * flops,
-                                           "float32")["bound_ms"]}
-        if sdpa is not None:
-            with torch.no_grad():
-                line["library_ms"] = cuda_ms(lambda: sdpa(*args), 10)
-            lout = sdpa(*args)
-            line["library_backward_ms"] = cuda_ms(
-                lambda: torch.autograd.grad(lout, args, grad_out,
-                                            retain_graph=True), 5)
-        else:
-            line["library_ms"] = None
-        lines[name] = line
-        emit({"phase": "train_kernel_time", "kernel": name, "batch": B,
-              "dtype": "float32", **line, "card": card})
-
-    def r(*shape):
-        return torch.randn(*shape, generator=g).cuda()
 
     def sdpa_of(kv_len, causal):
         def f(q, k, v):
@@ -4576,44 +4659,81 @@ def train_kernel_time(card: str) -> dict:
                 is_causal=causal).transpose(1, 2)
         return f
 
-    T, S = TRAIN_T, cfg.n_text_ctx
-    for name, s_len, kv_len, causal in (
-            ("flash_self", S, T, True),
-            ("flash_cross", cfg.n_audio_ctx, cfg.n_audio_ctx, False)):
-        # causal: the kernel reads T (T + 1) / 2 key rows, 4 flops a
-        # query-key-dim product pair (q.k and p.v); k and v are read
-        # only below kv_len
-        pairs = T * (T + 1) // 2 if causal else T * kv_len
-        timed(name,
-              functools.partial(flash_attention, kv_len=kv_len,
-                                causal=causal),
-              functools.partial(flash_attention_plain, kv_len=kv_len,
-                                causal=causal),
-              [r(B, T, H, D), r(B, H, s_len, D), r(B, H, s_len, D)],
-              4 * B * H * pairs * D, sdpa_of(kv_len, causal),
-              read=B * T * H * D + 2 * B * H * min(s_len, kv_len) * D)
-    tail = tail_inputs(cfg, B, torch.float32, seed=6)
-    Ta, d, ff = cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
-    timed("encoder_block_tail", encoder_block_tail,
-          encoder_block_tail_plain, tail,
-          4 * B * H * Ta * Ta * D + 2 * B * Ta * (d * d + 2 * d * ff))
+    for name, fwd, fwd_plain, args, kw, bwd, bwd_plain in \
+            train_kernel_cases(cfg, B):
+        n_in = sum(a.numel() for a in args)
+        if name == "encoder_block_tail":
+            n_out, n_res = B * Ta * d, B * Ta * d + B * H * Ta
+            read = n_in
+            flops = 4 * B * H * Ta * Ta * D + 2 * B * Ta * (d * d + 2 * d * ff)
+            # the attention's backward is 2.5 times its forward (five
+            # products); the o-projection's and the MLP's twice theirs
+            bwd_flops = (2.5 * 4 * B * H * Ta * Ta * D
+                         + 2 * 2 * B * Ta * (d * d + 2 * d * ff))
+        else:
+            s_len, kv_len, causal = args[1].shape[2], kw["kv_len"], \
+                kw["causal"]
+            n_out, n_res = B * T * H * D, B * T * H * D + B * H * T
+            # k and v are read only below kv_len; under causal the kernel
+            # reads T (T + 1) / 2 key rows a head, 4 flops a query-key-dim
+            # pair (q.k and p.v)
+            read = B * T * H * D + 2 * B * H * min(s_len, kv_len) * D
+            pairs = T * (T + 1) // 2 if causal else T * kv_len
+            flops = 4 * B * H * pairs * D
+            bwd_flops = 2.5 * flops           # s, dp, dv, dk, dq
+        with torch.no_grad():
+            ms, plain_ms = alternate_ms(lambda: fwd_plain(*args, **kw),
+                                        lambda: fwd(*args, **kw), iters=10)
+        bargs = backward_inputs(name, args, kw, seed=8)
+        bwd_ms, bwd_plain_ms = alternate_ms(
+            lambda: bwd_plain(*bargs, **kw), lambda: bwd(*bargs, **kw),
+            iters=5)
+        # the backward reads the inputs (at their read extent), the
+        # residuals and the output's gradient once, and writes every
+        # input's gradient whole
+        b_bound = bound(4 * (read + n_res + n_out + n_in), bwd_flops,
+                        "float32")
+        line = {"ms": ms, "plain_ms": plain_ms,
+                **bound(4 * (read + n_out), flops, "float32"),
+                "backward_ms": bwd_ms, "backward_plain_ms": bwd_plain_ms,
+                "backward_bound_ms": b_bound["bound_ms"],
+                "backward_bound_by": b_bound["bound_by"],
+                "library_ms": None, "library_backward_ms": None}
+        if name != "encoder_block_tail":
+            sdpa = sdpa_of(kv_len, causal)
+            with torch.no_grad():
+                line["library_ms"] = cuda_ms(lambda: sdpa(*args), 10)
+            largs = [a.detach().requires_grad_() for a in args]
+            lout = sdpa(*largs)
+            grad_out = bargs[-1]
+            line["library_backward_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(lout, largs, grad_out,
+                                            retain_graph=True), 5)
+            del lout, largs
+        lines[name] = line
+        emit({"phase": "train_kernel_time", "kernel": name, "batch": B,
+              "dtype": "float32", **line, "card": card})
+        del bargs, args
     torch.cuda.empty_cache()
     return lines
 
 
 def train_group(card: str) -> dict:
     """The train phases (--only train): train_tiny, train_grad_parity,
-    train_turbo and the two kernels' forward and backward times. Returns
-    the launches a step of tiny and of turbo."""
+    train_turbo, the backward kernels against their plain twins, and the
+    two kernels' forward and backward times. Returns the launches a step
+    of tiny and of turbo, the times and the backward kernels' errors."""
     kernels = kernel_wrappers()
     t0 = time.perf_counter()
     tiny = train_tiny(card, kernels)
     train_grad_parity(card, kernels)
     turbo = train_turbo(card, kernels)
+    errs = train_backward_checks(card)
     times = train_kernel_time(card)
     emit({"phase": "train_group", "seconds": time.perf_counter() - t0,
           "card": card})
-    return {"tiny": tiny, "turbo": turbo, "times": times}
+    return {"tiny": tiny, "turbo": turbo, "times": times,
+            "backward_errs": errs}
 
 
 def mesh_eot_options(cfg):
@@ -5083,7 +5203,7 @@ def mesh_rank(vocab: str, audio, mel, prompt, pp_tokens, tmp: str) -> dict:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name (each counts its launches
-    in its `launches` attribute)."""
+    in its `launches` attribute), the two backward kernels' included."""
     from whisper_tpu_torch.ops.cache_append import (
         cache_append_rows,
         cache_append_rows_ragged,
@@ -5098,10 +5218,16 @@ def kernel_wrappers() -> dict:
     from whisper_tpu_torch.ops.decoder_step import fused_decoder_step
     from whisper_tpu_torch.ops.encoder_layer import (
         encoder_block_tail,
+        encoder_block_tail_backward,
         encoder_block_tail_q8,
     )
-    from whisper_tpu_torch.ops.flash_attention import flash_attention
+    from whisper_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+    )
     return {"encoder_block_tail": encoder_block_tail,
+            "encoder_block_tail_backward": encoder_block_tail_backward,
+            "flash_attention_backward": flash_attention_backward,
             "encoder_block_tail_q8": encoder_block_tail_q8,
             "cache_append_rows": cache_append_rows,
             "flash_attention": flash_attention,
@@ -5827,9 +5953,33 @@ def main() -> int:
          "max_abs_err": decode_err["decode_attention"],
          **decode["decode_attention"]},
     ]
+    # the backward kernels of the train path, timed at tiny B=16 (the
+    # flash row at the cross read, its causal self read beside); launches
+    # from tiny's train step (turbo's beside); no TPU kernel to replace:
+    # the JAX package differentiates its XLA graph
+    times = train["times"]
+    for name, source, t in (
+            ("flash_attention_backward", "flash_attention_bwd.cu",
+             times["flash_cross"]),
+            ("encoder_block_tail_backward", "encoder_tail_bwd.cu",
+             times["encoder_block_tail"])):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"whisper_tpu_torch/csrc/{source}",
+            "replaces": "none (whisper_tpu/train.py:65 jax.value_and_grad "
+                        "differentiates XLA's graph)",
+            "launches": train["tiny"][name],
+            "max_abs_err": train["backward_errs"][name],
+            "ms": t["backward_ms"], "plain_ms": t["backward_plain_ms"],
+            "bound_ms": t["backward_bound_ms"],
+            "bound_by": t["backward_bound_by"],
+            "library_ms": t["library_backward_ms"]})
+    rows[-2]["self_read"] = {
+        k: times["flash_self"][k] for k in (
+            "backward_ms", "backward_plain_ms", "backward_bound_ms",
+            "library_backward_ms")}
     for row in rows:
-        # launches a train step (the backward launches none), tiny's and
-        # turbo's
+        # launches a train step (forward and backward), tiny's and turbo's
         row["train_launches"] = train["tiny"].get(row["name"], 0)
         row["train_turbo_launches"] = train["turbo"].get(row["name"], 0)
         # each mesh check's launches, by rank

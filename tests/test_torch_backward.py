@@ -1,0 +1,330 @@
+"""The backward kernels' plain twins (whisper_tpu_torch/ops:
+`flash_attention_backward_plain`, `encoder_block_tail_backward_plain`)
+against the JAX package on the CPU, fp32: each held to `jax.vjp` of the
+JAX function (flash against whisper_tpu/ops/attention.py mha_reference at
+Precision.HIGHEST; the tail against the JAX encoder's tail-off block,
+whisper_tpu/models/whisper.py:572-578: mha_reference, linear, layer_norm,
+gelu) and to `torch.autograd.grad` of the port's forward plain version,
+on inputs made from a seed with numpy. Also the wrappers' CPU route and
+`kernel_with_backward` with the twins as the backward.
+
+Tolerance, every gradient: max |got - want| <= 1e-5 * max |want| + 1e-6
+(fp32 sums over up to 1,500 keys and 256 MLP columns in another order;
+the twins write the gradient out in closed form, JAX and autograd chain
+the ops)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisper_tpu.models import whisper as jm
+from whisper_tpu.ops.attention import mha_reference as jax_mha
+from whisper_tpu_torch.ops import grad
+from whisper_tpu_torch.ops.encoder_layer import (
+    encoder_block_tail_backward,
+    encoder_block_tail_backward_plain,
+    encoder_block_tail_plain,
+    gelu_grad,
+)
+from whisper_tpu_torch.ops.flash_attention import (
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_plain,
+)
+
+torch.set_num_threads(2)
+
+REL, ABS = 1e-5, 1e-6
+
+
+def _close(got, want, what):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    bound = REL * float(np.abs(want).max()) + ABS
+    assert err <= bound, (what, err, bound)
+
+
+# (B, T, S, H, kv_len, q_offset, causal)
+FLASH_CASES = {
+    # tiny's training self read: 224 tokens over JAX's 448 cache slots
+    "self_train": (2, 224, 448, 3, 224, 0, True),
+    # the training cross read over the 1,500 encoder positions
+    "cross": (1, 224, 1500, 2, None, 0, False),
+    # kv_len < S, not causal
+    "kv_len": (2, 40, 300, 3, 170, 0, False),
+    # q_offset > 0 over several 64-query tiles, kv_len inside the diagonal
+    "q_offset": (2, 150, 400, 2, 300, 100, True),
+}
+
+
+def _flash_numpy(B, T, S, H, seed, D=64):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*s).astype(np.float32) for s in
+            ((B, T, H, D), (B, H, S, D), (B, H, S, D), (B, T, H, D))]
+
+
+def _flash_twin(q, k, v, g, kw):
+    """The twin on the port's own forward (out and lse from the plain
+    version)."""
+    t = [torch.from_numpy(x) for x in (q, k, v, g)]
+    out, lse = flash_attention_plain(*t[:3], **kw, return_lse=True)
+    return flash_attention_backward_plain(*t[:3], out, lse, t[3], **kw)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_backward_plain_matches_jax_vjp(case):
+    B, T, S, H, kv_len, q_offset, causal = FLASH_CASES[case]
+    q, k, v, g = _flash_numpy(B, T, S, H, seed=11)
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    got = _flash_twin(q, k, v, g, kw)
+    f = functools.partial(jax_mha, kv_len=kv_len, causal=causal,
+                          q_offset=q_offset,
+                          precision=jax.lax.Precision.HIGHEST)
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), np.asarray(b), f"{case} {name}")
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_backward_plain_matches_autograd(case):
+    B, T, S, H, kv_len, q_offset, causal = FLASH_CASES[case]
+    q, k, v, g = _flash_numpy(B, T, S, H, seed=12)
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    got = _flash_twin(q, k, v, g, kw)
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(*t, **kw), t,
+                               torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), b.numpy(), f"{case} {name}")
+
+
+def test_flash_backward_plain_lse_matches_jax():
+    """The forward's log-sum-exp, which the backward reads, against
+    JAX's logsumexp of the masked scores."""
+    B, T, S, H, kv_len, q_offset, causal = FLASH_CASES["q_offset"]
+    q, k, _, _ = _flash_numpy(B, T, S, H, seed=13)
+    t = [torch.from_numpy(x) for x in (q, k, k)]
+    _, lse = flash_attention_plain(*t, kv_len, q_offset, causal=causal,
+                                   return_lse=True)
+    s = jnp.einsum("bthd,bhsd->bhts", jnp.asarray(q) * 0.125, jnp.asarray(k),
+                   precision=jax.lax.Precision.HIGHEST)
+    key = jnp.arange(S)
+    mask = (key[None, :] < kv_len) & (key[None, :]
+                                      <= q_offset + jnp.arange(T)[:, None])
+    want = jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)
+    _close(lse.numpy(), np.asarray(want), "lse")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_plain_kv_len_0_is_zero(causal):
+    """No visible key: every gradient 0, as the port's forward returns
+    zeros there (JAX's mha_reference averages every key instead, its mask
+    being a finite minimum, so it is no reference here)."""
+    q, k, v, g = _flash_numpy(2, 5, 16, 2, seed=14)
+    kw = dict(kv_len=0, q_offset=3, causal=causal)
+    got = _flash_twin(q, k, v, g, kw)
+    for a, x in zip(got, (q, k, v)):
+        assert a.shape == x.shape and float(a.abs().max()) == 0.0
+    # the forward is the constant 0 there: autograd records no dependence
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    assert not flash_attention_plain(*t, **kw).requires_grad
+
+
+def test_flash_backward_zeroes_keys_past_the_last_visible():
+    B, T, S, H, kv_len, q_offset, causal = FLASH_CASES["q_offset"]
+    q, k, v, g = _flash_numpy(B, T, S, H, seed=15)
+    _, dk, dv = _flash_twin(q, k, v, g, dict(kv_len=kv_len,
+                                             q_offset=q_offset,
+                                             causal=causal))
+    end = min(kv_len, q_offset + T)
+    assert float(dk[:, :, end:].abs().max()) == 0.0
+    assert float(dv[:, :, end:].abs().max()) == 0.0
+    assert float(dk[:, :, :end].abs().max()) > 0.0
+
+
+def test_flash_backward_wrapper_on_cpu_is_the_twin():
+    """CPU tensors take the plain twin; no launch is counted."""
+    q, k, v, g = _flash_numpy(2, 30, 50, 2, seed=16)
+    t = [torch.from_numpy(x) for x in (q, k, v, g)]
+    out, lse = flash_attention_plain(*t[:3], 40, 5, causal=True,
+                                     return_lse=True)
+    n = flash_attention_backward.launches
+    got = flash_attention_backward(*t[:3], out, lse, t[3], 40, 5,
+                                   causal=True)
+    want = flash_attention_backward_plain(*t[:3], out, lse, t[3], 40, 5,
+                                          causal=True)
+    assert flash_attention_backward.launches == n
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the tail
+# ---------------------------------------------------------------------------
+
+# nano width: d 64 = 2 heads of 32, ff 256; T = S = 30 positions
+TAIL_SHAPE = dict(B=2, T=30, H=2, D=32, ff=256)
+TAIL_NAMES = ("q", "k", "v", "h_in", "wo", "fc1_w", "fc2_w", "o_b", "fc1_b",
+              "fc2_b", "ln2_g", "ln2_b")
+
+
+def _tail_numpy(seed):
+    rng = np.random.RandomState(seed)
+    B, T, H, D, ff = (TAIL_SHAPE[n] for n in ("B", "T", "H", "D", "ff"))
+    d = H * D
+    shapes = ((B, T, H, D), (B, H, T, D), (B, H, T, D), (B, T, d), (d, d),
+              (d, ff), (ff, d), (d,), (ff,), (d,), (d,), (d,))
+    scales = (1, 1, 1, 1, d ** -0.5, d ** -0.5, ff ** -0.5, 0.1, 0.1, 0.1,
+              0.2, 0.1)
+    xs = [(rng.randn(*s) * c).astype(np.float32)
+          for s, c in zip(shapes, scales)]
+    xs[10] += 1.0                                   # ln2_g around 1
+    return xs, (rng.randn(B, T, d)).astype(np.float32)
+
+
+def _jax_tail(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b, g, b):
+    """The JAX encoder's tail-off block after the QKV projection
+    (whisper_tpu/models/whisper.py:572-578)."""
+    B, T, H, D = q.shape
+    a = jax_mha(q, k, v).reshape(B, T, H * D)
+    h = h_in + jm.linear(a, {"w": wo, "b": o_b})
+    y = jm.layer_norm(h, g, b, 1e-5)
+    y = jm.linear(jm.gelu(jm.linear(y, {"w": fc1_w, "b": fc1_b})),
+                  {"w": fc2_w, "b": fc2_b})
+    return h + y
+
+
+def _tail_twin(xs, g):
+    t = [torch.from_numpy(x) for x in xs]
+    B, T, H, D = t[0].shape
+    attn, lse = flash_attention_plain(*t[:3], return_lse=True)
+    return encoder_block_tail_backward_plain(
+        *t, attn.reshape(B, T, H * D), lse, torch.from_numpy(g))
+
+
+def test_tail_backward_plain_matches_jax_vjp():
+    xs, g = _tail_numpy(seed=21)
+    got = _tail_twin(xs, g)
+    _, vjp = jax.vjp(_jax_tail, *[jnp.asarray(x) for x in xs])
+    want = vjp(jnp.asarray(g))
+    assert len(got) == len(want) == 12
+    for name, a, b in zip(TAIL_NAMES, got, want):
+        _close(a.numpy(), np.asarray(b), name)
+
+
+def test_tail_backward_plain_matches_autograd():
+    xs, g = _tail_numpy(seed=22)
+    got = _tail_twin(xs, g)
+    t = [torch.from_numpy(x).requires_grad_() for x in xs]
+    want = torch.autograd.grad(encoder_block_tail_plain(*t), t,
+                               torch.from_numpy(g))
+    for name, a, b in zip(TAIL_NAMES, got, want):
+        _close(a.numpy(), b.numpy(), name)
+
+
+def test_tail_backward_wrapper_on_cpu_is_the_twin():
+    xs, g = _tail_numpy(seed=23)
+    t = [torch.from_numpy(x) for x in xs]
+    B, T, H, D = t[0].shape
+    attn, lse = flash_attention_plain(*t[:3], return_lse=True)
+    args = (*t, attn.reshape(B, T, H * D), lse, torch.from_numpy(g))
+    n = encoder_block_tail_backward.launches
+    got = encoder_block_tail_backward(*args)
+    assert encoder_block_tail_backward.launches == n
+    for a, b in zip(got, encoder_block_tail_backward_plain(*args)):
+        assert torch.equal(a, b)
+
+
+def test_gelu_grad_is_the_gelu_derivative():
+    x = torch.linspace(-8, 8, 2001, dtype=torch.float64).requires_grad_()
+    want, = torch.autograd.grad(torch.nn.functional.gelu(x).sum(), x)
+    torch.testing.assert_close(gelu_grad(x.detach()), want, atol=1e-12,
+                               rtol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# kernel_with_backward with the twins
+# ---------------------------------------------------------------------------
+
+def test_kernel_with_backward_carries_the_flash_twin():
+    """The route the card takes, with the twins in the kernels' places:
+    the value is the forward's, each gradient the backward twin's, within
+    the tolerance of autograd's."""
+    B, T, S, H, kv_len, q_offset, causal = FLASH_CASES["q_offset"]
+    q, k, v, g = _flash_numpy(B, T, S, H, seed=31)
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    t = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+
+    def forward(*x):
+        out, lse = flash_attention_plain(*x, **kw, return_lse=True)
+        return out, (out, lse)
+
+    def backward(grad_out, tensors, residuals):
+        return flash_attention_backward_plain(*tensors, *residuals, grad_out,
+                                              **kw)
+
+    out = grad.kernel_with_backward(forward, backward, *t)
+    want_out = flash_attention_plain(*t, **kw)
+    assert torch.equal(out.detach(), want_out.detach())
+    got = torch.autograd.grad(out, t, torch.from_numpy(g))
+    want = torch.autograd.grad(want_out, t, torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(a.numpy(), b.numpy(), name)
+
+
+def test_kernel_with_backward_carries_the_tail_twin():
+    xs, g = _tail_numpy(seed=32)
+    t = [torch.from_numpy(x).requires_grad_() for x in xs]
+    B, T, H, D = t[0].shape
+
+    def forward(*x):
+        attn, lse = flash_attention_plain(*x[:3], return_lse=True)
+        return encoder_block_tail_plain(*x), (attn.reshape(B, T, H * D),
+                                              lse)
+
+    def backward(grad_out, tensors, residuals):
+        return encoder_block_tail_backward_plain(*tensors, *residuals,
+                                                 grad_out)
+
+    out = grad.kernel_with_backward(forward, backward, *t)
+    got = torch.autograd.grad(out, t, torch.from_numpy(g))
+    want = torch.autograd.grad(encoder_block_tail_plain(*t), t,
+                               torch.from_numpy(g))
+    for name, a, b in zip(TAIL_NAMES, got, want):
+        _close(a.numpy(), b.numpy(), name)
+
+
+def test_kernel_with_backward_drops_gradients_not_needed():
+    """Inputs that do not require grad get none, whatever the backward
+    returns for them; the backward runs once."""
+    q, k, v, g = _flash_numpy(1, 6, 9, 2, seed=33)
+    q, v = (torch.from_numpy(x).requires_grad_() for x in (q, v))
+    k = torch.from_numpy(k)
+    calls = []
+
+    def forward(*x):
+        out, lse = flash_attention_plain(*x, return_lse=True)
+        return out, (out, lse)
+
+    def backward(grad_out, tensors, residuals):
+        calls.append(len(tensors))
+        return flash_attention_backward_plain(*tensors, *residuals, grad_out)
+
+    out = grad.kernel_with_backward(forward, backward, q, k, v)
+    out.backward(torch.from_numpy(g))
+    assert calls == [3]
+    assert k.grad is None and q.grad is not None and v.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_refuse_bf16_grad_names_the_wrapper(dtype):
+    with pytest.raises(RuntimeError, match="flash_attention: no backward"):
+        grad.refuse_bf16_grad("flash_attention", dtype)
+    grad.refuse_bf16_grad("flash_attention", torch.float32)

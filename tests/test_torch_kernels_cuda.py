@@ -33,8 +33,11 @@ from whisper_tpu_torch.ops.decoder_step import (
     fused_decoder_step_plain,
     vec_offsets,
 )
+from whisper_tpu_torch.ops import flash_attention as flash_mod
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
+    encoder_block_tail_backward,
+    encoder_block_tail_backward_plain,
     encoder_block_tail_plain,
     encoder_block_tail_q8,
     encoder_block_tail_q8_plain,
@@ -43,6 +46,8 @@ from whisper_tpu_torch.ops.encoder_layer import (
 )
 from whisper_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
     flash_attention_plain,
 )
 
@@ -594,9 +599,9 @@ def test_flash_kernel_refuses_misaligned_fp32_views(dev):
     lib = _build.load_library()
     out = torch.empty((2, 8, 2, 64), device=dev)
     err = lib.wt_flash_attention(
-        q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), 2, 8, 8,
-        2, 64, 8, 0, 0, *q.stride()[:3], *k.stride()[:3], *k.stride()[:3],
-        0, torch.cuda.current_stream(dev).cuda_stream)
+        q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), None, 2, 8,
+        8, 2, 64, 8, 0, 0, *q.stride()[:3], *k.stride()[:3],
+        *k.stride()[:3], 0, torch.cuda.current_stream(dev).cuda_stream)
     assert err != 0
 
 
@@ -1240,12 +1245,24 @@ def test_fused_greedy_on_the_card_matches_the_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# under autograd (the train step): the tail and flash carry the plain
-# version's gradient; every other wrapper raises
+# under autograd (the train step): the tail and flash carry their backward
+# kernels' gradients; every other wrapper raises
 # ---------------------------------------------------------------------------
 
 def _grads_of(fn, args, w):
     return torch.autograd.grad((fn(*args) * w).sum(), args)
+
+
+def _close_grad(got, want, what=""):
+    """The backward kernels' tolerance against their plain twins (and the
+    plain forward's autograd): max |got - want| <= 1e-5 * max |want| +
+    1e-6. fp32 FMAs, ex2.approx and the forward's log-sum-exp against
+    cuBLAS fp32 and exp, summed in other orders over up to 1,500 keys and
+    24,000 rows."""
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    err = float((got.double() - want.double()).abs().max())
+    bound = 1e-5 * float(want.double().abs().max()) + 1e-6
+    assert err <= bound, (what, err, bound)
 
 
 @pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal", [
@@ -1257,23 +1274,25 @@ def _grads_of(fn, args, w):
 def test_flash_gradient_is_the_plain_gradient(dev, B, T, S, H, kv_len,
                                               q_offset, causal):
     """The flash wrapper under autograd: the value is the kernel's (one
-    launch; the backward launches none), each input's gradient the plain
-    version's autograd gradient at the same inputs."""
+    launch), the backward one launch of flash_attention_backward, each
+    input's gradient the plain version's autograd gradient at the same
+    inputs within `_close_grad`."""
     args = [a.requires_grad_() for a in
             _flash_args(B, T, S, H, torch.float32, dev, seed=3)]
     kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
     w = torch.randn(B, T, H, 64, generator=torch.Generator().manual_seed(4)
                     ).to(dev)
-    n = flash_attention.launches
+    n, nb = flash_attention.launches, flash_attention_backward.launches
     out = flash_attention(*args, **kw)
     assert out.requires_grad and flash_attention.launches == n + 1
     with torch.no_grad():
         assert torch.equal(out, flash_attention(*args, **kw))
     got = torch.autograd.grad((out * w).sum(), args)
     assert flash_attention.launches == n + 2
+    assert flash_attention_backward.launches == nb + 1
     want = _grads_of(lambda *a: flash_attention_plain(*a, **kw), args, w)
-    for g, x in zip(got, want):
-        torch.testing.assert_close(g, x, atol=1e-6, rtol=1e-6)
+    for name, g, x in zip("qkv", got, want):
+        _close_grad(g, x, name)
 
 
 def test_flash_gradient_through_fused_qkv_views(dev):
@@ -1288,27 +1307,201 @@ def test_flash_gradient_through_fused_qkv_views(dev):
                               qkv)[0]
     want = torch.autograd.grad(
         flash_attention_plain(q, k, v, causal=True).sum(), qkv)[0]
-    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    _close_grad(got, want)
 
 
 @pytest.mark.parametrize("B,T,H,ff", [(2, 100, 6, 1536), (1, 1500, 6, 1536),
                                       (1, 64, 20, 5120)])
 def test_tail_gradient_is_the_plain_gradient(dev, B, T, H, ff):
     """encoder_block_tail under autograd: the kernel's value (one launch),
-    every one of the twelve inputs' gradients the plain version's."""
+    the backward one launch of encoder_block_tail_backward (its attention
+    counted there, not on flash_attention_backward), every one of the
+    twelve inputs' gradients the plain version's within `_close_grad`."""
     args = [a.requires_grad_() for a in
             _tail_args(B, T, H, ff, torch.float32, dev, seed=7,
                        fan_in=H > 8)]
     w = torch.randn(B, T, H * 64, generator=torch.Generator().manual_seed(8)
                     ).to(dev)
-    n = encoder_block_tail.launches
+    n, nb = encoder_block_tail.launches, encoder_block_tail_backward.launches
+    nf = flash_attention_backward.launches
     out = encoder_block_tail(*args)
     assert out.requires_grad and encoder_block_tail.launches == n + 1
     got = torch.autograd.grad((out * w).sum(), args)
     assert encoder_block_tail.launches == n + 1
+    assert encoder_block_tail_backward.launches == nb + 1
+    assert flash_attention_backward.launches == nf
     want = _grads_of(encoder_block_tail_plain, args, w)
-    for g, x in zip(got, want):
-        torch.testing.assert_close(g, x, atol=1e-5, rtol=1e-5)
+    for i, (g, x) in enumerate(zip(got, want)):
+        _close_grad(g, x, i)
+
+
+# (B, T, S, H, kv_len, q_offset, causal): the training reads, then the
+# tile edges (T and S off the 32- and 64-row tiles, the causal diagonal
+# inside a tile, a q_offset), and kv_len 0
+_FLASH_BWD_CASES = [
+    (16, 224, 448, 6, 224, 0, True),    # tiny B=16's training self read
+    (16, 224, 1500, 6, None, 0, False),  # tiny B=16's training cross read
+    (4, 224, 1500, 20, None, 0, False),  # turbo B=4's cross read
+    (2, 127, 129, 3, None, 0, False),
+    (2, 129, 127, 3, None, 0, False),
+    (1, 100, 300, 2, 250, 37, True),
+    (2, 65, 200, 2, 97, 0, True),
+    (1, 130, 200, 2, 150, 20, True),
+    (2, 5, 64, 2, 0, 0, False),
+]
+
+
+def _flash_bwd_inputs(B, T, S, H, kv_len, q_offset, causal, dev, seed):
+    """q, k, v, the plain forward's out and lse, and d_out."""
+    q, k, v = _flash_args(B, T, S, H, torch.float32, dev, seed=seed)
+    out, lse = flash_attention_plain(q, k, v, kv_len, q_offset,
+                                     causal=causal, return_lse=True)
+    g = torch.randn(B, T, H, 64,
+                    generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    return q, k, v, out.contiguous(), lse, g
+
+
+@pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal", _FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_its_twin(dev, B, T, S, H, kv_len,
+                                                q_offset, causal):
+    """The backward kernel against flash_attention_backward_plain on the
+    same out and lse: one launch, `_close_grad`, zero rows past the last
+    visible key, and nothing allocated on the way but the three gradients
+    and delta (B, H, T) (1 MiB of the allocator's rounding allowed): no
+    (B, H, T, S) tensor."""
+    args = _flash_bwd_inputs(B, T, S, H, kv_len, q_offset, causal, dev, 40)
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    n = flash_attention_backward.launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = flash_attention_backward(*args, **kw)
+    torch.cuda.synchronize()
+    grads_bytes = sum(4 * a.numel() for a in got)
+    assert (torch.cuda.max_memory_allocated() - base
+            <= grads_bytes + 4 * B * H * T + (1 << 20))
+    assert flash_attention_backward.launches == n + 1
+    want = flash_attention_backward_plain(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_grad(a, b, name)
+    end = min(S if kv_len is None else kv_len,
+              q_offset + T if causal else S)
+    for a in got[1:]:
+        assert not a[:, :, end:].any()
+
+
+def test_flash_backward_reads_fused_qkv_views(dev):
+    """q, k and v strided views of one fused projection, as the decoder
+    hands them over."""
+    g = torch.Generator().manual_seed(41)
+    qkv = torch.randn(2, 100, 3 * 128, generator=g).to(dev)
+    q = qkv[..., :128].reshape(2, 100, 2, 64)
+    k = qkv[..., 128:256].reshape(2, 100, 2, 64).permute(0, 2, 1, 3)
+    v = qkv[..., 256:].reshape(2, 100, 2, 64).permute(0, 2, 1, 3)
+    out, lse = flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    d_out = torch.randn(2, 100, 2, 64, generator=g).to(dev)
+    got = flash_attention_backward(q, k, v, out, lse, d_out, causal=True)
+    want = flash_attention_backward_plain(q, k, v, out, lse, d_out,
+                                          causal=True)
+    for a, b in zip(got, want):
+        _close_grad(a, b)
+
+
+@pytest.mark.parametrize("case", [0, 1, 5])
+def test_flash_backward_kernel_is_deterministic(dev, case):
+    args = _flash_bwd_inputs(*_FLASH_BWD_CASES[case], dev, 42)
+    B, T, S, H, kv_len, q_offset, causal = _FLASH_BWD_CASES[case]
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    first = flash_attention_backward(*args, **kw)
+    for a, b in zip(first, flash_attention_backward(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,T,S,H,kv_len,q_offset,causal",
+                         _FLASH_BWD_CASES[:2] + _FLASH_BWD_CASES[5:6])
+def test_flash_forward_kernel_writes_the_lse(dev, B, T, S, H, kv_len,
+                                             q_offset, causal):
+    """Under autograd the fp32 forward kernel also writes each row's
+    log-sum-exp: against the plain version's, and the output unchanged."""
+    q, k, v = _flash_args(B, T, S, H, torch.float32, dev, seed=43)
+    kw = dict(kv_len=S if kv_len is None else kv_len, q_offset=q_offset,
+              causal=causal)
+    out, (_, lse) = flash_mod._forward_for_grad(q, k, v, **kw)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, **kw))
+    _, want = flash_attention_plain(q, k, v, **kw, return_lse=True)
+    torch.testing.assert_close(lse, want, atol=2e-5, rtol=1e-5)
+
+
+# (B, T, H, ff): tiny's width at its training length and a ragged T, and
+# turbo's (d 1280, ff 5120)
+_TAIL_BWD_CASES = [(2, 1500, 6, 1536), (3, 100, 6, 1536),
+                   (1, 1500, 20, 5120), (2, 130, 20, 5120)]
+
+
+def _tail_bwd_inputs(B, T, H, ff, dev, seed):
+    """The tail's operands, the plain forward's attention rows and lse,
+    and d_out."""
+    args = _tail_args(B, T, H, ff, torch.float32, dev, seed=seed,
+                      fan_in=H > 8)
+    attn, lse = flash_attention_plain(*args[:3], return_lse=True)
+    g = torch.randn(B, T, H * 64,
+                    generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    return (*args, attn.reshape(B, T, H * 64).contiguous(), lse, g)
+
+
+@pytest.mark.parametrize("B,T,H,ff", _TAIL_BWD_CASES)
+def test_tail_backward_kernel_matches_its_twin(dev, B, T, H, ff):
+    """The tail's backward against encoder_block_tail_backward_plain on
+    the same attention rows and lse: one launch, all twelve gradients
+    within `_close_grad`, and at T = 1500 (where one (B, H, T, T) fp32
+    tensor outweighs the backward's row buffers) less allocated on the
+    way than one such tensor."""
+    args = _tail_bwd_inputs(B, T, H, ff, dev, 44)
+    n = encoder_block_tail_backward.launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = encoder_block_tail_backward(*args)
+    torch.cuda.synchronize()
+    if T == 1500:
+        assert torch.cuda.max_memory_allocated() - base < 4 * B * H * T * T
+    assert encoder_block_tail_backward.launches == n + 1
+    want = encoder_block_tail_backward_plain(*args)
+    assert len(got) == len(want) == 12
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close_grad(a, b, i)
+
+
+@pytest.mark.parametrize("H,ff", [(6, 1536), (20, 5120)])
+def test_tail_backward_kernel_is_deterministic(dev, H, ff):
+    args = _tail_bwd_inputs(1, 1500, H, ff, dev, 45)
+    first = encoder_block_tail_backward(*args)
+    for a, b in zip(first, encoder_block_tail_backward(*args)):
+        assert torch.equal(a, b)
+
+
+def test_bf16_gradient_through_the_two_wrappers_raises(dev):
+    """The backward kernels are fp32 only: under autograd a bf16 call to
+    either wrapper raises, naming it, before it launches."""
+    bf = torch.bfloat16
+    q, k, v = (a.requires_grad_() for a in
+               _flash_args(1, 8, 8, 2, bf, dev, seed=46))
+    n = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention: no backward"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == n
+    args = _tail_args(1, 64, 2, 256, bf, dev, seed=47)
+    args[3].requires_grad_()
+    n = encoder_block_tail.launches
+    with pytest.raises(RuntimeError,
+                       match="encoder_block_tail: no backward"):
+        encoder_block_tail(*args)
+    assert encoder_block_tail.launches == n
+    with torch.no_grad():
+        flash_attention(q, k, v)
+        encoder_block_tail(*args)
+    torch.cuda.synchronize()
 
 
 def _no_backward_calls(dev):

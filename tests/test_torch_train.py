@@ -437,12 +437,26 @@ def _tail_inputs(seed=0):
             for s in shapes]
 
 
+def _autograd_backward(plain):
+    """A backward for kernel_with_backward: `plain`'s autograd gradient at
+    the saved inputs (every input, needed or not)."""
+    def backward(grad_out, tensors, residuals):
+        assert residuals == ()
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in tensors]
+            return torch.autograd.grad(plain(*inputs), inputs, grad_out,
+                                       allow_unused=True,
+                                       materialize_grads=True)
+    return backward
+
+
 @pytest.mark.parametrize("case", [
     "flash", "flash_causal", "flash_kv_len", "flash_offset", "tail"])
 def test_plain_backward_is_the_plain_gradient(case):
-    """kernel_with_plain_backward: the value is the kernel's (here the
-    plain version plus a constant, to tell them apart), the gradient of
-    every input is the plain version's autograd gradient."""
+    """kernel_with_backward: the value is the forward's (here the plain
+    version plus a constant, to tell them apart), the gradient of every
+    input is the backward's (here the plain version's autograd
+    gradient)."""
     if case == "tail":
         inputs = _tail_inputs()
         plain = functools.partial(encoder_block_tail_plain, eps=1e-5)
@@ -455,8 +469,8 @@ def test_plain_backward_is_the_plain_gradient(case):
         plain = functools.partial(flash_mod.flash_attention_plain, **kw)
     w = torch.randn(plain(*inputs).shape, generator=torch.Generator()
                     .manual_seed(9))
-    got = grad.kernel_with_plain_backward(
-        lambda *t: plain(*t) + 0.5, plain, *inputs)
+    got = grad.kernel_with_backward(
+        lambda *t: (plain(*t) + 0.5, ()), _autograd_backward(plain), *inputs)
     want = plain(*inputs)
     assert torch.equal(got.detach(), want.detach() + 0.5)
     g_got = torch.autograd.grad((got * w).sum(), inputs, allow_unused=True)
@@ -469,9 +483,9 @@ def test_plain_backward_is_the_plain_gradient(case):
 def test_plain_backward_skips_inputs_without_grad():
     q, k, v = _flash_inputs(4, 6)
     k = k.detach()
-    out = grad.kernel_with_plain_backward(
-        flash_mod.flash_attention_plain, flash_mod.flash_attention_plain,
-        q, k, v)
+    plain = flash_mod.flash_attention_plain
+    out = grad.kernel_with_backward(lambda *t: (plain(*t), ()),
+                                    _autograd_backward(plain), q, k, v)
     gq, gv = torch.autograd.grad(out.sum(), (q, v))
     wq, wv = torch.autograd.grad(
         flash_mod.flash_attention_plain(q, k, v).sum(), (q, v))

@@ -87,13 +87,14 @@
 
 // csrc/flash_attention.cu
 extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int T_len, int S, int H,
-                                  int D, int kv_len, int q_offset, int causal,
-                                  long long sq_b, long long sq_t,
-                                  long long sq_h, long long sk_b,
-                                  long long sk_h, long long sk_s,
-                                  long long sv_b, long long sv_h,
-                                  long long sv_s, int is_bf16, void* stream);
+                                  void* out, void* lse, int B, int T_len,
+                                  int S, int H, int D, int kv_len,
+                                  int q_offset, int causal, long long sq_b,
+                                  long long sq_t, long long sq_h,
+                                  long long sk_b, long long sk_h,
+                                  long long sk_s, long long sv_b,
+                                  long long sv_h, long long sv_s,
+                                  int is_bf16, void* stream);
 
 namespace {
 
@@ -754,14 +755,15 @@ cudaError_t fits_smem(bool tc) {
 }
 
 // The attention launch: flash over the whole key range into the (B, T,
-// H*D) scratch, from contiguous q (B,T,H,D) and k/v (B,H,S,D).
+// H*D) scratch, from contiguous q (B,T,H,D) and k/v (B,H,S,D); lse, when
+// not null (fp32 under autograd), receives the rows' log-sum-exp.
 cudaError_t attention(const void* q, const void* k, const void* v,
-                      void* attn, int B, int T_len, int S, int H, int is_bf16,
-                      cudaStream_t stream) {
+                      void* attn, void* lse, int B, int T_len, int S, int H,
+                      int is_bf16, cudaStream_t stream) {
   const long long D = HEAD_DIM;
   return (cudaError_t)wt_flash_attention(
-      q, k, v, attn, B, T_len, S, H, HEAD_DIM, S, 0, 0, T_len * H * D, H * D,
-      D, H * S * D, S * D, D, H * S * D, S * D, D, is_bf16, stream);
+      q, k, v, attn, lse, B, T_len, S, H, HEAD_DIM, S, 0, 0, T_len * H * D,
+      H * D, D, H * S * D, S * D, D, H * S * D, S * D, D, is_bf16, stream);
 }
 
 bool takes(int D, int d, int H, int ff, int B, int T_len, int S) {
@@ -796,14 +798,16 @@ extern "C" long long wt_encoder_tail_workspace(int rows, int d, int ff,
 // wo (d,d), fc1 (d,ff), fc2 (ff,d), all contiguous and 16-byte aligned in
 // one element type; misc fp32 [o_b | fc1_b | fc2_b | ln2_g | ln2_b]; work:
 // wt_encoder_tail_workspace's bytes, 16-byte aligned. D must be 64, d =
-// 64 H <= 1280, ff a multiple of 64.
+// 64 H <= 1280, ff a multiple of 64. lse: null, or (fp32, under autograd)
+// a (B, H, T) fp32 buffer for the attention rows' log-sum-exp, which the
+// backward (encoder_tail_bwd.cu) reads with the attention rows `attn`.
 extern "C" int wt_encoder_tail(const void* q, const void* k, const void* v,
                                const void* h_in, const void* wo,
                                const void* fc1, const void* fc2,
-                               const void* misc, void* attn, void* work,
-                               void* out, int B, int T_len, int S, int H,
-                               int D, int d, int ff, float eps, int is_bf16,
-                               void* stream) {
+                               const void* misc, void* attn, void* lse,
+                               void* work, void* out, int B, int T_len,
+                               int S, int H, int D, int d, int ff, float eps,
+                               int is_bf16, void* stream) {
   if (!takes(D, d, H, ff, B, T_len, S) ||
       !aligned16({q, k, v, h_in, wo, fc1, fc2, attn, work, out}))
     return (int)cudaErrorInvalidValue;
@@ -812,7 +816,7 @@ extern "C" int wt_encoder_tail(const void* q, const void* k, const void* v,
   cudaError_t e = fits_smem(is_bf16 != 0);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = attention(q, k, v, attn, B, T_len, S, H, is_bf16, s);
+  e = attention(q, k, v, attn, lse, B, T_len, S, H, is_bf16, s);
   if (e != cudaSuccess) return (int)e;
   const float* m = static_cast<const float*>(misc);
   const int rows = B * T_len;
@@ -842,7 +846,7 @@ extern "C" int wt_encoder_tail_q8(const void* q, const void* k, const void* v,
   cudaError_t e = fits_smem(true);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = attention(q, k, v, attn, B, T_len, S, H, 1, s);
+  e = attention(q, k, v, attn, nullptr, B, T_len, S, H, 1, s);
   if (e != cudaSuccess) return (int)e;
   return (int)mlp_q8(attn, h_in, wo, fc1, fc2,
                      static_cast<const float*>(misc), out, work, B * T_len,

@@ -96,7 +96,9 @@
 // contiguous: the encoder hands over the views of its fused QKV projection
 // without a copy. The output is (B, T, H, D), contiguous. The encoder tail
 // (encoder_tail.cu) runs its attention through this entry point too, with
-// kv_len = S and no causal mask.
+// kv_len = S and no causal mask. Under autograd the fp32 kernel also
+// writes each row's log-sum-exp, lse = m D^-0.5 + ln l, for the backward
+// (flash_attention_bwd.cu); inference passes no buffer for it.
 
 #include <float.h>
 #include <math.h>
@@ -194,11 +196,11 @@ __device__ __forceinline__ float lane4(const float4& x, int e) {
 template <bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int t_len,
-             int n_heads, int kv_len, int q_offset, long long sq_b,
-             long long sq_t, long long sq_h, long long sk_b, long long sk_h,
-             long long sk_s, long long sv_b, long long sv_h,
-             long long sv_s) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int t_len, int n_heads, int kv_len,
+             int q_offset, long long sq_b, long long sq_t, long long sq_h,
+             long long sk_b, long long sk_h, long long sk_s, long long sv_b,
+             long long sv_h, long long sv_s) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                         // [BQ][LD], raw q
   float* Ps = Qs + Q_FLOATS;                // [BQ][PLD], p of this tile
@@ -358,7 +360,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_wait<0>();    // no copy outlives the block
 
   // the row sums over the row's 8 lanes, then out = o / max(l, 1e-30);
-  // out is (B, T, H, D) contiguous
+  // out is (B, T, H, D) contiguous. Under autograd, the row's
+  // log-sum-exp in natural units, lse = m D^-0.5 + ln l, (B, H, T): the
+  // backward recomputes p = 2^(s c - lse log2 e) from it
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float li = l[i];
@@ -367,6 +371,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       li += __shfl_xor_sync(0xffffffffu, li, off);
     const int t = q0 + row0 + 4 * i;
     if (t >= t_len) continue;
+    if (lse != nullptr && c == 0)
+      lse[((size_t)b * n_heads + h) * t_len + t] = m[i] * 0.125f + logf(li);
     const float d = fmaxf(li, 1e-30f);
     float* row = out + (((size_t)b * t_len + t) * n_heads + h) * HEAD_DIM +
                  4 * c;
@@ -400,16 +406,16 @@ cudaError_t opt_in() {
 
 template <bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int T_len, int H, int kv_len, int q_offset,
-                   const long long* st, cudaStream_t stream) {
+                   void* lse, int B, int T_len, int H, int kv_len,
+                   int q_offset, const long long* st, cudaStream_t stream) {
   const cudaError_t e = opt_in();
   if (e != cudaSuccess) return e;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
   flash_kernel<CAUSAL><<<grid, THREADS, SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), T_len, H,
-      kv_len, q_offset, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8]);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), T_len, H, kv_len, q_offset, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
 }
 
@@ -682,17 +688,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // 0 <= kv_len <= S and q_offset >= 0. The four pointers are 16-byte
 // aligned and the nine strides multiples of 16 bytes' worth of elements
 // (bf16: 8, fp32: 4): both kernels copy K/V (and fp32 q) 16 bytes at a
-// time.
+// time. lse, when not null, is a contiguous (B, H, T) fp32 buffer that
+// receives each row's log-sum-exp (fp32 only: the train path's dtype;
+// inference passes null and writes nothing more).
 extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int T_len, int S, int H,
-                                  int D, int kv_len, int q_offset, int causal,
-                                  long long sq_b, long long sq_t,
-                                  long long sq_h, long long sk_b,
-                                  long long sk_h, long long sk_s,
-                                  long long sv_b, long long sv_h,
-                                  long long sv_s, int is_bf16, void* stream) {
+                                  void* out, void* lse, int B, int T_len,
+                                  int S, int H, int D, int kv_len,
+                                  int q_offset, int causal, long long sq_b,
+                                  long long sq_t, long long sq_h,
+                                  long long sk_b, long long sk_h,
+                                  long long sk_s, long long sv_b,
+                                  long long sv_h, long long sv_s,
+                                  int is_bf16, void* stream) {
   if (D != HEAD_DIM || B < 1 || T_len < 1 || H < 1 || B > 65535 ||
-      H > 65535 || kv_len < 0 || kv_len > S || q_offset < 0)
+      H > 65535 || kv_len < 0 || kv_len > S || q_offset < 0 ||
+      (lse != nullptr && is_bf16))
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {sq_b, sq_t, sq_h, sk_b, sk_h, sk_s,
                            sv_b, sv_h, sv_s};
@@ -700,10 +710,10 @@ extern "C" int wt_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return (int)(causal ? simt::launch<true>(q, k, v, out, B, T_len, H,
-                                             kv_len, q_offset, st, s)
-                        : simt::launch<false>(q, k, v, out, B, T_len, H,
-                                              kv_len, q_offset, st, s));
+    return (int)(causal ? simt::launch<true>(q, k, v, out, lse, B, T_len,
+                                             H, kv_len, q_offset, st, s)
+                        : simt::launch<false>(q, k, v, out, lse, B, T_len,
+                                              H, kv_len, q_offset, st, s));
   return (int)(causal ? tc::launch<true>(q, k, v, out, B, T_len, H, kv_len,
                                          q_offset, st, s)
                       : tc::launch<false>(q, k, v, out, B, T_len, H, kv_len,

@@ -116,7 +116,7 @@ def _load_library() -> ctypes.CDLL:
     lib.wt_encoder_tail.argtypes = [
         P, P, P, P,            # q, k, v, h_in
         P, P, P, P,            # wo, fc1, fc2, misc (fp32)
-        P, P, P,               # attn scratch, workspace, out
+        P, P, P, P,            # attn scratch, lse (or None), workspace, out
         I, I, I, I, I, I, I,   # B, T, S, H, D, d, ff
         F, I, P]               # eps, is_bf16, stream
     lib.wt_encoder_tail.restype = I
@@ -146,13 +146,28 @@ def _load_library() -> ctypes.CDLL:
     lib.wt_cache_append_ragged.restype = I
     L = ctypes.c_longlong
     lib.wt_flash_attention.argtypes = [
-        P, P, P, P,            # q, k, v, out
+        P, P, P, P, P,         # q, k, v, out, lse (fp32, or None)
         I, I, I, I, I,         # B, T, S, H, D
         I, I, I,               # kv_len, q_offset, causal
         L, L, L,               # q strides (b, t, h)
         L, L, L, L, L, L,      # k strides (b, h, s), v strides (b, h, s)
         I, P]                  # is_bf16, stream
     lib.wt_flash_attention.restype = I
+    lib.wt_flash_attention_backward.argtypes = [
+        P, P, P, P, P, P,      # q, k, v, out, lse, d_out
+        P, P, P, P,            # dq, dk, dv, delta scratch
+        I, I, I, I, I,         # B, T, S, H, D
+        I, I, I,               # kv_len, q_offset, causal
+        L, L, L,               # q strides (b, t, h)
+        L, L, L, L, L, L,      # k strides (b, h, s), v strides (b, h, s)
+        P]                     # stream
+    lib.wt_flash_attention_backward.restype = I
+    # stage, its buffers (an array of pointers), rows, d, ff, eps, stream
+    lib.wt_encoder_tail_bwd.argtypes = [
+        I, ctypes.POINTER(ctypes.c_void_p), I, I, I, F, P]
+    lib.wt_encoder_tail_bwd.restype = I
+    lib.wt_encoder_tail_bwd_partials.argtypes = [I, I]       # d, ff
+    lib.wt_encoder_tail_bwd_partials.restype = L
     lib.wt_decode_attention_q8.argtypes = [
         P, P, P, P, P, P,      # q, k, k_scale, v, v_scale, out
         I, I, I, I, I,         # B, H, S, D, kv_len

@@ -26,20 +26,30 @@ the wrapper packs them for the kernel. The int8 form takes its matrices
 K-major, (out, in): the tensor cores read 8-bit operands K-major only,
 so the encoder transposes them once per call, where it quantizes them.
 
-Under autograd (the train step) the unquantized kernel's output carries
-the plain version's gradient (ops/grad.py); the int8 form has no
-backward and raises there.
+Under autograd on the card (the train step, fp32) the unquantized
+kernel's forward also keeps its attention rows and their log-sum-exp, and
+its backward is `encoder_block_tail_backward` (csrc/encoder_tail_bwd.cu
+plus the flash backward kernel; ops/grad.py), whose plain twin is
+`encoder_block_tail_backward_plain`. On the CPU autograd differentiates
+`encoder_block_tail_plain`. The int8 form has no backward and raises
+under autograd.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops.flash_attention import (
+    flash_attention_backward_plain,
+    launch_backward as flash_launch_backward,
+)
 from whisper_tpu_torch.ops.grad import (
-    kernel_with_plain_backward,
+    kernel_with_backward,
+    refuse_bf16_grad,
     refuse_grad,
     tracks_grad,
 )
@@ -165,6 +175,64 @@ def encoder_block_tail_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
     return (h2 + t2).to(dtype)
 
 
+def _grads_like(grads, tensors) -> tuple:
+    """Each gradient in its input's dtype (a bias may be stored in another
+    float dtype than the fp32 the backward computes in)."""
+    return tuple(g.to(t.dtype) for g, t in zip(grads, tensors))
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the exact-erf GELU x Phi(x): Phi(x) + x phi(x)."""
+    cdf = 0.5 * (1.0 + torch.erf(x * 0.5 ** 0.5))
+    return cdf + x * torch.exp(-0.5 * x * x) * (2.0 * torch.pi) ** -0.5
+
+
+def encoder_block_tail_backward_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b,
+                                      fc1_b, fc2_b, ln2_g, ln2_b, attn, lse,
+                                      d_out, eps: float = 1e-5) -> tuple:
+    """The backward kernel's math in torch ops, fp32: the gradients of
+    `encoder_block_tail_plain` (fp32) at its twelve inputs, given the
+    forward's attention rows `attn` (B, T, d) and their log-sum-exp `lse`
+    (B, H, T), and the output's gradient d_out (B, T, d). h2 and the MLP's
+    pre-activation are recomputed, as the kernel does:
+        h2 = h_in + (a Wo + bo);  xhat = (h2 - mean) rstd;  y = xhat g + b
+        u = y W1 + b1;  dt1 = G W2^T;  du = dt1 gelu'(u)
+        dy = du W1^T;  dh2 = G + rstd (dy g - mean(dy g)
+                                       - xhat mean(dy g xhat))
+        da = dh2 Wo^T, then flash_attention_backward_plain
+    Returns (dq, dk, dv, dh_in, dWo, dW1, dW2, dbo, db1, db2, dg, db) in the
+    inputs' dtypes."""
+    B, T, H, D = q.shape
+    d = h_in.shape[-1]
+    rows = B * T
+    f32 = [t.float() for t in (wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b, ln2_g,
+                               ln2_b)]
+    wo_, w1, w2, bo, b1, b2, g, b = f32
+    a = attn.float().reshape(rows, d)
+    G = d_out.float().reshape(rows, d)
+    h2 = h_in.float().reshape(rows, d) + (a @ wo_ + bo)
+    mean = h2.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((h2 - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (h2 - mean) * rstd
+    y = xhat * g + b
+    u = y @ w1 + b1
+    t1 = torch.nn.functional.gelu(u)                          # exact erf
+    du = (G @ w2.t()) * gelu_grad(u)
+    dy = du @ w1.t()
+    dxhat = dy * g
+    dh2 = G + rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                      - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    da = (dh2 @ wo_.t()).reshape(B, T, H, D)
+    dq, dk, dv = flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), attn.float().reshape(B, T, H, D),
+        lse, da)
+    grads = (dq, dk, dv, dh2.reshape(B, T, d), a.t() @ dh2, y.t() @ du,
+             t1.t() @ G, dh2.sum(dim=0), du.sum(dim=0), G.sum(dim=0),
+             (dy * xhat).sum(dim=0), dy.sum(dim=0))
+    return _grads_like(grads, (q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
+                              fc2_b, ln2_g, ln2_b))
+
+
 def encoder_block_tail_q8_plain(q, k, v, h_in, wo_t, fc1_t, fc2_t, o_b,
                                 fc1_b, fc2_b, ln2_g, ln2_b, fc1_s, fc2_s,
                                 wo_s=None, eps: float = 1e-5
@@ -278,8 +346,8 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
       (B, T, d) in h_in's dtype. CPU tensors take the plain version; CUDA
       tensors launch the kernel (head_dim 64, contiguous, a width that
-      `tail_fits_smem`) or raise. Under autograd the kernel's output
-      carries the plain version's gradient.
+      `tail_fits_smem`) or raise. Under autograd on the card (fp32 only;
+      bf16 raises) the backward is `encoder_block_tail_backward`.
     """
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
     if h_in.device.type == "cpu":
@@ -290,39 +358,169 @@ def encoder_block_tail(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{h_in.device}")
     _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs)
     tensors = (q, k, v, h_in, wo, fc1_w, fc2_w, *vecs)
-    launch = functools.partial(_launch, eps=eps)
     if tracks_grad(*tensors):
-        return kernel_with_plain_backward(
-            launch, functools.partial(encoder_block_tail_plain, eps=eps),
-            *tensors)
-    return launch(*tensors)
+        refuse_bf16_grad("encoder_block_tail", h_in.dtype)
+        return kernel_with_backward(
+            functools.partial(_forward_for_grad, eps=eps),
+            functools.partial(_backward, eps=eps), *tensors)
+    return _launch(*tensors, eps=eps)[0]
 
 
 def _launch(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b, ln2_g,
-            ln2_b, *, eps: float) -> torch.Tensor:
+            ln2_b, *, eps: float, keep: bool = False) -> tuple:
     """One kernel launch on checked tensors, counted on
-    `encoder_block_tail.launches`."""
+    `encoder_block_tail.launches`. Returns (out, attention rows (B, T, d),
+    their log-sum-exp (B, H, T) or None): with `keep` (fp32, under
+    autograd) the attention launch writes the log-sum-exp too."""
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
     B, T, H, D = q.shape
     S, d, ff = k.shape[2], h_in.shape[-1], fc1_w.shape[-1]
     lib = _build.load_library()
     misc = torch.cat([t.float() for t in vecs])              # (4d + ff,) fp32
     attn = torch.empty((B, T, d), dtype=h_in.dtype, device=h_in.device)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=h_in.device)
+           if keep else None)
     work = _workspace(lib, B * T, d, ff, h_in.element_size(), False,
                       h_in.device)
     out = torch.empty_like(h_in)
     err = lib.wt_encoder_tail(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), h_in.data_ptr(),
         wo.data_ptr(), fc1_w.data_ptr(), fc2_w.data_ptr(), misc.data_ptr(),
-        attn.data_ptr(), work.data_ptr(), out.data_ptr(), B, T, S, H, D, d,
-        ff, float(eps), int(h_in.dtype == torch.bfloat16),
+        attn.data_ptr(), None if lse is None else lse.data_ptr(),
+        work.data_ptr(), out.data_ptr(), B, T, S, H, D, d, ff, float(eps),
+        int(h_in.dtype == torch.bfloat16),
         torch.cuda.current_stream(h_in.device).cuda_stream)
     _build.check(lib, err, "encoder_block_tail")
     encoder_block_tail.launches += 1
-    return out
+    return out, attn, lse
 
 
 encoder_block_tail.launches = 0     # kernel launches (CPU calls not counted)
+
+
+def _forward_for_grad(*tensors, eps: float):
+    """The forward under autograd: (out, (attention rows, lse)), the
+    residuals the backward reads."""
+    out, attn, lse = _launch(*tensors, eps=eps, keep=True)
+    return out, (attn, lse)
+
+
+def _backward(grad_out, tensors, residuals, eps: float):
+    return encoder_block_tail_backward(*tensors, *residuals, grad_out,
+                                       eps=eps)
+
+
+def _check_backward(q, h_in, attn, lse, d_out) -> None:
+    """Raise on anything the backward kernels do not take, besides what
+    `_check` refuses for the forward."""
+    B, T, d = h_in.shape
+    H = q.shape[2]
+    # `_check` holds q, k, v and the matrices to h_in's dtype
+    for name, t in (("h_in", h_in), ("attn", attn), ("lse", lse),
+                    ("d_out", d_out)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"encoder_block_tail_backward: {name} is "
+                            f"{t.dtype}; the backward kernel is fp32 only")
+    for name, t, shape in (("attn", attn, (B, T, d)), ("lse", lse, (B, H, T)),
+                           ("d_out", d_out, (B, T, d))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"encoder_block_tail_backward: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if t.device != h_in.device:
+            raise ValueError(f"encoder_block_tail_backward: {name} is on "
+                             f"{t.device}, h_in on {h_in.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"encoder_block_tail_backward: {name} is not "
+                             f"16-byte aligned")
+
+
+def encoder_block_tail_backward(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, h_in: torch.Tensor,
+                                wo: torch.Tensor, fc1_w: torch.Tensor,
+                                fc2_w: torch.Tensor, o_b: torch.Tensor,
+                                fc1_b: torch.Tensor, fc2_b: torch.Tensor,
+                                ln2_g: torch.Tensor, ln2_b: torch.Tensor,
+                                attn: torch.Tensor, lse: torch.Tensor,
+                                d_out: torch.Tensor, eps: float = 1e-5
+                                ) -> tuple:
+    """The gradients of `encoder_block_tail` (fp32) at its twelve inputs,
+    given the forward's attention rows `attn` (B, T, d), their log-sum-exp
+    `lse` (B, H, T) and the output's gradient `d_out` (B, T, d).
+
+    Returns (dq, dk, dv, dh_in, dWo, dW1, dW2, dbo, db1, db2, dg, db), each
+    in its input's dtype. CPU tensors take
+    `encoder_block_tail_backward_plain`; CUDA tensors run the backward
+    (csrc/encoder_tail_bwd.cu's passes between eight fp32 torch.matmul
+    products, whose TF32 setting is the caller's: the train step's
+    full_fp32 turns it off; then the flash backward kernel for the
+    attention, counted here, not on `flash_attention_backward`) or
+    raise. attn, lse and d_out are made contiguous."""
+    vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
+    tensors = (q, k, v, h_in, wo, fc1_w, fc2_w, *vecs)
+    if h_in.device.type == "cpu":
+        return encoder_block_tail_backward_plain(*tensors, attn, lse, d_out,
+                                                 eps=eps)
+    if h_in.device.type != "cuda":
+        raise ValueError(f"encoder_block_tail_backward: no kernel for "
+                         f"device {h_in.device}")
+    attn, lse, d_out = (t.contiguous() for t in (attn, lse, d_out))
+    _check(q, k, v, h_in, wo, fc1_w, fc2_w, vecs)
+    _check_backward(q, h_in, attn, lse, d_out)
+    grads = _launch_backward(*tensors, attn, lse, d_out, eps=eps)
+    encoder_block_tail_backward.launches += 1
+    return _grads_like(grads, tensors)
+
+
+encoder_block_tail_backward.launches = 0   # CPU calls not counted
+
+
+def _stage(lib, stage: int, bufs, rows: int, d: int, ff: int, eps: float,
+           device) -> None:
+    """One stage of csrc/encoder_tail_bwd.cu on the current stream."""
+    ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
+    err = lib.wt_encoder_tail_bwd(stage, ptrs, rows, d, ff, float(eps),
+                                  torch.cuda.current_stream(device)
+                                  .cuda_stream)
+    _build.check(lib, err, "encoder_block_tail_backward")
+
+
+def _launch_backward(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b,
+                     ln2_g, ln2_b, attn, lse, d_out, *, eps: float) -> tuple:
+    """The backward on checked fp32 tensors: the products in torch.matmul,
+    the passes between them in the kernel's three stages (each buffer
+    reused in place where the kernel says so), then the flash backward.
+    No (B, H, T, S) tensor exists."""
+    B, T, H, D = q.shape
+    S, d, ff = k.shape[2], h_in.shape[-1], fc1_w.shape[-1]
+    rows, dev = B * T, h_in.device
+    lib = _build.load_library()
+    misc = torch.cat([t.float() for t in (o_b, fc1_b, fc2_b, ln2_g, ln2_b)])
+    a, G = attn.reshape(rows, d), d_out.reshape(rows, d)
+    h2 = a @ wo                                   # stage 0 makes it h2
+    y = torch.empty_like(h2)
+    mean, rstd = (torch.empty(rows, dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    _stage(lib, 0, (h2, h_in, misc, y, mean, rstd), rows, d, ff, eps, dev)
+    u = y @ fc1_w                                 # stage 1 makes it t1
+    du = G @ fc2_w.t()                            # stage 1 makes it du
+    _stage(lib, 1, (u, du, misc), rows, d, ff, eps, dev)
+    d_fc2 = u.t() @ G
+    del u
+    d_fc1 = y.t() @ du
+    dy = du @ fc1_w.t()
+    partials = torch.empty(lib.wt_encoder_tail_bwd_partials(d, ff),
+                           dtype=torch.float32, device=dev)
+    d_vecs = torch.empty(4 * d + ff, dtype=torch.float32, device=dev)
+    _stage(lib, 2, (h2, y, mean, rstd, dy, G, du, misc, partials, d_vecs),
+           rows, d, ff, eps, dev)                 # h2 is dh2 from here
+    del y, du, dy, partials
+    d_wo = a.t() @ h2
+    da = (h2 @ wo.t()).reshape(B, T, H, D)
+    dq, dk, dv = flash_launch_backward(q, k, v, attn.reshape(B, T, H, D),
+                                       lse, da, kv_len=S, q_offset=0,
+                                       causal=False)
+    return (dq, dk, dv, h2.reshape(B, T, d), d_wo, d_fc1, d_fc2,
+            *d_vecs.split([d, ff, d, d, d]))
 
 
 def _check_q8(q, k, v, h_in, wo_t, fc1_t, fc2_t, vecs, scales) -> None:

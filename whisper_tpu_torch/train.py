@@ -6,10 +6,12 @@ linears, every leaf requiring grad); `weights.from_device` takes them
 back to the JAX package's layout for `save_npz`. The forward is the
 model's own: the encoder's tail kernel once per layer (or the tail-off
 branch through the flash kernel), the decoder's T > 1 reads through the
-flash kernel where the attention gate sends them. The backward of each
-kernel is its plain twin's autograd gradient (ops/grad.py): the JAX
-package has no backward kernel to port, jax.grad differentiates its XLA
-graph. Every other kernel wrapper raises under autograd.
+flash kernel where the attention gate sends them. On the card the
+backward of each is a backward kernel (`encoder_block_tail_backward`,
+`flash_attention_backward`; ops/grad.py), fp32 as training is; the JAX
+package has none to port, jax.grad differentiates its XLA graph. On the
+CPU autograd differentiates the plain versions. Every other kernel
+wrapper raises under autograd.
 
 The optimizer is JAX's optax chain, clip_by_global_norm(1.0) then adamw
 over warmup_cosine_decay_schedule(0, lr, warmup, max(total, warmup + 1)),
