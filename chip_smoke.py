@@ -90,10 +90,12 @@ the key biases'), one step's gradients on the card against the CPU
 (B=8), large-v3-turbo at full width and depth (2 steps of 4 rows, the
 first update at lr 1e-4: the loss moves, every leaf's gradient non-zero
 but the key biases'), each backward kernel against its plain twin on the
-forward kernel's residuals (tiny B=16, a turbo tail layer at B=4;
+forward kernel's residuals (tiny B=16: the self, cross and encoder
+reads and a tail layer; turbo B=4: the encoder's read and a tail layer;
 bit-equal on a rerun, no (B, H, T, S) tensor's worth of memory), and
 the two kernels' forward and backward timed beside their plain versions,
-their bounds and SDPA's. Then the
+their bounds (the backward's on the CUDA cores and as split TF32 on the
+tensor cores) and SDPA's, flash also at turbo's encoder read. Then the
 meshes (whisper_tpu_torch.parallel): large-v3-turbo bf16 at full width
 and depth through ShardedPipeline on a world of one NCCL process that
 make_mesh opens itself (B=8, 32 greedy tokens, equal to
@@ -235,7 +237,9 @@ NO_DECODE = {"decode_attention_bh": 0, "decode_attention_bg": 0,
              "decode_attention": 0}
 # published NVIDIA H100 SXM peaks at 700 W (dense), for the bounds
 H100_BYTES_PER_S = 3.35e12
-H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32x3": an fp32 product as three TF32 tensor-core products (split
+# TF32, csrc/flash_attention_bwd.cu), 495 TFLOP/s dense over 3
+H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 H100_INT8_OPS = 1979e12         # dense int8 tensor-core peak
 # the flash kernel's bf16 timings (B, T, H, S): a turbo and a tiny b32
 # encoder layer (tiny's is the tail's attention), the tiny engine fill's
@@ -249,6 +253,8 @@ FLASH_TIME_FP32 = ("turbo_layer", "tiny_layer")
 # the bf16 and fp32 flash kernels' symbols (both causal instantiations)
 FLASH_BF16_KERNEL = "2tc12flash_kernel"
 FLASH_FP32_KERNEL = "4simt12flash_kernel"
+# the fp32 flash backward's two tiled passes (split TF32 mma.sync)
+FLASH_BWD_KERNELS = ("2kv11dkdv_kernel", "2qd9dq_kernel")
 # the fused decoder step's kernel (both element types)
 FUSED_KERNEL = "17fused_step_kernel"
 # the tail's MLP tiles, by form (the template argument's mangled name):
@@ -1427,6 +1433,21 @@ def flash_sass(card: str) -> None:
         for c in fp32.values()),
             f"flash_sass: the fp32 flash kernels must run FFMA and no "
             f"tensor-core instruction ({fp32})")
+    # the fp32 backward's dk/dv and dq passes: their products are split
+    # TF32 mma.sync (HMMA), none spills
+    for symbol in FLASH_BWD_KERNELS:
+        counts = sass_counts(sass, symbol,
+                             ("HMMA", "FFMA", "FADD", "LDS", "MUFU"))
+        regs, spills = ptxas_lines(log, symbol)
+        spilled = {f: spill_bytes(t) for f, t in spills.items()}
+        emit({"phase": "flash_sass", "kernel": "flash_backward",
+              "symbol": symbol, "counts": counts, "registers": regs,
+              "spills": spills, "card": card})
+        require(len(counts) == 2 and all(c["HMMA"] > 0
+                                         for c in counts.values())
+                and all(n == 0 for n in spilled.values()),
+                f"flash_sass: {symbol} must run HMMA and not spill "
+                f"({counts}, {spilled})")
     # the tail's MLP tiles: wgmma in bf16 and int8; in fp32 FFMA and no
     # tensor-core instruction; none spills. The fused step's kernels as
     # built.
@@ -1477,7 +1498,8 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> dict:
     bytes (each input read once, each output written once) over the memory
     rate and its operations over the peak rate of their type. Published
     NVIDIA H100 SXM peaks at 700 W, dense: 3.35 TB/s; 989 TFLOP/s bf16 on
-    the tensor cores, 67 TFLOP/s fp32 outside them."""
+    the tensor cores, 67 TFLOP/s fp32 outside them; "tf32x3", fp32
+    products as split TF32 on the tensor cores, 495 / 3 TFLOP/s."""
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_FLOPS[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -4529,35 +4551,46 @@ def train_turbo(card: str, kernels: dict) -> dict:
     return run["launches_per_step"]
 
 
-def train_kernel_cases(cfg, B: int, tail_only: bool = False):
+# the train path's kernel cases (train_kernel_cases), and those of the
+# encoder alone
+TRAIN_CASES = ("flash_self", "flash_cross", "flash_encoder",
+               "encoder_block_tail")
+ENCODER_CASES = ("flash_encoder", "encoder_block_tail")
+
+
+def train_kernel_cases(cfg, B: int, names=TRAIN_CASES):
     """The train path's two kernels at cfg's training shapes for a batch
     of B, fp32, made on the card from a seed: (name, forward wrapper, its
     plain version, the inputs, keyword arguments, the backward wrapper,
     its plain twin), for the causal self read over the 448 slots of JAX's
-    cache (kv_len 224), the cross read over 1500 positions, and one
-    encoder layer's tail."""
+    cache (kv_len 224), the cross read over 1500 positions, the encoder
+    layer's attention alone (T = S = 1500, the tail's own read, through
+    the flash wrappers) and one encoder layer's tail; those in `names`."""
     import torch
 
     from whisper_tpu_torch.ops import encoder_layer as el
     from whisper_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cpu").manual_seed(5)
-    H, D = cfg.n_heads, cfg.head_dim
+    H, D, Ta = cfg.n_heads, cfg.head_dim, cfg.n_audio_ctx
     cases = []
-    if not tail_only:
-        for name, s_len, kv_len, causal in (
-                ("flash_self", cfg.n_text_ctx, TRAIN_T, True),
-                ("flash_cross", cfg.n_audio_ctx, cfg.n_audio_ctx, False)):
-            args = [torch.randn(*shape, generator=g).cuda() for shape in
-                    ((B, TRAIN_T, H, D), (B, H, s_len, D), (B, H, s_len, D))]
-            cases.append((name, fa.flash_attention, fa.flash_attention_plain,
-                          args, dict(kv_len=kv_len, causal=causal),
-                          fa.flash_attention_backward,
-                          fa.flash_attention_backward_plain))
-    cases.append(("encoder_block_tail", el.encoder_block_tail,
-                  el.encoder_block_tail_plain,
-                  tail_inputs(cfg, B, torch.float32, seed=6), {},
-                  el.encoder_block_tail_backward,
-                  el.encoder_block_tail_backward_plain))
+    for name, t_len, s_len, kv_len, causal in (
+            ("flash_self", TRAIN_T, cfg.n_text_ctx, TRAIN_T, True),
+            ("flash_cross", TRAIN_T, Ta, Ta, False),
+            ("flash_encoder", Ta, Ta, Ta, False)):
+        if name not in names:
+            continue
+        args = [torch.randn(*shape, generator=g).cuda() for shape in
+                ((B, t_len, H, D), (B, H, s_len, D), (B, H, s_len, D))]
+        cases.append((name, fa.flash_attention, fa.flash_attention_plain,
+                      args, dict(kv_len=kv_len, causal=causal),
+                      fa.flash_attention_backward,
+                      fa.flash_attention_backward_plain))
+    if "encoder_block_tail" in names:
+        cases.append(("encoder_block_tail", el.encoder_block_tail,
+                      el.encoder_block_tail_plain,
+                      tail_inputs(cfg, B, torch.float32, seed=6), {},
+                      el.encoder_block_tail_backward,
+                      el.encoder_block_tail_backward_plain))
     return cases
 
 
@@ -4584,8 +4617,9 @@ def backward_inputs(name: str, args, kw: dict, seed: int):
 def train_backward_checks(card: str) -> dict:
     """Each backward kernel against its plain twin on the card, on the
     forward kernel's own residuals: tiny's training shapes (B=16: the
-    causal self read, the cross read, one tail layer) and one turbo tail
-    layer (B=4). Every gradient within BACKWARD_REL of its largest |g| +
+    causal self read, the cross read, the encoder's attention, one tail
+    layer) and turbo's encoder (B=4: the attention, one tail layer). Every
+    gradient within BACKWARD_REL of its largest |g| +
     BACKWARD_ABS, a second run bit-equal, and no (B, H, T, S) fp32 tensor's
     worth of memory allocated by the kernel's call. Returns the largest
     error of each backward kernel."""
@@ -4594,11 +4628,11 @@ def train_backward_checks(card: str) -> dict:
     from whisper_tpu_torch import get_config
     worst = {"flash_attention_backward": 0.0,
              "encoder_block_tail_backward": 0.0}
-    runs = [(get_config("tiny"), TRAIN_TINY_BATCH, False),
-            (get_config(TURBO), TRAIN_TURBO_BATCH, True)]
-    for cfg, B, tail_only in runs:
+    runs = [(get_config("tiny"), TRAIN_TINY_BATCH, TRAIN_CASES),
+            (get_config(TURBO), TRAIN_TURBO_BATCH, ENCODER_CASES)]
+    for cfg, B, names in runs:
         for name, _, _, args, kw, bwd, bwd_plain in train_kernel_cases(
-                cfg, B, tail_only):
+                cfg, B, names):
             bargs = backward_inputs(name, args, kw, seed=7)
             T, S = args[0].shape[1], args[1].shape[2]
             scores_bytes = 4 * B * cfg.n_heads * T * S
@@ -4638,18 +4672,18 @@ def train_backward_checks(card: str) -> dict:
 
 
 def train_kernel_time(card: str) -> dict:
-    """The train path's two kernels at tiny's training shapes (B=16, fp32):
-    each forward kernel against its plain version, and each backward
-    kernel against its plain twin, in turns by CUDA events, beside the
-    bounds and, for flash, SDPA's forward and backward on the same inputs
-    (SDPA is timed here only; the port never calls it)."""
+    """The train path's two kernels at tiny's training shapes (B=16, fp32)
+    and flash at turbo's encoder shape (B=4, H=20, key "flash_encoder_turbo"):
+    each forward kernel against its plain version, and each backward kernel
+    against its plain twin, in turns by CUDA events, beside the bounds
+    (the backward's on the CUDA cores' fp32 peak and, `backward_bound_tc_ms`,
+    with the attention's products as split TF32 on the tensor cores: the
+    flash backward's own route) and, for flash, SDPA's forward and backward
+    on the same inputs (SDPA is timed here only; the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
     from whisper_tpu_torch import get_config
-    cfg = get_config("tiny")
-    B, H, D = TRAIN_TINY_BATCH, cfg.n_heads, cfg.head_dim
-    T, Ta, d, ff = TRAIN_T, cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
     lines = {}
 
     def sdpa_of(kv_len, causal):
@@ -4659,62 +4693,79 @@ def train_kernel_time(card: str) -> dict:
                 is_causal=causal).transpose(1, 2)
         return f
 
-    for name, fwd, fwd_plain, args, kw, bwd, bwd_plain in \
-            train_kernel_cases(cfg, B):
-        n_in = sum(a.numel() for a in args)
-        if name == "encoder_block_tail":
-            n_out, n_res = B * Ta * d, B * Ta * d + B * H * Ta
-            read = n_in
-            flops = 4 * B * H * Ta * Ta * D + 2 * B * Ta * (d * d + 2 * d * ff)
-            # the attention's backward is 2.5 times its forward (five
-            # products); the o-projection's and the MLP's twice theirs
-            bwd_flops = (2.5 * 4 * B * H * Ta * Ta * D
-                         + 2 * 2 * B * Ta * (d * d + 2 * d * ff))
-        else:
-            s_len, kv_len, causal = args[1].shape[2], kw["kv_len"], \
-                kw["causal"]
-            n_out, n_res = B * T * H * D, B * T * H * D + B * H * T
-            # k and v are read only below kv_len; under causal the kernel
-            # reads T (T + 1) / 2 key rows a head, 4 flops a query-key-dim
-            # pair (q.k and p.v)
-            read = B * T * H * D + 2 * B * H * min(s_len, kv_len) * D
-            pairs = T * (T + 1) // 2 if causal else T * kv_len
-            flops = 4 * B * H * pairs * D
-            bwd_flops = 2.5 * flops           # s, dp, dv, dk, dq
-        with torch.no_grad():
-            ms, plain_ms = alternate_ms(lambda: fwd_plain(*args, **kw),
-                                        lambda: fwd(*args, **kw), iters=10)
-        bargs = backward_inputs(name, args, kw, seed=8)
-        bwd_ms, bwd_plain_ms = alternate_ms(
-            lambda: bwd_plain(*bargs, **kw), lambda: bwd(*bargs, **kw),
-            iters=5)
-        # the backward reads the inputs (at their read extent), the
-        # residuals and the output's gradient once, and writes every
-        # input's gradient whole
-        b_bound = bound(4 * (read + n_res + n_out + n_in), bwd_flops,
-                        "float32")
-        line = {"ms": ms, "plain_ms": plain_ms,
-                **bound(4 * (read + n_out), flops, "float32"),
-                "backward_ms": bwd_ms, "backward_plain_ms": bwd_plain_ms,
-                "backward_bound_ms": b_bound["bound_ms"],
-                "backward_bound_by": b_bound["bound_by"],
-                "library_ms": None, "library_backward_ms": None}
-        if name != "encoder_block_tail":
-            sdpa = sdpa_of(kv_len, causal)
+    runs = [(get_config("tiny"), TRAIN_TINY_BATCH, TRAIN_CASES, ""),
+            (get_config(TURBO), TRAIN_TURBO_BATCH, ("flash_encoder",),
+             "_turbo")]
+    for cfg, B, names, suffix in runs:
+        H, D = cfg.n_heads, cfg.head_dim
+        Ta, d, ff = cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
+        for name, fwd, fwd_plain, args, kw, bwd, bwd_plain in \
+                train_kernel_cases(cfg, B, names):
+            n_in = sum(a.numel() for a in args)
+            if name == "encoder_block_tail":
+                n_out, n_res = B * Ta * d, B * Ta * d + B * H * Ta
+                read = n_in
+                attn = 4 * B * H * Ta * Ta * D
+                prods = 2 * B * Ta * (d * d + 2 * d * ff)
+                flops = attn + prods
+                # the attention's backward is 2.5 times its forward (five
+                # products); the o-projection's and the MLP's twice theirs
+                bwd_attn, bwd_prods = 2.5 * attn, 2 * prods
+            else:
+                T, s_len = args[0].shape[1], args[1].shape[2]
+                kv_len, causal = kw["kv_len"], kw["causal"]
+                n_out, n_res = B * T * H * D, B * T * H * D + B * H * T
+                # k and v are read only below kv_len; under causal the
+                # kernel reads T (T + 1) / 2 key rows a head, 4 flops a
+                # query-key-dim pair (q.k and p.v)
+                read = B * T * H * D + 2 * B * H * min(s_len, kv_len) * D
+                pairs = T * (T + 1) // 2 if causal else T * kv_len
+                flops = 4 * B * H * pairs * D
+                bwd_attn, bwd_prods = 2.5 * flops, 0   # s, dp, dv, dk, dq
             with torch.no_grad():
-                line["library_ms"] = cuda_ms(lambda: sdpa(*args), 10)
-            largs = [a.detach().requires_grad_() for a in args]
-            lout = sdpa(*largs)
-            grad_out = bargs[-1]
-            line["library_backward_ms"] = cuda_ms(
-                lambda: torch.autograd.grad(lout, largs, grad_out,
-                                            retain_graph=True), 5)
-            del lout, largs
-        lines[name] = line
-        emit({"phase": "train_kernel_time", "kernel": name, "batch": B,
-              "dtype": "float32", **line, "card": card})
-        del bargs, args
-    torch.cuda.empty_cache()
+                ms, plain_ms = alternate_ms(lambda: fwd_plain(*args, **kw),
+                                            lambda: fwd(*args, **kw),
+                                            iters=10)
+            bargs = backward_inputs(name, args, kw, seed=8)
+            bwd_ms, bwd_plain_ms = alternate_ms(
+                lambda: bwd_plain(*bargs, **kw), lambda: bwd(*bargs, **kw),
+                iters=5)
+            # the backward reads the inputs (at their read extent), the
+            # residuals and the output's gradient once, and writes every
+            # input's gradient whole
+            b_bytes = 4 * (read + n_res + n_out + n_in)
+            b_bound = bound(b_bytes, bwd_attn + bwd_prods, "float32")
+            # the attention's products on the split route, the tail's
+            # other products still fp32 on the CUDA cores
+            t_tc = (bwd_attn / H100_FLOPS["tf32x3"]
+                    + bwd_prods / H100_FLOPS["float32"]) * 1e3
+            t_bytes = b_bytes / H100_BYTES_PER_S * 1e3
+            line = {"ms": ms, "plain_ms": plain_ms,
+                    **bound(4 * (read + n_out), flops, "float32"),
+                    "backward_ms": bwd_ms, "backward_plain_ms": bwd_plain_ms,
+                    "backward_bound_ms": b_bound["bound_ms"],
+                    "backward_bound_by": b_bound["bound_by"],
+                    "backward_bound_tc_ms": max(t_bytes, t_tc),
+                    "backward_bound_tc_by": "bytes" if t_bytes >= t_tc
+                    else "operations",
+                    "library_ms": None, "library_backward_ms": None}
+            if name != "encoder_block_tail":
+                sdpa = sdpa_of(kv_len, causal)
+                with torch.no_grad():
+                    line["library_ms"] = cuda_ms(lambda: sdpa(*args), 10)
+                largs = [a.detach().requires_grad_() for a in args]
+                lout = sdpa(*largs)
+                grad_out = bargs[-1]
+                line["library_backward_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(lout, largs, grad_out,
+                                                retain_graph=True), 5)
+                del lout, largs
+            lines[name + suffix] = line
+            emit({"phase": "train_kernel_time", "kernel": name,
+                  "model": cfg.name, "batch": B, "dtype": "float32", **line,
+                  "card": card})
+            del bargs, args
+            torch.cuda.empty_cache()
     return lines
 
 
@@ -5954,15 +6005,18 @@ def main() -> int:
          **decode["decode_attention"]},
     ]
     # the backward kernels of the train path, timed at tiny B=16 (the
-    # flash row at the cross read, its causal self read beside); launches
-    # from tiny's train step (turbo's beside); no TPU kernel to replace:
-    # the JAX package differentiates its XLA graph
+    # flash row at the cross read, its causal self read, the encoder's
+    # read and turbo's beside); launches from tiny's train step (turbo's
+    # beside); no TPU kernel to replace: the JAX package differentiates its
+    # XLA graph. The bound is the smaller of the CUDA cores' and the split
+    # TF32 route's (`bound_route`), both beside.
     times = train["times"]
     for name, source, t in (
             ("flash_attention_backward", "flash_attention_bwd.cu",
              times["flash_cross"]),
             ("encoder_block_tail_backward", "encoder_tail_bwd.cu",
              times["encoder_block_tail"])):
+        tc = t["backward_bound_tc_ms"] < t["backward_bound_ms"]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"whisper_tpu_torch/csrc/{source}",
@@ -5971,13 +6025,19 @@ def main() -> int:
             "launches": train["tiny"][name],
             "max_abs_err": train["backward_errs"][name],
             "ms": t["backward_ms"], "plain_ms": t["backward_plain_ms"],
-            "bound_ms": t["backward_bound_ms"],
-            "bound_by": t["backward_bound_by"],
+            "bound_ms": min(t["backward_bound_ms"],
+                            t["backward_bound_tc_ms"]),
+            "bound_by": t["backward_bound_tc_by" if tc
+                          else "backward_bound_by"],
+            "bound_route": "tf32x3" if tc else "float32",
+            "bound_fp32_ms": t["backward_bound_ms"],
+            "bound_tf32x3_ms": t["backward_bound_tc_ms"],
             "library_ms": t["library_backward_ms"]})
-    rows[-2]["self_read"] = {
-        k: times["flash_self"][k] for k in (
-            "backward_ms", "backward_plain_ms", "backward_bound_ms",
-            "library_backward_ms")}
+    for read in ("flash_self", "flash_encoder", "flash_encoder_turbo"):
+        rows[-2][read] = {
+            k: times[read][k] for k in (
+                "backward_ms", "backward_plain_ms", "backward_bound_ms",
+                "backward_bound_tc_ms", "library_backward_ms")}
     for row in rows:
         # launches a train step (forward and backward), tiny's and turbo's
         row["train_launches"] = train["tiny"].get(row["name"], 0)
@@ -5990,7 +6050,9 @@ def main() -> int:
     by_name["encoder_block_tail"]["train_time"] = \
         train["times"]["encoder_block_tail"]
     by_name["flash_attention"]["train_time"] = {
-        k: train["times"][k] for k in ("flash_self", "flash_cross")}
+        k: train["times"][k] for k in ("flash_self", "flash_cross",
+                                       "flash_encoder",
+                                       "flash_encoder_turbo")}
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -166,6 +166,160 @@ def test_flash_backward_wrapper_on_cpu_is_the_twin():
 
 
 # ---------------------------------------------------------------------------
+# the backward kernel's arithmetic (csrc/flash_attention_bwd.cu), modelled
+# on the CPU: every product as split TF32 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: fp32 to 10 stored mantissa bits, to nearest with
+    ties away from zero, by integer rounding of the fp32 bits (the sign is
+    apart, so adding half of the 13 dropped bits rounds the magnitude)."""
+    bits = x.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = ((bits + 0x1000) & 0xFFFFE000).to(torch.int64)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(
+        torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """An fp32 operand as the tensor cores read it in TF32: its low 13
+    bits dropped (rounded toward zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor) -> tuple:
+    """The kernel's split: big = x rounded to TF32, small = x - big (exact
+    in fp32) as the MMA reads it."""
+    big = _tf32_rna(x)
+    return big, _tf32_trunc(x.float() - big)
+
+
+def _round_to_zero(x: torch.Tensor) -> torch.Tensor:
+    """fp64 to fp32 toward zero: the model of the tensor cores' fp32 sums
+    (no round-to-nearest is assumed of them)."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _kernel_einsum(single: bool):
+    """torch.einsum as the kernel forms the twin's five products (two
+    operands, one contracted index): k-steps of 8 along the contracted
+    index, each an m16n8k8 MMA (exact TF32 products, the sum rounded
+    toward zero to fp32). Split (`_split_tf32`): small.big, big.small,
+    then big.big into one accumulator; single: big.big alone. The accumulator starts from
+    zero every k-step over the head dim (the scores) and every 4 k-steps,
+    a 32-row tile, over keys or queries (dv, dk, dq), and is added to the
+    product's fp32 sum, rounded to nearest."""
+    einsum = torch.einsum
+
+    def product(eq, a, b):
+        ins, out = eq.split("->")
+        ia, ib = ins.split(",")
+        (c,) = set(ia) & set(ib) - set(out)
+        a_hi, a_lo = _split_tf32(a)
+        b_hi, b_lo = _split_tf32(b)
+        n = a.shape[ia.index(c)]
+        fold = 1 if c == "d" else 4           # the head dim, or a tile
+        terms = [(a_hi, b_hi)] if single else [
+            (a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)]
+        total = part = None
+        for step, k0 in enumerate(range(0, n, 8)):
+            for x, y in terms:
+                z = einsum(eq, x.narrow(ia.index(c), k0, min(8, n - k0))
+                           .double(),
+                           y.narrow(ib.index(c), k0, min(8, n - k0))
+                           .double())
+                part = _round_to_zero(z if part is None
+                                      else part.double() + z)
+            if (step + 1) % fold == 0 or k0 + 8 >= n:
+                total = part if total is None else total + part
+                part = None
+        return total
+
+    return product
+
+
+def _backward_fp64(q, k, v, out, lse, d_out, kv_len, q_offset, causal):
+    """The twin's math in fp64 on fp64 copies of the same inputs."""
+    T, S = q.shape[1], k.shape[2]
+    end = S if kv_len is None else kv_len
+    end = min(end, q_offset + T) if causal else end
+    q, k, v, out, lse, g = (x.double() for x in (q, k, v, out, lse, d_out))
+    kf, vf = k[:, :, :end], v[:, :, :end]
+    s = torch.einsum("bthd,bhsd->bhts", q * 0.125, kf)
+    if causal:
+        s = s.masked_fill(torch.arange(end)[None, :]
+                          > q_offset + torch.arange(T)[:, None], -torch.inf)
+    p = torch.exp(s - lse[..., None])
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    dv[:, :, :end] = torch.einsum("bhts,bthd->bhsd", p, g)
+    dp = torch.einsum("bthd,bhsd->bhts", g, vf)
+    delta = (g * out).sum(-1).permute(0, 2, 1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhts,bhsd->bthd", ds, kf) * 0.125
+    dk[:, :, :end] = torch.einsum("bhts,bthd->bhsd", ds, q) * 0.125
+    return dq, dk, dv
+
+
+# (B, T, S, H, kv_len, q_offset, causal, q scale): a cross read, a causal
+# self read, a ragged kv_len, a q_offset, and scores scaled x8 (sharp
+# rows, where a TF32 rounding of s shows in p)
+SPLIT_CASES = {
+    "cross": (1, 224, 400, 2, None, 0, False, 1.0),
+    "causal": (1, 256, 256, 2, None, 0, True, 1.0),
+    "kv_len": (2, 150, 400, 2, 333, 0, False, 1.0),
+    "q_offset": (1, 150, 400, 2, 300, 100, True, 1.0),
+    "sharp": (1, 300, 400, 2, None, 0, True, 8.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_tf32_backward_holds_the_card_tolerance(case, monkeypatch):
+    """flash_attention_backward_plain's math with each product as the
+    kernel's split TF32 MMAs: dq, dk and dv within the card tests' 1e-5 of
+    max |g| + 1e-6 of the same math in fp64; with a single TF32 pass every
+    gradient misses it."""
+    B, T, S, H, kv_len, q_offset, causal, scale = SPLIT_CASES[case]
+    q, k, v, g = _flash_numpy(B, T, S, H, seed=17)
+    t = [torch.from_numpy(x) for x in (q * np.float32(scale), k, v, g)]
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    out, lse = flash_attention_plain(*t[:3], **kw, return_lse=True)
+    want = _backward_fp64(*t[:3], out, lse, t[3], **kw)
+    shares = {}
+    for single in (False, True):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "einsum", _kernel_einsum(single))
+            got = flash_attention_backward_plain(*t[:3], out, lse, t[3],
+                                                 **kw)
+        shares[single] = [
+            float((a.double() - b).abs().max())
+            / (REL * float(b.abs().max()) + ABS) for a, b in zip(got, want)]
+    assert max(shares[False]) <= 1.0, (case, shares)
+    assert min(shares[True]) > 1.0, (case, shares)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    """The model's cvt.rna: 10 stored bits, ties away from zero, both
+    signs; the split's parts are TF32 values that sum back to x within
+    2^-21 of it (big to nearest, small toward zero)."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0])
+    assert torch.equal(_tf32_rna(x), want)
+    r = torch.from_numpy(np.random.RandomState(18).randn(4096)
+                         .astype(np.float32))
+    big, small = _split_tf32(r)
+    assert torch.equal(_tf32_rna(big), big)
+    assert torch.equal(_tf32_rna(small), small)
+    err = (big.double() + small.double() - r.double()).abs()
+    assert bool((err <= 2.0 ** -21 * r.double().abs()).all())
+    assert torch.equal(_tf32_trunc(-x), -_tf32_trunc(x))
+
+
+# ---------------------------------------------------------------------------
 # the tail
 # ---------------------------------------------------------------------------
 

@@ -1337,7 +1337,8 @@ def test_tail_gradient_is_the_plain_gradient(dev, B, T, H, ff):
 
 # (B, T, S, H, kv_len, q_offset, causal): the training reads, then the
 # tile edges (T and S off the 32- and 64-row tiles, the causal diagonal
-# inside a tile, a q_offset), and kv_len 0
+# inside a tile, a q_offset), kv_len 0, and the encoder tail's attention
+# (tiny B=16, turbo B=4)
 _FLASH_BWD_CASES = [
     (16, 224, 448, 6, 224, 0, True),    # tiny B=16's training self read
     (16, 224, 1500, 6, None, 0, False),  # tiny B=16's training cross read
@@ -1348,12 +1349,17 @@ _FLASH_BWD_CASES = [
     (2, 65, 200, 2, 97, 0, True),
     (1, 130, 200, 2, 150, 20, True),
     (2, 5, 64, 2, 0, 0, False),
+    (16, 1500, 1500, 6, None, 0, False),  # tiny B=16's encoder layer
+    (4, 1500, 1500, 20, None, 0, False),  # turbo B=4's encoder layer
 ]
 
 
-def _flash_bwd_inputs(B, T, S, H, kv_len, q_offset, causal, dev, seed):
-    """q, k, v, the plain forward's out and lse, and d_out."""
+def _flash_bwd_inputs(B, T, S, H, kv_len, q_offset, causal, dev, seed,
+                      q_scale=1.0):
+    """q (times q_scale), k, v, the plain forward's out and lse, and
+    d_out."""
     q, k, v = _flash_args(B, T, S, H, torch.float32, dev, seed=seed)
+    q = q * q_scale
     out, lse = flash_attention_plain(q, k, v, kv_len, q_offset,
                                      causal=causal, return_lse=True)
     g = torch.randn(B, T, H, 64,
@@ -1390,6 +1396,20 @@ def test_flash_backward_kernel_matches_its_twin(dev, B, T, S, H, kv_len,
         assert not a[:, :, end:].any()
 
 
+def test_flash_backward_kernel_holds_sharp_scores(dev):
+    """Scores scaled x8 (q x 8: rows whose p is near one-hot), where a
+    TF32 rounding of s would show in p: the split-TF32 products stay
+    within `_close_grad` of the twin (tiny's training self read)."""
+    B, T, S, H, kv_len, q_offset, causal = _FLASH_BWD_CASES[0]
+    args = _flash_bwd_inputs(B, T, S, H, kv_len, q_offset, causal, dev, 44,
+                             q_scale=8.0)
+    kw = dict(kv_len=kv_len, q_offset=q_offset, causal=causal)
+    got = flash_attention_backward(*args, **kw)
+    want = flash_attention_backward_plain(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_grad(a, b, name)
+
+
 def test_flash_backward_reads_fused_qkv_views(dev):
     """q, k and v strided views of one fused projection, as the decoder
     hands them over."""
@@ -1407,7 +1427,7 @@ def test_flash_backward_reads_fused_qkv_views(dev):
         _close_grad(a, b)
 
 
-@pytest.mark.parametrize("case", [0, 1, 5])
+@pytest.mark.parametrize("case", [0, 1, 5, 9])
 def test_flash_backward_kernel_is_deterministic(dev, case):
     args = _flash_bwd_inputs(*_FLASH_BWD_CASES[case], dev, 42)
     B, T, S, H, kv_len, q_offset, causal = _FLASH_BWD_CASES[case]

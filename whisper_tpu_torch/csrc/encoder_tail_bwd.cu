@@ -48,7 +48,10 @@
 // attention's. A tiny B=16 fp32 layer (24,000 rows, d 384, ff 1536) is
 // twice the forward's products (127 GFLOP) plus the attention backward's
 // 2.5 times the forward's attention (138 GFLOP): 3.96 ms at the 67
-// TFLOP/s fp32 peak. The passes here read and write ~0.6 GB (0.18 ms at
+// TFLOP/s fp32 peak. The attention runs as split TF32 on the tensor cores
+// (flash_attention_bwd.cu, 495 / 3 = 165 TFLOP/s of fp32 products): with
+// the products at 67 and the attention at 165 the layer's bound is 1.90 +
+// 0.84 = 2.74 ms. The passes here read and write ~0.6 GB (0.18 ms at
 // 3.35 TB/s); the two recomputed products add 35 GFLOP.
 
 #include <math.h>

@@ -1,4 +1,5 @@
-// Flash attention's backward for Hopper (sm_90a), fp32.
+// Flash attention's backward for Hopper (sm_90a), fp32, on the tensor
+// cores.
 //
 // Replaces no TPU kernel: the JAX package has no backward kernel, it
 // differentiates its XLA graph (whisper_tpu/train.py:65
@@ -17,40 +18,85 @@
 // 2^(s c - lse log2 e) with c = D^-0.5 log2 e, one FFMA and one ex2.approx
 // on the raw score. Keys are visible as in the forward: s < kv_len and,
 // under `causal`, s <= q_offset + t. No (T, S) tensor exists anywhere:
-// p and ds live in registers and in a block's shared memory.
+// p and ds live in registers.
 //
-// What bounds it on the H100: operations. The train path runs in true
-// fp32 (TF32 off, as JAX's Precision.HIGHEST), so every product is an
-// FFMA on the CUDA cores, 67 TFLOP/s. The five products of the backward
-// (s, dp, dv, dk, dq) are 2.5 times the forward's two. A tiny B=16
-// training step's cross read (H=6, T=224, 1500 keys) is 0.31 ms of them at
-// peak, the causal self read over 224 keys 0.023 ms; the encoder tail's
-// attention at tiny B=16 (T = S = 1500) 2.06 ms.
+// Products: split TF32 on the tensor cores. The train path runs in fp32
+// (TF32 off, as JAX's Precision.HIGHEST), which on the CUDA cores is 67
+// TFLOP/s. Here every fp32 operand x is split in registers as it is loaded:
+// big = x rounded to TF32, to nearest with ties away (cvt.rna.tf32.f32's
+// rounding, done with two integer instructions where the compiler's cvt
+// adds a NaN test and a select), and small = x - big, exact in fp32, whose
+// low 13 bits the tensor cores drop. A product a.b is three m16n8k8 TF32
+// MMAs, a_small.b_big and a_big.b_small first, a_big.b_big last. big and
+// small keep about 21 of x's 24 bits and each TF32 product is exact in
+// fp32; the term left out, a_small.b_small, is 2^-22 of the product. So
+// the sum keeps fp32's order of error, where a single TF32 pass (11 bits)
+// misses the tests' 1e-5 of max |g| by 40 to 500 times
+// (tests/test_torch_backward.py models both on the CPU, bit for bit in the
+// operands). The tensor cores' fp32 sums are not taken to round to
+// nearest (they have been measured to truncate on earlier NVIDIA parts):
+// in that model a product accumulated whole drifts to 1.3-2.4 times the
+// tolerance at the encoder's 1,500 keys or with scores scaled x8. So no
+// MMA accumulator sums long: a score's three MMAs of one k-step (8 head
+// dims) start from zero and are added to s by round-to-nearest FADDs, and
+// the long sums (dv and dk over queries, dq over keys) take one 32-row
+// tile in a fresh accumulator, folded into the registers' sum the same
+// way.
 //
-// Design, on the fp32 forward's (flash_attention.cu :55-85): register
-// micro-tiles, rows padded to 68 floats so that a warp's 128-bit loads are
-// broadcasts or single wavefronts, 16-byte cp.async into a ring of two
-// stages (the next tile is in flight while this one is computed), and
-// three launches:
+// What bounds it on the H100: operations. At three MMAs a product the
+// tensor cores' 495 TFLOP/s of dense TF32 give 165 TFLOP/s of fp32
+// products, 2.46 times the CUDA cores' 67. The five products of the
+// backward (s, dp, dv, dk, dq, 2.5 times the forward's two) at that rate:
+// a tiny B=16 training step's encoder attention (H=6, T = S = 1500) 0.84
+// ms, its cross read (T=224, 1500 keys) 0.125 ms, its causal self read over
+// 224 keys 0.0094 ms (2.06, 0.31 and 0.023 ms on the CUDA cores). mma.sync
+// reaches about 300 of the 495 TFLOP/s in TF32 on this card, so the
+// kernel's own floor is 1.7 times those bounds, and its 7 products (below)
+// are 1.4 times the bound's 5.
+//
+// Design: three launches, no atomics.
 //   1. delta_kernel: delta = sum_d dO * out, 16 lanes a row;
 //   2. dkdv_kernel, one block per (64-key tile, head, batch row), four
-//      warps, warp w owning keys 16w..16w+15: the block's K and V rows stay
-//      in shared memory (88 KB with the ring, two blocks an SM) while
-//      32-query tiles of q, dO, lse and delta stream past. Per tile a lane
-//      computes s^T and dp^T for 4 keys x 4 queries (one pass over the
-//      head dim: 4 + 4 reads of K and V rows, 4 + 4 of q and dO rows per 4
-//      dims feed 128 FMAs), then p^T and ds^T go through the warp's own
-//      rows of two shared buffers to the lanes that accumulate dv and dk
-//      (4 keys x 8 head dims a lane each, 64 accumulators), ordered by
-//      __syncwarp. Under causal the loop starts at the first query tile
-//      that sees the block's first key;
-//   3. dq_kernel, one block per (64-query tile, head, batch row), the
-//      forward's layout (warp w owning rows 16w..16w+15): q and dO stay in
-//      shared memory while 32-key tiles of K and V stream past; per tile s
-//      and dp (4 rows x 4 keys a lane), then ds through shared memory into
-//      dq (4 rows x 8 dims a lane). This pass recomputes s and dp, which
+//      warps, warp w owning keys 16w..16w+15 (one MMA row block): the
+//      block's K and V rows stay in shared memory while 32-query tiles of
+//      q and dO, with their rows' lse and delta, stream through a
+//      two-stage cp.async ring (the next tile in flight while this one is
+//      computed). Per tile a warp forms s^T = K_w
+//      q^T (16 keys x 32 queries) as C fragments (A: its K rows, B: the
+//      tile's q rows) and p^T in place, then dv += p^T dO, then dp^T = V_w
+//      dO^T, ds^T in place, and dk += ds^T q (p^T before dp^T, so that s,
+//      dp and a partial are never live together). p^T and ds^T never leave
+//      the registers: a C fragment holds columns 2t and 2t+1 of rows g and
+//      g+8, which is an A fragment whose k slot t is column 2t and slot t+4
+//      column 2t+1; the B fragment then takes rows 2t and 2t+1 of the tile
+//      (the sum over k does not care how its slots are numbered). B's n
+//      columns are numbered too: n-block 4m+e, column g is head dim
+//      32m+4g+e, so one float4 of a row feeds four n-blocks and a lane's
+//      accumulators are 8 consecutive dims of two rows (two float4 stores).
+//      Under causal the loop starts at the first query tile that sees the
+//      block's first key;
+//   3. dq_kernel, one block per (64-query tile, head, batch row), warp w
+//      owning rows 16w..16w+15: q and dO stay in shared memory while
+//      32-key tiles of K and V stream past; per tile s and dp, ds in place
+//      and dq += ds K the same way. This pass recomputes s and dp, which
 //      the dk/dv pass also forms: 7 products against the bound's 5, the
-//      price of no atomics.
+//      price of no atomics (one launch for both passes, by an ordered dq
+//      accumulation, is later work).
+// Shared memory keeps plain fp32 rows padded to 68 floats, so every
+// fragment read falls on 32 distinct banks: a scalar read of row g, column
+// t (bank 4g + t), and a float4 of rows 2t or 2t+1 at column 4g (a quarter
+// warp's eight float4 on distinct bank quads). 70,144 B a block in both
+// passes. Tiles: 64 keys (and 64 queries) a block with 4 warps, three
+// blocks an SM in both passes (210 KB of shared memory, 168 registers a
+// thread, none spilled): the dk/dv pass holds 64 accumulators a thread
+// (dk and dv, 16 x 64 each over 32 lanes) and the dq pass 32. The passes
+// wait on MMA and shared-memory latency more than on issue, so the third
+// block an SM (12 warps) is what pays: at two blocks and 255 registers
+// both passes ran slower, at four (128 registers, one cp.async stage)
+// they spilled, and 128 keys a block (8 warps) would cap a thread at 128
+// registers. The score loop over the head dim is unrolled by 2, which
+// keeps the dk/dv pass within 168 registers. Three blocks also fit tiny's
+// training reads (T = 224: 384 dq blocks) in one wave of 396.
 // Determinism: every sum has a fixed order (no atomicAdd), so a rerun is
 // bit-equal. dk and dv rows at or past the last visible key are written
 // as zeros: a block whose keys no query sees skips its loop; within a
@@ -82,11 +128,16 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SCALE_LOG2E = SCALE * LOG2E;
 constexpr int THREADS = 128;            // 4 warps
 constexpr int LD = HEAD_DIM + 4;        // padded row (floats) of q, dO, K, V
+constexpr int TILE = 32;                // streamed rows a tile, both passes
+constexpr int NB = TILE / 8;            // a tile's 8-row MMA blocks
 
 using wt::cp_async16;
+using wt::cp_async4;
 using wt::cp_async_commit;
 using wt::cp_async_wait;
+using wt::mma_m16n8k8_tf32;
 using wt::smem_addr;
+using wt::split_tf32;
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -104,18 +155,6 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy8(float (&acc)[8], float a,
-                                      const float4& x0, const float4& x1) {
-  acc[0] = fmaf(a, x0.x, acc[0]);
-  acc[1] = fmaf(a, x0.y, acc[1]);
-  acc[2] = fmaf(a, x0.z, acc[2]);
-  acc[3] = fmaf(a, x0.w, acc[3]);
-  acc[4] = fmaf(a, x1.x, acc[4]);
-  acc[5] = fmaf(a, x1.y, acc[5]);
-  acc[6] = fmaf(a, x1.z, acc[6]);
-  acc[7] = fmaf(a, x1.w, acc[7]);
 }
 
 // rows [r0, r0 + ROWS) of a (rows, 64) fp32 matrix whose rows lie
@@ -138,13 +177,146 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// 8 values of a 64-float row: dims 4c..4c+3 and 32+4c..32+4c+3, scaled
-__device__ __forceinline__ void store_row8(float* row, const float (&x)[8],
-                                           float scale, int c) {
-  *reinterpret_cast<float4*>(row + 4 * c) =
-      make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
-  *reinterpret_cast<float4*>(row + 32 + 4 * c) =
-      make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
+// lse and delta at rows [r0, r0 + TILE) of one (b, h) into shared memory,
+// lse's TILE values then delta's: 4-byte cp.async, one thread a value;
+// rows at or past `end` are zero-filled and not read
+__device__ __forceinline__ void load_lse_delta(float* dst, const float* lse,
+                                               const float* delta, int r0,
+                                               int end, int tid) {
+  if (tid >= 2 * TILE) return;
+  const int r = r0 + (tid & (TILE - 1));
+  const bool live = r < end;
+  cp_async4(smem_addr(dst + tid), (tid < TILE ? lse : delta) + (live ? r : 0),
+            live ? 4 : 0);
+}
+
+// ---------------------------------------------------------------------------
+// Split-TF32 fragments (lane = 4 g + t) and products
+// ---------------------------------------------------------------------------
+
+struct FragA {                          // 16 x 8, big and small parts
+  uint32_t hi[4], lo[4];
+};
+struct FragB {                          // 8 x 8
+  uint32_t hi[2], lo[2];
+};
+
+// The A fragment of 8 head dims of a warp's 16 shared rows: `p` is row g,
+// column k0 + t
+__device__ __forceinline__ FragA load_a(const float* p) {
+  FragA f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8 * LD], f.hi[1], f.lo[1]);
+  split_tf32(p[4], f.hi[2], f.lo[2]);
+  split_tf32(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The B fragment whose column g is shared row n0 + g over 8 head dims: `p`
+// is row n0 + g, column k0 + t
+__device__ __forceinline__ FragB load_b(const float* p) {
+  FragB f;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// A C fragment (rows g, g+8; columns 2t, 2t+1) as the A fragment of a
+// product over its columns: k slot t is column 2t, slot t+4 column 2t+1
+__device__ __forceinline__ FragA c_as_a(const float (&c)[4]) {
+  FragA f;
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// d[n] += a . b[n] at fp32's accuracy: small.big, big.small, then big.big
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const FragA& a,
+                                     const FragB (&b)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], a.lo, b[n].hi);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], a.hi, b[n].lo);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_m16n8k8_tf32(d[n], a.hi, b[n].hi);
+}
+
+// s (16 rows x TILE columns, C fragments) = X_w Y^T over the 64 head dims:
+// `x` is the warp's resident row g at column t (A), `y` the tile's row g
+// at column t (B, n-block j at rows 8j..8j+7). Each k-step's three MMAs
+// start from zero and are added to s with round-to-nearest FADDs.
+__device__ __forceinline__ void scores(float (&s)[NB][4], const float* x,
+                                       const float* y) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < HEAD_DIM / 8; ++kk) {
+    const FragA a = load_a(x + 8 * kk);
+    FragB b[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) b[j] = load_b(y + 8 * j * LD + 8 * kk);
+    float part[NB][4] = {};
+    mma3(part, a, b);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] += part[j][c];
+  }
+}
+
+// acc (16 rows x 64 dims) += X . R over the tile's TILE rows: X the C
+// fragments of a (16, TILE) product (p^T, ds^T or ds) as A, R the tile's
+// shared rows (dO, q or K) as B, `rows` its row 2t at column 4g. n-block
+// 4m + e, column g is dim 32m + 4g + e: acc[4m + e][c] is row g + 8 (c / 2),
+// dim 32m + 8t + 4 (c % 2) + e. One fresh partial a 32-dim half, folded
+// into acc with round-to-nearest FADDs.
+__device__ __forceinline__ void tile_product(float (&acc)[8][4],
+                                             const float (&x)[NB][4],
+                                             const float* rows) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    float part[4][4] = {};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const FragA a = c_as_a(x[j]);
+      const float* r = rows + 8 * j * LD + 32 * m;
+      const float4 r0 = *reinterpret_cast<const float4*>(r);
+      const float4 r1 = *reinterpret_cast<const float4*>(r + LD);
+      FragB b[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(lane4(r0, e), b[e].hi[0], b[e].lo[0]);
+        split_tf32(lane4(r1, e), b[e].hi[1], b[e].lo[1]);
+      }
+      mma3(part, a, b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[4 * m + e][c] += part[e][c];
+  }
+}
+
+// row g (half 0) or g + 8 (half 1) of acc, scaled, into a 64-float row:
+// dims 32m + 8t .. 32m + 8t + 7
+__device__ __forceinline__ void store_half(float* row, const float (&acc)[8][4],
+                                           int half, float scale, int t) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int c = 2 * half;
+    float* dst = row + 32 * m + 8 * t;
+    *reinterpret_cast<float4*>(dst) = make_float4(
+        acc[4 * m][c] * scale, acc[4 * m + 1][c] * scale,
+        acc[4 * m + 2][c] * scale, acc[4 * m + 3][c] * scale);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(
+        acc[4 * m][c + 1] * scale, acc[4 * m + 1][c + 1] * scale,
+        acc[4 * m + 2][c + 1] * scale, acc[4 * m + 3][c + 1] * scale);
+  }
 }
 
 // delta[b, h, t] = sum_d dO[b, t, h, d] out[b, t, h, d]: 16 lanes a row of
@@ -178,6 +350,14 @@ struct Args {
   long long sq_b, sq_t, sq_h, sk_b, sk_h, sk_s, sv_b, sv_h, sv_s;
 };
 
+// Both passes: 64 resident rows (two tensors), a ring of two stages of
+// TILE streamed rows (two tensors) and, in the dk/dv pass, their rows'
+// lse and delta: 70,144 B
+constexpr int RES_FLOATS = 64 * LD;
+constexpr int STAGE_FLOATS = 2 * TILE * LD + 2 * TILE;
+constexpr size_t SMEM = (size_t)(2 * RES_FLOATS + 2 * STAGE_FLOATS) *
+                        sizeof(float);
+
 // ---------------------------------------------------------------------------
 // dk and dv: one block per (64-key tile, head, batch row)
 // ---------------------------------------------------------------------------
@@ -185,42 +365,31 @@ struct Args {
 namespace kv {
 
 constexpr int BKV = 64;                 // keys a block
-constexpr int BQ = 32;                  // queries a tile
-constexpr int PLD = BQ + 4;             // padded row of p^T and ds^T
-constexpr int KV_FLOATS = BKV * LD;
-constexpr int STAGE_FLOATS = 2 * BQ * LD;           // q, then dO
-// K, V, a ring of two q/dO stages, p^T and ds^T: 88 KB, two blocks an SM
-constexpr size_t SMEM =
-    (size_t)(2 * KV_FLOATS + 2 * STAGE_FLOATS + 2 * BKV * PLD) *
-    sizeof(float);
 
-// Thread layout: warp w owns the block's keys 16w..16w+15. Lane = 8 rg + c:
-// its keys 16w + rg + 4i (i < 4), its queries of a tile c + 8j (j < 4), its
-// head dims 4c..4c+3 and 32+4c..32+4c+3 of dk and dv.
+// warp w owns the block's keys 16w..16w+15: lane (g, t) holds keys
+// 16w + g and 16w + g + 8 of every fragment
 template <bool CAUSAL>
-__global__ void __launch_bounds__(THREADS, 2) dkdv_kernel(const Args a) {
+__global__ void __launch_bounds__(THREADS, 3) dkdv_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                       // [BKV][LD]
-  float* Vs = Ks + KV_FLOATS;             // [BKV][LD]
-  float* ring = Vs + KV_FLOATS;           // stage st at st * STAGE_FLOATS
-  float* Ps = ring + 2 * STAGE_FLOATS;    // [BKV][PLD], p^T of this tile
-  float* Ds = Ps + BKV * PLD;             // [BKV][PLD], ds^T of this tile
+  float* Vs = Ks + RES_FLOATS;            // [BKV][LD]
+  float* ring = Vs + RES_FLOATS;          // stage st at st * STAGE_FLOATS
 
   const int k0 = blockIdx.x * BKV;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int c = lane & 7;
-  const int row0 = 16 * (tid >> 5) + (lane >> 3);   // and row0 + 4, 8, 12
+  const int w = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
 
   // one past the last key any query sees, and the first query tile that
   // sees key k0 (under causal: q_offset + t >= k0)
   const int key_end = CAUSAL ? min(a.kv_len, a.q_offset + a.t_len)
                              : a.kv_len;
-  const int tile0 = CAUSAL ? max(0, k0 - a.q_offset) / BQ : 0;
+  const int tile0 = CAUSAL ? max(0, k0 - a.q_offset) / TILE : 0;
   const int n_tiles =
-      k0 < key_end ? (a.t_len + BQ - 1) / BQ - tile0 : 0;
+      k0 < key_end ? (a.t_len + TILE - 1) / TILE - tile0 : 0;
   const long long sg_t = (long long)a.n_heads * HEAD_DIM;   // dO's rows
   const float* qb = a.q + b * a.sq_b + h * a.sq_h;
   const float* gb = a.d_out + (size_t)b * a.t_len * sg_t + h * HEAD_DIM;
@@ -232,135 +401,85 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_kernel(const Args a) {
                    tid);
     load_rows<BKV>(Vs, a.v + b * a.sv_b + h * a.sv_h, a.sv_s, k0, key_end,
                    tid);
-    load_rows<BQ>(ring, qb, a.sq_t, tile0 * BQ, a.t_len, tid);
-    load_rows<BQ>(ring + BQ * LD, gb, sg_t, tile0 * BQ, a.t_len, tid);
+    load_rows<TILE>(ring, qb, a.sq_t, tile0 * TILE, a.t_len, tid);
+    load_rows<TILE>(ring + TILE * LD, gb, sg_t, tile0 * TILE, a.t_len, tid);
+    load_lse_delta(ring + 2 * TILE * LD, lb, db, tile0 * TILE, a.t_len, tid);
   }
   cp_async_commit();
 
-  float dk[4][8], dv[4][8];
+  float dk[8][4], dv[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) dk[i][e] = dv[i][e] = 0.f;
-  const float* krow = Ks + row0 * LD;
-  const float* vrow = Vs + row0 * LD;
-  float* prow = Ps + row0 * PLD;
-  float* drow = Ds + row0 * PLD;
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+  const float* kw = Ks + (16 * w + g) * LD + t;
+  const float* vw = Vs + (16 * w + g) * LD + t;
+  const int key = k0 + 16 * w + g;        // and key + 8
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int t0 = (tile0 + it) * BQ;
+    const int t0 = (tile0 + it) * TILE;
     // this tile has landed; the barrier publishes it and frees the last
     // tile's stage for the next copy, which then runs under this tile
     cp_async_wait<0>();
     __syncthreads();
     if (it + 1 < n_tiles) {
       float* dst = ring + ((it + 1) & 1) * STAGE_FLOATS;
-      load_rows<BQ>(dst, qb, a.sq_t, t0 + BQ, a.t_len, tid);
-      load_rows<BQ>(dst + BQ * LD, gb, sg_t, t0 + BQ, a.t_len, tid);
+      load_rows<TILE>(dst, qb, a.sq_t, t0 + TILE, a.t_len, tid);
+      load_rows<TILE>(dst + TILE * LD, gb, sg_t, t0 + TILE, a.t_len, tid);
+      load_lse_delta(dst + 2 * TILE * LD, lb, db, t0 + TILE, a.t_len, tid);
     }
     cp_async_commit();
     const float* Qs = ring + (it & 1) * STAGE_FLOATS;
-    const float* Gs = Qs + BQ * LD;
+    const float* Gs = Qs + TILE * LD;
+    const float* Ls = Gs + TILE * LD;     // lse, then delta (0 past T)
 
-    // this lane's queries t0 + c + 8j: lse in log2 units, and delta
-    float l2[4], dl[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = t0 + c + 8 * j;
-      l2[j] = t < a.t_len ? lb[t] * LOG2E : 0.f;
-      dl[j] = t < a.t_len ? db[t] : 0.f;
-    }
-
-    // s^T = K q^T and dp^T = V dO^T for keys row0 + 4i, queries c + 8j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < HEAD_DIM / 4; ++kc) {
-      float4 kf[4], vf[4], qf[4], gf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kf[i] = *reinterpret_cast<const float4*>(krow + 4 * i * LD + 4 * kc);
-        vf[i] = *reinterpret_cast<const float4*>(vrow + 4 * i * LD + 4 * kc);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qf[j] = *reinterpret_cast<const float4*>(Qs + (c + 8 * j) * LD +
-                                                 4 * kc);
-        gf[j] = *reinterpret_cast<const float4*>(Gs + (c + 8 * j) * LD +
-                                                 4 * kc);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(kf[i], qf[j], s[i][j]);
-          dp[i][j] = dot4(vf[i], gf[j], dp[i][j]);
-        }
-    }
-
-    // p^T and ds^T; masks only on a ragged or diagonal tile: queries past
-    // T, keys at or past key_end, and under causal keys past the query's
-    // diagonal
-    const bool edge = t0 + BQ > a.t_len || k0 + BKV > key_end ||
+    // s^T = K_w q^T (16 keys x 32 queries), then p^T in place: this
+    // lane's queries t0 + 8j + 2t + (c & 1), keys key + 8 (c >> 1). Masks
+    // only on a ragged or diagonal tile: queries past T, keys at or past
+    // key_end, and under causal keys past the query's diagonal
+    float p[NB][4];
+    scores(p, kw, Qs + g * LD + t);
+    const bool edge = t0 + TILE > a.t_len || k0 + BKV > key_end ||
                       (CAUSAL && k0 + BKV - 1 > a.q_offset + t0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + row0 + 4 * i;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + c + 8 * j;
-        float p = exp2_approx(fmaf(s[i][j], SCALE_LOG2E, -l2[j]));
-        float ds = p * (dp[i][j] - dl[j]);
-        if (edge && (t >= a.t_len || key >= key_end ||
-                     (CAUSAL && key > a.q_offset + t)))
-          p = ds = 0.f;
-        prow[4 * i * PLD + c + 8 * j] = p;
-        drow[4 * i * PLD + c + 8 * j] = ds;
+      for (int c = 0; c < 4; ++c) {
+        const int kc = key + 8 * (c >> 1);
+        const int tq = t0 + 8 * j + 2 * t + (c & 1);
+        const float l2 = Ls[8 * j + 2 * t + (c & 1)] * LOG2E;
+        p[j][c] = exp2_approx(fmaf(p[j][c], SCALE_LOG2E, -l2));
+        if (edge && (tq >= a.t_len || kc >= key_end ||
+                     (CAUSAL && kc > a.q_offset + tq)))
+          p[j][c] = 0.f;
       }
-    }
-    __syncwarp();
+    // dv += p^T dO over the tile's queries
+    tile_product(dv, p, Gs + 2 * t * LD + 4 * g);
 
-    // dv += p^T dO and dk += ds^T q over the tile's queries: per 4
-    // queries, 4 + 4 reads of p^T and ds^T and 4 x 4 of dO and q rows feed
-    // 256 FMAs
-#pragma unroll 2
-    for (int qc = 0; qc < BQ / 4; ++qc) {
-      float4 pf[4], sf[4];
+    // dp^T = V_w dO^T, then ds^T = p^T (dp^T - delta) in place (0 where p
+    // is: dp is finite)
+    float ds[NB][4];
+    scores(ds, vw, Gs + g * LD + t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pf[i] = *reinterpret_cast<const float4*>(prow + 4 * i * PLD + 4 * qc);
-        sf[i] = *reinterpret_cast<const float4*>(drow + 4 * i * PLD + 4 * qc);
-      }
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* gr = Gs + (4 * qc + e) * LD + 4 * c;
-        const float* qr = Qs + (4 * qc + e) * LD + 4 * c;
-        const float4 g0 = *reinterpret_cast<const float4*>(gr);
-        const float4 g1 = *reinterpret_cast<const float4*>(gr + 32);
-        const float4 q0 = *reinterpret_cast<const float4*>(qr);
-        const float4 q1 = *reinterpret_cast<const float4*>(qr + 32);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          axpy8(dv[i], lane4(pf[i], e), g0, g1);
-          axpy8(dk[i], lane4(sf[i], e), q0, q1);
-        }
-      }
-    }
+      for (int c = 0; c < 4; ++c)
+        ds[j][c] =
+            p[j][c] * (ds[j][c] - Ls[TILE + 8 * j + 2 * t + (c & 1)]);
+    // dk += ds^T q over the tile's queries
+    tile_product(dk, ds, Qs + 2 * t * LD + 4 * g);
   }
   cp_async_wait<0>();    // no copy outlives the block
 
   // every key row of the tile below S: zeros where no query saw the key
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + row0 + 4 * i;
-    if (key >= a.s_len) continue;
-    const size_t at = (((size_t)b * a.n_heads + h) * a.s_len + key) *
+  for (int half = 0; half < 2; ++half) {
+    const int kr = key + 8 * half;
+    if (kr >= a.s_len) continue;
+    const size_t at = (((size_t)b * a.n_heads + h) * a.s_len + kr) *
                       HEAD_DIM;
-    store_row8(a.dk + at, dk[i], SCALE, c);
-    store_row8(a.dv + at, dv[i], 1.f, c);
+    store_half(a.dk + at, dk, half, SCALE, t);
+    store_half(a.dv + at, dv, half, 1.f, t);
   }
 }
 
@@ -373,37 +492,28 @@ __global__ void __launch_bounds__(THREADS, 2) dkdv_kernel(const Args a) {
 namespace qd {
 
 constexpr int BQ = 64;                  // query rows a block
-constexpr int BK = 32;                  // keys a tile
-constexpr int PLD = BK + 4;             // padded row of ds
-constexpr int Q_FLOATS = BQ * LD;
-constexpr int STAGE_FLOATS = 2 * BK * LD;           // K, then V
-// q, dO, a ring of two K/V stages and ds: 79 KB, two blocks an SM
-constexpr size_t SMEM =
-    (size_t)(2 * Q_FLOATS + 2 * STAGE_FLOATS + BQ * PLD) * sizeof(float);
 
-// Thread layout (the forward's): warp w owns the block's rows
-// 16w..16w+15. Lane = 8 rg + c: its rows 16w + rg + 4i (i < 4), its keys of
-// a tile c + 8j (j < 4), its head dims 4c..4c+3 and 32+4c..32+4c+3 of dq.
+// warp w owns the block's rows 16w..16w+15: lane (g, t) holds rows
+// 16w + g and 16w + g + 8 of every fragment
 template <bool CAUSAL>
-__global__ void __launch_bounds__(THREADS, 2) dq_kernel(const Args a) {
+__global__ void __launch_bounds__(THREADS, 3) dq_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                       // [BQ][LD]
-  float* Gs = Qs + Q_FLOATS;              // [BQ][LD], dO
-  float* ring = Gs + Q_FLOATS;            // stage st at st * STAGE_FLOATS
-  float* Ds = ring + 2 * STAGE_FLOATS;    // [BQ][PLD], ds of this tile
+  float* Gs = Qs + RES_FLOATS;            // [BQ][LD], dO
+  float* ring = Gs + RES_FLOATS;          // stage st at st * STAGE_FLOATS
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int c = lane & 7;
-  const int row0 = 16 * (tid >> 5) + (lane >> 3);   // and row0 + 4, 8, 12
+  const int w = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
 
   const int q_last = min(q0 + BQ, a.t_len) - 1;
   const int key_end = CAUSAL ? min(a.kv_len, a.q_offset + q_last + 1)
                              : a.kv_len;
-  const int n_tiles = (key_end + BK - 1) / BK;
+  const int n_tiles = (key_end + TILE - 1) / TILE;
   const long long sg_t = (long long)a.n_heads * HEAD_DIM;
   const float* kb = a.k + b * a.sk_b + h * a.sk_h;
   const float* vb = a.v + b * a.sv_b + h * a.sv_h;
@@ -414,120 +524,86 @@ __global__ void __launch_bounds__(THREADS, 2) dq_kernel(const Args a) {
   load_rows<BQ>(Gs, a.d_out + (size_t)b * a.t_len * sg_t + h * HEAD_DIM,
                 sg_t, q0, a.t_len, tid);
   if (n_tiles > 0) {
-    load_rows<BK>(ring, kb, a.sk_s, 0, key_end, tid);
-    load_rows<BK>(ring + BK * LD, vb, a.sv_s, 0, key_end, tid);
+    load_rows<TILE>(ring, kb, a.sk_s, 0, key_end, tid);
+    load_rows<TILE>(ring + TILE * LD, vb, a.sv_s, 0, key_end, tid);
   }
   cp_async_commit();
 
   // this lane's rows: lse in log2 units, and delta (0 past T)
-  float l2[4], dl[4], dq[4][8];
+  const int row = q0 + 16 * w + g;        // and row + 8
   const size_t row_base = ((size_t)b * a.n_heads + h) * a.t_len;
+  float l2[2], dl[2], dq[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + row0 + 4 * i;
-    l2[i] = t < a.t_len ? a.lse[row_base + t] * LOG2E : 0.f;
-    dl[i] = t < a.t_len ? a.delta[row_base + t] : 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dq[i][e] = 0.f;
+  for (int half = 0; half < 2; ++half) {
+    const int tr = row + 8 * half;
+    l2[half] = tr < a.t_len ? a.lse[row_base + tr] * LOG2E : 0.f;
+    dl[half] = tr < a.t_len ? a.delta[row_base + tr] : 0.f;
   }
-  const float* qrow = Qs + row0 * LD;
-  const float* grow = Gs + row0 * LD;
-  float* drow = Ds + row0 * PLD;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[n][c] = 0.f;
+  const float* qw = Qs + (16 * w + g) * LD + t;
+  const float* gw = Gs + (16 * w + g) * LD + t;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     cp_async_wait<0>();
     __syncthreads();
     if (tile + 1 < n_tiles) {
       float* dst = ring + ((tile + 1) & 1) * STAGE_FLOATS;
-      load_rows<BK>(dst, kb, a.sk_s, (tile + 1) * BK, key_end, tid);
-      load_rows<BK>(dst + BK * LD, vb, a.sv_s, (tile + 1) * BK, key_end,
-                    tid);
+      load_rows<TILE>(dst, kb, a.sk_s, (tile + 1) * TILE, key_end, tid);
+      load_rows<TILE>(dst + TILE * LD, vb, a.sv_s, (tile + 1) * TILE,
+                      key_end, tid);
     }
     cp_async_commit();
     const float* Ks = ring + (tile & 1) * STAGE_FLOATS;
-    const float* Vs = Ks + BK * LD;
+    const float* Vs = Ks + TILE * LD;
 
-    // s = q K^T and dp = dO V^T for rows row0 + 4i, keys c + 8j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < HEAD_DIM / 4; ++kc) {
-      float4 qf[4], gf[4], kf[4], vf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qf[i] = *reinterpret_cast<const float4*>(qrow + 4 * i * LD + 4 * kc);
-        gf[i] = *reinterpret_cast<const float4*>(grow + 4 * i * LD + 4 * kc);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kf[j] = *reinterpret_cast<const float4*>(Ks + (c + 8 * j) * LD +
-                                                 4 * kc);
-        vf[j] = *reinterpret_cast<const float4*>(Vs + (c + 8 * j) * LD +
-                                                 4 * kc);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = dot4(qf[i], kf[j], s[i][j]);
-          dp[i][j] = dot4(gf[i], vf[j], dp[i][j]);
-        }
-    }
+    // s = q_w K^T and dp = dO_w V^T (16 rows x 32 keys)
+    float s[NB][4], dp[NB][4];
+    scores(s, qw, Ks + g * LD + t);
+    scores(dp, gw, Vs + g * LD + t);
 
-    // ds; masks only on a ragged or diagonal tile
-    const int s0 = tile * BK;
+    // ds in place of s; masks only on a ragged or diagonal tile
+    const int s0 = tile * TILE;
     const bool edge =
-        s0 + BK > key_end || (CAUSAL && s0 + BK - 1 > a.q_offset + q0);
+        s0 + TILE > key_end || (CAUSAL && s0 + TILE - 1 > a.q_offset + q0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = a.q_offset + q0 + row0 + 4 * i;
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = s0 + c + 8 * j;
-        const float p = exp2_approx(fmaf(s[i][j], SCALE_LOG2E, -l2[i]));
-        float ds = p * (dp[i][j] - dl[i]);
-        if (edge && (key >= key_end || (CAUSAL && key > q_pos))) ds = 0.f;
-        drow[4 * i * PLD + c + 8 * j] = ds;
+      for (int c = 0; c < 4; ++c) {
+        const int half = c >> 1;
+        const int kc = s0 + 8 * j + 2 * t + (c & 1);
+        const float p =
+            exp2_approx(fmaf(s[j][c], SCALE_LOG2E, -l2[half]));
+        float ds = p * (dp[j][c] - dl[half]);
+        if (edge && (kc >= key_end ||
+                     (CAUSAL && kc > a.q_offset + row + 8 * half)))
+          ds = 0.f;
+        s[j][c] = ds;
       }
-    }
-    __syncwarp();
 
-    // dq += ds K: per 4 keys, 4 reads of ds and 8 of K feed 128 FMAs
-#pragma unroll 2
-    for (int kc = 0; kc < BK / 4; ++kc) {
-      float4 sf[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sf[i] = *reinterpret_cast<const float4*>(drow + 4 * i * PLD + 4 * kc);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* kr = Ks + (4 * kc + e) * LD + 4 * c;
-        const float4 k0v = *reinterpret_cast<const float4*>(kr);
-        const float4 k1v = *reinterpret_cast<const float4*>(kr + 32);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) axpy8(dq[i], lane4(sf[i], e), k0v, k1v);
-      }
-    }
+    // dq += ds K over the tile's keys
+    tile_product(dq, s, Ks + 2 * t * LD + 4 * g);
   }
   cp_async_wait<0>();    // no copy outlives the block
 
   // dq (B, T, H, D) contiguous; zeros for a row that sees no key
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + row0 + 4 * i;
-    if (t >= a.t_len) continue;
-    store_row8(a.dq + (((size_t)b * a.t_len + t) * a.n_heads + h) * HEAD_DIM,
-               dq[i], SCALE, c);
+  for (int half = 0; half < 2; ++half) {
+    const int tr = row + 8 * half;
+    if (tr >= a.t_len) continue;
+    store_half(a.dq + (((size_t)b * a.t_len + tr) * a.n_heads + h) *
+                          HEAD_DIM,
+               dq, half, SCALE, t);
   }
 }
 
 }  // namespace qd
 
 // The two tiled kernels take more than the 48 KB a launch gets without
-// opting in: each instantiation opts in once per device.
+// opting in, and three blocks an SM take the largest shared-memory
+// carveout: each instantiation opts in once per device.
 cudaError_t opt_in() {
   static std::atomic<unsigned long long> done{0};
   int dev = 0;
@@ -535,16 +611,18 @@ cudaError_t opt_in() {
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
   if (done.load() & bit) return cudaSuccess;
-  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  if ((e = cudaFuncSetAttribute(kv::dkdv_kernel<false>, attr,
-                                (int)kv::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(kv::dkdv_kernel<true>, attr,
-                                (int)kv::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(qd::dq_kernel<false>, attr,
-                                (int)qd::SMEM)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(qd::dq_kernel<true>, attr,
-                                (int)qd::SMEM)) != cudaSuccess)
-    return e;
+  const void* fns[4] = {(const void*)kv::dkdv_kernel<false>,
+                        (const void*)kv::dkdv_kernel<true>,
+                        (const void*)qd::dq_kernel<false>,
+                        (const void*)qd::dq_kernel<true>};
+  for (const void* fn : fns)
+    if ((e = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM)) !=
+            cudaSuccess ||
+        (e = cudaFuncSetAttribute(
+             fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+             cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+      return e;
   done.fetch_or(bit);
   return cudaSuccess;
 }
@@ -552,11 +630,11 @@ cudaError_t opt_in() {
 template <bool CAUSAL>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const dim3 kv_grid((a.s_len + kv::BKV - 1) / kv::BKV, a.n_heads, B);
-  kv::dkdv_kernel<CAUSAL><<<kv_grid, THREADS, kv::SMEM, stream>>>(a);
+  kv::dkdv_kernel<CAUSAL><<<kv_grid, THREADS, SMEM, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 q_grid((a.t_len + qd::BQ - 1) / qd::BQ, a.n_heads, B);
-  qd::dq_kernel<CAUSAL><<<q_grid, THREADS, qd::SMEM, stream>>>(a);
+  qd::dq_kernel<CAUSAL><<<q_grid, THREADS, SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 

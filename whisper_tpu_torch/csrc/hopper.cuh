@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core and
-// cp.async kernels (flash_attention.cu, encoder_tail.cu, decoder_step.cu):
-// 16-byte cp.async copies, the 128-byte-swizzled shared-memory matrix
-// descriptor, and the wgmma (bf16 and s8), mma.sync and ldmatrix
-// instructions they use, as inline PTX.
+// cp.async kernels (flash_attention.cu, flash_attention_bwd.cu,
+// encoder_tail.cu, decoder_step.cu): 16-byte cp.async copies, the
+// 128-byte-swizzled shared-memory matrix descriptor, and the wgmma (bf16
+// and s8), mma.sync (bf16 and tf32) and ldmatrix instructions they
+// use, as inline PTX.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +20,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1); `bytes` 0 writes a zero and reads
+// none
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -228,6 +238,42 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k8 with tf32 operands and fp32 accumulation (one warp).
+// Fragments, lane = 4 g + t: a[0] = A(g, t), a[1] = A(g + 8, t), a[2] =
+// A(g, t + 4), a[3] = A(g + 8, t + 4); b[0] = B(t, g), b[1] = B(t + 4, g);
+// d as m16n8k16's. A tf32 operand is an fp32 bit pattern whose low 13
+// bits the tensor cores ignore: `split_tf32` makes two of them.
+// ---------------------------------------------------------------------------
+
+// fp32 -> tf32, rounded to nearest with ties away from zero: the rounding
+// of cvt.rna.tf32.f32 for finite x (half of the 13 dropped bits added to
+// the magnitude, then dropped), in two integer instructions; the
+// compiler lowers cvt.rna to these plus a NaN test and a select
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to about 21 of its 24 bits: big = tf32(x), small =
+// x - big (exact in fp32), whose low 13 bits the tensor cores drop, so
+// that its tf32 value is x - big rounded toward zero
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a . b
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace wt
