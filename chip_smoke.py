@@ -95,7 +95,9 @@ reads and a tail layer; turbo B=4: the encoder's read and a tail layer;
 bit-equal on a rerun, no (B, H, T, S) tensor's worth of memory), and
 the two kernels' forward and backward timed beside their plain versions,
 their bounds (the backward's on the CUDA cores and as split TF32 on the
-tensor cores) and SDPA's, flash also at turbo's encoder read. Then the
+tensor cores) and SDPA's, flash's encoder read and the tail layer at
+turbo B=4 too, and the tail's backward at both shapes split by kernel
+into its products, its passes and its attention. Then the
 meshes (whisper_tpu_torch.parallel): large-v3-turbo bf16 at full width
 and depth through ShardedPipeline on a world of one NCCL process that
 make_mesh opens itself (B=8, 32 greedy tokens, equal to
@@ -372,7 +374,8 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
         "flash": "flash_checks", "decode_time": "decode_time",
         "pipeline": "pipeline_layer", "serving": "serving_group",
-        "train": "train_group", "mesh": "mesh_group"}
+        "train": "train_group", "tail_bwd": "tail_backward_phases",
+        "mesh": "mesh_group"}
 
 
 def emit(obj: dict) -> None:
@@ -4673,13 +4676,14 @@ def train_backward_checks(card: str) -> dict:
 
 def train_kernel_time(card: str) -> dict:
     """The train path's two kernels at tiny's training shapes (B=16, fp32)
-    and flash at turbo's encoder shape (B=4, H=20, key "flash_encoder_turbo"):
+    and at turbo's encoder (B=4, H=20: flash's encoder read and a tail
+    layer, keys "flash_encoder_turbo" and "encoder_block_tail_turbo"):
     each forward kernel against its plain version, and each backward kernel
     against its plain twin, in turns by CUDA events, beside the bounds
     (the backward's on the CUDA cores' fp32 peak and, `backward_bound_tc_ms`,
-    with the attention's products as split TF32 on the tensor cores: the
-    flash backward's own route) and, for flash, SDPA's forward and backward
-    on the same inputs (SDPA is timed here only; the port never calls it)."""
+    with every product as split TF32 on the tensor cores: the backward
+    kernels' own route) and, for flash, SDPA's forward and backward on the
+    same inputs (SDPA is timed here only; the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
@@ -4694,8 +4698,7 @@ def train_kernel_time(card: str) -> dict:
         return f
 
     runs = [(get_config("tiny"), TRAIN_TINY_BATCH, TRAIN_CASES, ""),
-            (get_config(TURBO), TRAIN_TURBO_BATCH, ("flash_encoder",),
-             "_turbo")]
+            (get_config(TURBO), TRAIN_TURBO_BATCH, ENCODER_CASES, "_turbo")]
     for cfg, B, names, suffix in runs:
         H, D = cfg.n_heads, cfg.head_dim
         Ta, d, ff = cfg.n_audio_ctx, cfg.d_model, cfg.d_ff
@@ -4735,10 +4738,8 @@ def train_kernel_time(card: str) -> dict:
             # input's gradient whole
             b_bytes = 4 * (read + n_res + n_out + n_in)
             b_bound = bound(b_bytes, bwd_attn + bwd_prods, "float32")
-            # the attention's products on the split route, the tail's
-            # other products still fp32 on the CUDA cores
-            t_tc = (bwd_attn / H100_FLOPS["tf32x3"]
-                    + bwd_prods / H100_FLOPS["float32"]) * 1e3
+            # every product on the split route
+            t_tc = (bwd_attn + bwd_prods) / H100_FLOPS["tf32x3"] * 1e3
             t_bytes = b_bytes / H100_BYTES_PER_S * 1e3
             line = {"ms": ms, "plain_ms": plain_ms,
                     **bound(4 * (read + n_out), flops, "float32"),
@@ -4769,6 +4770,65 @@ def train_kernel_time(card: str) -> dict:
     return lines
 
 
+# the tail backward's device kernels by name: its attention's
+# (csrc/flash_attention_bwd.cu) and its row and column passes
+# (gelu_backward is the pass of trees whose products were library GEMMs,
+# so that an A/B against one reads the same way); every other kernel of
+# the call is a product (the split-TF32 tiles and their split-K sums, or a
+# library GEMM) unless it is PyTorch's own (a weight's transposed copy,
+# the packed vectors)
+TAIL_BWD_ATTENTION = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+TAIL_BWD_PASSES = ("ln_forward", "ln_backward", "gelu_backward", "colsum")
+
+
+def tail_bwd_kind(kernel: str) -> str:
+    if any(k in kernel for k in TAIL_BWD_ATTENTION):
+        return "attention"
+    if any(k in kernel for k in TAIL_BWD_PASSES):
+        return "passes"
+    return "torch" if "at::" in kernel else "products"
+
+
+def tail_backward_phases(card: str) -> dict:
+    """tail_backward_phases: one tail layer's backward (the train path's
+    kernel on the forward kernel's residuals) at tiny B=16 and turbo B=4,
+    three calls under torch.profiler: device ms a call by kernel, and
+    summed into the products, the passes and the attention. Returns
+    {shape: {kind: ms}}."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    out = {}
+    for cfg, B, key in ((get_config("tiny"), TRAIN_TINY_BATCH, "tiny"),
+                        (get_config(TURBO), TRAIN_TURBO_BATCH, "turbo")):
+        (name, _, _, args, kw, bwd, _), = train_kernel_cases(
+            cfg, B, ("encoder_block_tail",))
+        bargs = backward_inputs(name, args, kw, seed=9)
+        bwd(*bargs)
+        torch.cuda.synchronize()
+
+        def run():
+            for _ in range(3):
+                bwd(*bargs)
+            torch.cuda.synchronize()
+        kernels, device_ms = device_kernels(profiled(run))
+        kinds = dict.fromkeys(("products", "passes", "attention", "torch"),
+                              0.0)
+        for e in kernels:
+            kinds[tail_bwd_kind(e.key)] += e.self_device_time_total / 3e3
+        out[key] = kinds
+        emit({"phase": "tail_backward_phases", "model": cfg.name,
+              "batch": B, "device_ms_per_call": device_ms / 3,
+              "ms_by_kind": kinds,
+              "kernels": [{"kernel": e.key[:110],
+                           "ms_per_call": e.self_device_time_total / 3e3,
+                           "count": e.count // 3} for e in kernels],
+              "card": card})
+        del bargs, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_group(card: str) -> dict:
     """The train phases (--only train): train_tiny, train_grad_parity,
     train_turbo, the backward kernels against their plain twins, and the
@@ -4781,10 +4841,11 @@ def train_group(card: str) -> dict:
     turbo = train_turbo(card, kernels)
     errs = train_backward_checks(card)
     times = train_kernel_time(card)
+    phases = tail_backward_phases(card)
     emit({"phase": "train_group", "seconds": time.perf_counter() - t0,
           "card": card})
     return {"tiny": tiny, "turbo": turbo, "times": times,
-            "backward_errs": errs}
+            "backward_errs": errs, "tail_backward_phases": phases}
 
 
 def mesh_eot_options(cfg):
@@ -6006,10 +6067,11 @@ def main() -> int:
     ]
     # the backward kernels of the train path, timed at tiny B=16 (the
     # flash row at the cross read, its causal self read, the encoder's
-    # read and turbo's beside); launches from tiny's train step (turbo's
-    # beside); no TPU kernel to replace: the JAX package differentiates its
-    # XLA graph. The bound is the smaller of the CUDA cores' and the split
-    # TF32 route's (`bound_route`), both beside.
+    # read and turbo's beside; the tail row with turbo's layer beside);
+    # launches from tiny's train step (turbo's beside); no TPU kernel to
+    # replace: the JAX package differentiates its XLA graph. The bound is
+    # the smaller of the CUDA cores' and the split TF32 route's
+    # (`bound_route`), both beside.
     times = train["times"]
     for name, source, t in (
             ("flash_attention_backward", "flash_attention_bwd.cu",
@@ -6033,11 +6095,15 @@ def main() -> int:
             "bound_fp32_ms": t["backward_bound_ms"],
             "bound_tf32x3_ms": t["backward_bound_tc_ms"],
             "library_ms": t["library_backward_ms"]})
+    timed = ("backward_ms", "backward_plain_ms", "backward_bound_ms",
+             "backward_bound_tc_ms", "library_backward_ms")
     for read in ("flash_self", "flash_encoder", "flash_encoder_turbo"):
-        rows[-2][read] = {
-            k: times[read][k] for k in (
-                "backward_ms", "backward_plain_ms", "backward_bound_ms",
-                "backward_bound_tc_ms", "library_backward_ms")}
+        rows[-2][read] = {k: times[read][k] for k in timed}
+    # the tail's backward at a turbo B=4 layer, and both shapes' device
+    # time by kind (products, passes, attention)
+    rows[-1]["turbo"] = {k: times["encoder_block_tail_turbo"][k]
+                         for k in timed}
+    rows[-1]["phases_ms"] = train["tail_backward_phases"]
     for row in rows:
         # launches a train step (forward and backward), tiny's and turbo's
         row["train_launches"] = train["tiny"].get(row["name"], 0)
@@ -6047,8 +6113,9 @@ def main() -> int:
             check: [r.get(row["name"], 0) for r in by_rank]
             for check, by_rank in mesh.items()}
     by_name = {row["name"]: row for row in rows}
-    by_name["encoder_block_tail"]["train_time"] = \
-        train["times"]["encoder_block_tail"]
+    by_name["encoder_block_tail"]["train_time"] = {
+        k: train["times"][k] for k in ("encoder_block_tail",
+                                       "encoder_block_tail_turbo")}
     by_name["flash_attention"]["train_time"] = {
         k: train["times"][k] for k in ("flash_self", "flash_cross",
                                        "flash_encoder",

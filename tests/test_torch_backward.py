@@ -23,6 +23,7 @@ import torch
 
 from whisper_tpu.models import whisper as jm
 from whisper_tpu.ops.attention import mha_reference as jax_mha
+from whisper_tpu_torch.ops import encoder_layer as el
 from whisper_tpu_torch.ops import grad
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail_backward,
@@ -243,11 +244,12 @@ def _kernel_einsum(single: bool):
 def _backward_fp64(q, k, v, out, lse, d_out, kv_len, q_offset, causal):
     """The twin's math in fp64 on fp64 copies of the same inputs."""
     T, S = q.shape[1], k.shape[2]
+    scale = q.shape[-1] ** -0.5
     end = S if kv_len is None else kv_len
     end = min(end, q_offset + T) if causal else end
     q, k, v, out, lse, g = (x.double() for x in (q, k, v, out, lse, d_out))
     kf, vf = k[:, :, :end], v[:, :, :end]
-    s = torch.einsum("bthd,bhsd->bhts", q * 0.125, kf)
+    s = torch.einsum("bthd,bhsd->bhts", q * scale, kf)
     if causal:
         s = s.masked_fill(torch.arange(end)[None, :]
                           > q_offset + torch.arange(T)[:, None], -torch.inf)
@@ -257,8 +259,8 @@ def _backward_fp64(q, k, v, out, lse, d_out, kv_len, q_offset, causal):
     dp = torch.einsum("bthd,bhsd->bhts", g, vf)
     delta = (g * out).sum(-1).permute(0, 2, 1)
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bhts,bhsd->bthd", ds, kf) * 0.125
-    dk[:, :, :end] = torch.einsum("bhts,bthd->bhsd", ds, q) * 0.125
+    dq = torch.einsum("bhts,bhsd->bthd", ds, kf) * scale
+    dk[:, :, :end] = torch.einsum("bhts,bthd->bhsd", ds, q) * scale
     return dq, dk, dv
 
 
@@ -329,9 +331,9 @@ TAIL_NAMES = ("q", "k", "v", "h_in", "wo", "fc1_w", "fc2_w", "o_b", "fc1_b",
               "fc2_b", "ln2_g", "ln2_b")
 
 
-def _tail_numpy(seed):
+def _tail_numpy(seed, shape=TAIL_SHAPE):
     rng = np.random.RandomState(seed)
-    B, T, H, D, ff = (TAIL_SHAPE[n] for n in ("B", "T", "H", "D", "ff"))
+    B, T, H, D, ff = (shape[n] for n in ("B", "T", "H", "D", "ff"))
     d = H * D
     shapes = ((B, T, H, D), (B, H, T, D), (B, H, T, D), (B, T, d), (d, d),
               (d, ff), (ff, d), (d,), (ff,), (d,), (d,), (d,))
@@ -361,6 +363,123 @@ def _tail_twin(xs, g):
     attn, lse = flash_attention_plain(*t[:3], return_lse=True)
     return encoder_block_tail_backward_plain(
         *t, attn.reshape(B, T, H * D), lse, torch.from_numpy(g))
+
+
+# ---------------------------------------------------------------------------
+# the tail backward kernel's products (csrc/encoder_tail_bwd.cu), modelled
+# on the CPU through the twin's one product function
+# ---------------------------------------------------------------------------
+
+# d 64, ff 256 and 3,000 rows: the weight gradients sum over 3,000 rows,
+# no multiple of a 32-row tile
+TAIL_MODEL_SHAPE = dict(B=20, T=150, H=2, D=32, ff=256)
+
+
+def _kernel_product(single: bool = False, fold: bool = True,
+                    chunk: int | None = None):
+    """`backward_product` (x @ w, x (M, K), w (K, N)) as the kernel forms
+    it: k-steps of 8, each an MMA whose exact sum (of TF32 products, fp64
+    here) is rounded toward zero into its fp32 accumulator; split
+    (`_split_tf32`): small.big, big.small, then big.big; single: big.big
+    alone. With `fold` the accumulator starts from zero every 4 k-steps (a
+    32-deep tile) and is added to the fp32 total rounded to nearest;
+    without it one accumulator takes the whole range. K is cut into
+    ranges of `chunk` (the weight gradients' split-K), each summed apart,
+    and the partials are added in index order."""
+    def product(x, w):
+        K = x.shape[1]
+        x_hi, x_lo = _split_tf32(x)
+        w_hi, w_lo = _split_tf32(w)
+        terms = [(x_hi, w_hi)] if single else [
+            (x_lo, w_hi), (x_hi, w_lo), (x_hi, w_hi)]
+        step_k = K if chunk is None else chunk
+        out = None
+        for c0 in range(0, K, step_k):
+            c1 = min(K, c0 + step_k)
+            total = part = None
+            for step, k0 in enumerate(range(c0, c1, 8)):
+                k1 = min(c1, k0 + 8)
+                for a, b in terms:
+                    z = a[:, k0:k1].double() @ b[k0:k1].double()
+                    part = _round_to_zero(z if part is None
+                                          else part.double() + z)
+                if fold and ((step + 1) % 4 == 0 or k1 == c1):
+                    total = part if total is None else total + part
+                    part = None
+            total = part if total is None else total
+            out = total if out is None else out + total
+        return out
+
+    return product
+
+
+def _tail_backward_fp64(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b,
+                        g, b, attn, lse, d_out, eps=1e-5):
+    """encoder_block_tail_backward_plain's math in fp64 on fp64 copies of
+    the same inputs (the attention's through `_backward_fp64`)."""
+    B, T, H, D = q.shape
+    d = h_in.shape[-1]
+    wo, w1, w2, bo, b1, b2, g, b = (x.double() for x in (
+        wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b, g, b))
+    a = attn.double().reshape(-1, d)
+    G = d_out.double().reshape(-1, d)
+    h2 = h_in.double().reshape(-1, d) + a @ wo + bo
+    mean = h2.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((h2 - mean).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (h2 - mean) * rstd
+    y = xhat * g + b
+    u = y @ w1 + b1
+    t1 = torch.nn.functional.gelu(u)
+    du = (G @ w2.t()) * gelu_grad(u)
+    dy = du @ w1.t()
+    dx = dy * g
+    dh2 = G + rstd * (dx - dx.mean(dim=-1, keepdim=True)
+                      - xhat * (dx * xhat).mean(dim=-1, keepdim=True))
+    da = (dh2 @ wo.t()).reshape(B, T, H, D)
+    dq, dk, dv = _backward_fp64(q, k, v, attn.reshape(B, T, H, D), lse, da,
+                                None, 0, False)
+    return (dq, dk, dv, dh2.reshape(B, T, d), a.t() @ dh2, y.t() @ du,
+            t1.t() @ G, dh2.sum(0), du.sum(0), G.sum(0), (dy * xhat).sum(0),
+            dy.sum(0))
+
+
+def _tail_model_shares(args, want, monkeypatch, **model) -> list:
+    """Each gradient's error under the product model, as a share of the
+    card tolerance (REL max |want| + ABS)."""
+    with monkeypatch.context() as m:
+        m.setattr(el, "backward_product", _kernel_product(**model))
+        got = encoder_block_tail_backward_plain(*args)
+    return [float((a.double() - b).abs().max())
+            / (REL * float(b.abs().max()) + ABS) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("chunk", [None, 800])
+def test_tail_products_split_tf32_hold_the_card_tolerance(chunk,
+                                                           monkeypatch):
+    """The twin with its eight products as the kernel's split-TF32 wgmma
+    tiles, folded every 32-deep tile (over 3,000 rows whole, or in split-K
+    ranges of 800 summed in order): all twelve gradients within 1e-5 of
+    max |g| + 1e-6 of the same math in fp64. A single TF32 pass misses it
+    at every gradient that a product reaches (all but db2 = sum G). Not
+    folded, one accumulator over the whole 3,000 rows misses it at the
+    weight gradients (over 800-row ranges it does not, at this size)."""
+    xs, g = _tail_numpy(seed=24, shape=TAIL_MODEL_SHAPE)
+    t = [torch.from_numpy(x) for x in xs]
+    B, T, H, D = t[0].shape
+    attn, lse = flash_attention_plain(*t[:3], return_lse=True)
+    args = (*t, attn.reshape(B, T, H * D), lse, torch.from_numpy(g))
+    want = _tail_backward_fp64(*args)
+    split = _tail_model_shares(args, want, monkeypatch, chunk=chunk)
+    single = _tail_model_shares(args, want, monkeypatch, single=True,
+                                chunk=chunk)
+    assert max(split) <= 1.0, dict(zip(TAIL_NAMES, split))
+    missed = [n for n, s in zip(TAIL_NAMES, single) if s > 1.0]
+    assert missed == [n for n in TAIL_NAMES if n != "fc2_b"], \
+        dict(zip(TAIL_NAMES, single))
+    if chunk is None:
+        whole = dict(zip(TAIL_NAMES, _tail_model_shares(
+            args, want, monkeypatch, fold=False)))
+        assert min(whole[n] for n in ("wo", "fc1_w", "fc2_w")) > 1.0, whole
 
 
 def test_tail_backward_plain_matches_jax_vjp():

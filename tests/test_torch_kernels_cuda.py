@@ -33,6 +33,8 @@ from whisper_tpu_torch.ops.decoder_step import (
     fused_decoder_step_plain,
     vec_offsets,
 )
+from whisper_tpu_torch.ops import _build
+from whisper_tpu_torch.ops import encoder_layer as tail_mod
 from whisper_tpu_torch.ops import flash_attention as flash_mod
 from whisper_tpu_torch.ops.encoder_layer import (
     encoder_block_tail,
@@ -1454,9 +1456,11 @@ def test_flash_forward_kernel_writes_the_lse(dev, B, T, S, H, kv_len,
 
 
 # (B, T, H, ff): tiny's width at its training length and a ragged T, and
-# turbo's (d 1280, ff 5120)
+# turbo's (d 1280, ff 5120); then the train step's layers, tiny B=16 and
+# turbo B=4
 _TAIL_BWD_CASES = [(2, 1500, 6, 1536), (3, 100, 6, 1536),
-                   (1, 1500, 20, 5120), (2, 130, 20, 5120)]
+                   (1, 1500, 20, 5120), (2, 130, 20, 5120),
+                   (16, 1500, 6, 1536), (4, 1500, 20, 5120)]
 
 
 def _tail_bwd_inputs(B, T, H, ff, dev, seed):
@@ -1499,6 +1503,76 @@ def test_tail_backward_kernel_is_deterministic(dev, H, ff):
     first = encoder_block_tail_backward(*args)
     for a, b in zip(first, encoder_block_tail_backward(*args)):
         assert torch.equal(a, b)
+
+
+# the tail backward's eight products, one stage of csrc/encoder_tail_bwd.cu
+# at a time, at tiny's width (d 384, ff 1536) and turbo's (1280, 5120),
+# over a number of rows that is no multiple of the 128-row tile nor of the
+# 32-deep k tile (the weight gradients' K)
+_PRODUCT_SHAPES = [(384, 1536, 3001), (1280, 5120, 1537)]
+_PRODUCTS = ("z", "u", "dt1", "dw2", "dw1", "dy", "dwo", "da")
+
+
+def _close_fp64(got, want, what=""):
+    """1e-5 of max |want| + 1e-6 against the product in fp64."""
+    err = float((got.double() - want).abs().max())
+    bound = 1e-5 * float(want.abs().max()) + 1e-6
+    assert err <= bound, (what, err, bound)
+
+
+@pytest.mark.parametrize("d,ff,rows", _PRODUCT_SHAPES)
+@pytest.mark.parametrize("stage", _PRODUCTS)
+def test_tail_backward_product_matches_fp64(dev, stage, d, ff, rows):
+    """Each product stage (split-TF32 wgmma tiles) against the same
+    product in fp64 on the same fp32 inputs: z = a Wo, u = y W1 (the
+    weights transposed, as the wrapper hands them over), dt1 = G W2^T with
+    its GELU epilogue (t1 over u, du), the weight gradients with their bias
+    sums, dy = du W1^T, da = dh2 Wo^T."""
+    g = torch.Generator().manual_seed(60)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    lib = _build.load_library()
+    x_d, x_ff = r(rows, d), r(rows, ff)          # rows of width d and ff
+    wo, w1, w2 = r(d, d, scale=d ** -0.5), r(d, ff, scale=d ** -0.5), \
+        r(ff, d, scale=ff ** -0.5)
+    misc = r(4 * d + ff, scale=0.1)
+    b1 = misc[d:d + ff]
+    work = torch.empty(lib.wt_encoder_tail_bwd_workspace(rows, d, ff),
+                       device=dev)
+    vecs = torch.full((4 * d + ff,), float("nan"), device=dev)
+
+    def run(*bufs):
+        tail_mod._stage(lib, stage, bufs, rows, d, ff, 1e-5, torch.device(dev))
+        torch.cuda.synchronize()
+
+    f64 = [t.double() for t in (x_d, x_ff, wo, w1, w2)]
+    if stage in ("z", "u", "dy", "da"):
+        a, b, n = {"z": (x_d, wo.t().contiguous(), d),
+                   "u": (x_d, w1.t().contiguous(), ff),
+                   "dy": (x_ff, w1, d), "da": (x_d, wo, d)}[stage]
+        want = {"z": f64[0] @ f64[2], "u": f64[0] @ f64[3],
+                "dy": f64[1] @ f64[3].t(), "da": f64[0] @ f64[2].t()}[stage]
+        out = torch.empty(rows, n, device=dev)
+        run(a, b, out)
+        _close_fp64(out, want, stage)
+    elif stage == "dt1":
+        u = r(rows, ff)
+        du = torch.empty(rows, ff, device=dev)
+        x = u.double() + b1.double()
+        dt1 = f64[0] @ f64[4].t()
+        run(x_d, w2, u, misc, du)
+        _close_fp64(u, torch.nn.functional.gelu(x), "t1")
+        _close_fp64(du, dt1 * tail_mod.gelu_grad(x), "du")
+    else:
+        a, b, m, n, at = {"dw2": (x_ff, x_d, ff, d, d + ff),
+                          "dw1": (x_d, x_ff, d, ff, d),
+                          "dwo": (x_d, r(rows, d), d, d, 0)}[stage]
+        out = torch.empty(m, n, device=dev)
+        run(a, b, work, out, vecs)
+        _close_fp64(out, a.double().t() @ b.double(), stage)
+        _close_fp64(vecs[at:at + n], b.double().sum(0), stage + " bias")
 
 
 def test_bf16_gradient_through_the_two_wrappers_raises(dev):

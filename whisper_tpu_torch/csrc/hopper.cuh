@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core and
 // cp.async kernels (flash_attention.cu, flash_attention_bwd.cu,
-// encoder_tail.cu, decoder_step.cu): 16-byte cp.async copies, the
-// 128-byte-swizzled shared-memory matrix descriptor, and the wgmma (bf16
-// and s8), mma.sync (bf16 and tf32) and ldmatrix instructions they
-// use, as inline PTX.
+// encoder_tail.cu, encoder_tail_bwd.cu, decoder_step.cu): 16-byte cp.async
+// copies, the 128-byte-swizzled shared-memory matrix descriptor, and the
+// wgmma (bf16, tf32 and s8), mma.sync (bf16 and tf32) and ldmatrix
+// instructions they use, as inline PTX.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,6 +101,11 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 
 // two fp32 -> one register of two bf16, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -165,6 +170,44 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 128 fp32, this thread's 64) = A (64 x 8 tf32, registers) . B
+// (8 x 128 tf32, shared memory, K-major: rows of 32 fp32 = 128 bytes of k
+// in the 128-byte swizzle; a 32-bit operand has no MN-major form), plus d
+// unless `accumulate` is 0. A is mma.sync m16n8k8's A fragment in each
+// warp's 16 rows: a[0] = (g, t), a[1] = (g + 8, t), a[2] = (g, t + 4),
+// a[3] = (g + 8, t + 4), lane = 4 g + t. The tensor cores read each
+// operand's top 19 bits (its low 13 dropped). Accumulator layout as the
+// bf16 products'.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t desc_b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+      "%67}, %68, acc, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
 }
 
 // d (64 x 128 s32, this thread's 64) = A (64 x 32 s8) . B (32 x 128 s8),

@@ -166,8 +166,8 @@ def _load_library() -> ctypes.CDLL:
     lib.wt_encoder_tail_bwd.argtypes = [
         I, ctypes.POINTER(ctypes.c_void_p), I, I, I, F, P]
     lib.wt_encoder_tail_bwd.restype = I
-    lib.wt_encoder_tail_bwd_partials.argtypes = [I, I]       # d, ff
-    lib.wt_encoder_tail_bwd_partials.restype = L
+    lib.wt_encoder_tail_bwd_workspace.argtypes = [I, I, I]   # rows, d, ff
+    lib.wt_encoder_tail_bwd_workspace.restype = L
     lib.wt_decode_attention_q8.argtypes = [
         P, P, P, P, P, P,      # q, k, k_scale, v, v_scale, out
         I, I, I, I, I,         # B, H, S, D, kv_len

@@ -187,6 +187,13 @@ def gelu_grad(x: torch.Tensor) -> torch.Tensor:
     return cdf + x * torch.exp(-0.5 * x * x) * (2.0 * torch.pi) ** -0.5
 
 
+def backward_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w: each of the backward twin's eight products, looked up at call
+    time, so that a test can put a model of the kernel's arithmetic in its
+    place."""
+    return x @ w
+
+
 def encoder_block_tail_backward_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b,
                                       fc1_b, fc2_b, ln2_g, ln2_b, attn, lse,
                                       d_out, eps: float = 1e-5) -> tuple:
@@ -210,24 +217,25 @@ def encoder_block_tail_backward_plain(q, k, v, h_in, wo, fc1_w, fc2_w, o_b,
     wo_, w1, w2, bo, b1, b2, g, b = f32
     a = attn.float().reshape(rows, d)
     G = d_out.float().reshape(rows, d)
-    h2 = h_in.float().reshape(rows, d) + (a @ wo_ + bo)
+    h2 = h_in.float().reshape(rows, d) + (backward_product(a, wo_) + bo)
     mean = h2.mean(dim=-1, keepdim=True)
     rstd = torch.rsqrt((h2 - mean).square().mean(dim=-1, keepdim=True) + eps)
     xhat = (h2 - mean) * rstd
     y = xhat * g + b
-    u = y @ w1 + b1
+    u = backward_product(y, w1) + b1
     t1 = torch.nn.functional.gelu(u)                          # exact erf
-    du = (G @ w2.t()) * gelu_grad(u)
-    dy = du @ w1.t()
+    du = backward_product(G, w2.t()) * gelu_grad(u)
+    dy = backward_product(du, w1.t())
     dxhat = dy * g
     dh2 = G + rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True)
                       - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
-    da = (dh2 @ wo_.t()).reshape(B, T, H, D)
+    da = backward_product(dh2, wo_.t()).reshape(B, T, H, D)
     dq, dk, dv = flash_attention_backward_plain(
         q.float(), k.float(), v.float(), attn.float().reshape(B, T, H, D),
         lse, da)
-    grads = (dq, dk, dv, dh2.reshape(B, T, d), a.t() @ dh2, y.t() @ du,
-             t1.t() @ G, dh2.sum(dim=0), du.sum(dim=0), G.sum(dim=0),
+    grads = (dq, dk, dv, dh2.reshape(B, T, d), backward_product(a.t(), dh2),
+             backward_product(y.t(), du), backward_product(t1.t(), G),
+             dh2.sum(dim=0), du.sum(dim=0), G.sum(dim=0),
              (dy * xhat).sum(dim=0), dy.sum(dim=0))
     return _grads_like(grads, (q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b,
                               fc2_b, ln2_g, ln2_b))
@@ -450,9 +458,9 @@ def encoder_block_tail_backward(q: torch.Tensor, k: torch.Tensor,
     Returns (dq, dk, dv, dh_in, dWo, dW1, dW2, dbo, db1, db2, dg, db), each
     in its input's dtype. CPU tensors take
     `encoder_block_tail_backward_plain`; CUDA tensors run the backward
-    (csrc/encoder_tail_bwd.cu's passes between eight fp32 torch.matmul
-    products, whose TF32 setting is the caller's: the train step's
-    full_fp32 turns it off; then the flash backward kernel for the
+    (csrc/encoder_tail_bwd.cu: its eight products as split-TF32 tiles on
+    the tensor cores at fp32's accuracy, whatever the TF32 flags, and the
+    passes between them; then the flash backward kernel for the
     attention, counted here, not on `flash_attention_backward`) or
     raise. attn, lse and d_out are made contiguous."""
     vecs = (o_b, fc1_b, fc2_b, ln2_g, ln2_b)
@@ -474,11 +482,18 @@ def encoder_block_tail_backward(q: torch.Tensor, k: torch.Tensor,
 encoder_block_tail_backward.launches = 0   # CPU calls not counted
 
 
-def _stage(lib, stage: int, bufs, rows: int, d: int, ff: int, eps: float,
+# csrc/encoder_tail_bwd.cu's stages, in the order the backward runs them:
+# the eight products (z and u recomputed) and the two LayerNorm passes
+BACKWARD_STAGES = ("z", "ln_forward", "u", "dt1", "dw2", "dw1", "dy",
+                   "ln_backward", "dwo", "da")
+
+
+def _stage(lib, name: str, bufs, rows: int, d: int, ff: int, eps: float,
            device) -> None:
     """One stage of csrc/encoder_tail_bwd.cu on the current stream."""
     ptrs = (ctypes.c_void_p * len(bufs))(*[t.data_ptr() for t in bufs])
-    err = lib.wt_encoder_tail_bwd(stage, ptrs, rows, d, ff, float(eps),
+    err = lib.wt_encoder_tail_bwd(BACKWARD_STAGES.index(name), ptrs, rows, d,
+                                  ff, float(eps),
                                   torch.cuda.current_stream(device)
                                   .cuda_stream)
     _build.check(lib, err, "encoder_block_tail_backward")
@@ -486,39 +501,50 @@ def _stage(lib, stage: int, bufs, rows: int, d: int, ff: int, eps: float,
 
 def _launch_backward(q, k, v, h_in, wo, fc1_w, fc2_w, o_b, fc1_b, fc2_b,
                      ln2_g, ln2_b, attn, lse, d_out, *, eps: float) -> tuple:
-    """The backward on checked fp32 tensors: the products in torch.matmul,
-    the passes between them in the kernel's three stages (each buffer
-    reused in place where the kernel says so), then the flash backward.
-    No (B, H, T, S) tensor exists."""
+    """The backward on checked fp32 tensors: the kernel's ten stages (each
+    buffer reused in place where the kernel says so), then the flash
+    backward. No (B, H, T, S) tensor exists."""
     B, T, H, D = q.shape
     S, d, ff = k.shape[2], h_in.shape[-1], fc1_w.shape[-1]
     rows, dev = B * T, h_in.device
     lib = _build.load_library()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def run(name, *bufs):
+        _stage(lib, name, bufs, rows, d, ff, eps, dev)
+
     misc = torch.cat([t.float() for t in (o_b, fc1_b, fc2_b, ln2_g, ln2_b)])
+    work = empty(lib.wt_encoder_tail_bwd_workspace(rows, d, ff))
+    d_vecs = empty(4 * d + ff)                    # [dbo | db1 | db2 | dg | db]
     a, G = attn.reshape(rows, d), d_out.reshape(rows, d)
-    h2 = a @ wo                                   # stage 0 makes it h2
-    y = torch.empty_like(h2)
-    mean, rstd = (torch.empty(rows, dtype=torch.float32, device=dev)
-                  for _ in range(2))
-    _stage(lib, 0, (h2, h_in, misc, y, mean, rstd), rows, d, ff, eps, dev)
-    u = y @ fc1_w                                 # stage 1 makes it t1
-    du = G @ fc2_w.t()                            # stage 1 makes it du
-    _stage(lib, 1, (u, du, misc), rows, d, ff, eps, dev)
-    d_fc2 = u.t() @ G
+    h2, y, u, du = empty(rows, d), empty(rows, d), empty(rows, ff), \
+        empty(rows, ff)
+    mean, rstd = empty(rows), empty(rows)
+    # z and u read their weight K-major, as (N, K): a transposed copy
+    run("z", a, wo.t().contiguous(), h2)          # ln_forward makes it h2
+    run("ln_forward", h2, h_in, misc, y, mean, rstd)
+    run("u", y, fc1_w.t().contiguous(), u)        # dt1 makes it t1
+    run("dt1", G, fc2_w, u, misc, du)
+    d_fc2 = empty(ff, d)
+    run("dw2", u, G, work, d_fc2, d_vecs)
     del u
-    d_fc1 = y.t() @ du
-    dy = du @ fc1_w.t()
-    partials = torch.empty(lib.wt_encoder_tail_bwd_partials(d, ff),
-                           dtype=torch.float32, device=dev)
-    d_vecs = torch.empty(4 * d + ff, dtype=torch.float32, device=dev)
-    _stage(lib, 2, (h2, y, mean, rstd, dy, G, du, misc, partials, d_vecs),
-           rows, d, ff, eps, dev)                 # h2 is dh2 from here
-    del y, du, dy, partials
-    d_wo = a.t() @ h2
-    da = (h2 @ wo.t()).reshape(B, T, H, D)
+    d_fc1 = empty(d, ff)
+    run("dw1", y, du, work, d_fc1, d_vecs)
+    dy = empty(rows, d)
+    run("dy", du, fc1_w, dy)
+    del du
+    run("ln_backward", h2, y, mean, rstd, dy, G, misc, work, d_vecs)
+    del y, dy                                     # h2 is dh2 from here
+    d_wo = empty(d, d)
+    run("dwo", a, h2, work, d_wo, d_vecs)
+    del work
+    da = empty(rows, d)
+    run("da", h2, wo, da)
     dq, dk, dv = flash_launch_backward(q, k, v, attn.reshape(B, T, H, D),
-                                       lse, da, kv_len=S, q_offset=0,
-                                       causal=False)
+                                       lse, da.reshape(B, T, H, D), kv_len=S,
+                                       q_offset=0, causal=False)
     return (dq, dk, dv, h2.reshape(B, T, d), d_wo, d_fc1, d_fc2,
             *d_vecs.split([d, ff, d, d, d]))
 
