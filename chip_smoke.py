@@ -2654,22 +2654,25 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     from whisper_tpu_torch.tokenizer import build_prompt
     cfg = engine.cfg
     fill_s, steps, beside_live, detects = [0.0], [0], [0], [0]
+    buckets: dict = {}
     fill, step_device = engine._fill_free_slots, engine.step_device
 
     def timed_fill():
         live = any(s is not None for s in engine._slots)
-        fills = sum(engine.fill_buckets.values())
+        p_pad = fill_bucket(engine)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fill()
+        n = fill()
         torch.cuda.synchronize()
         fill_s[0] += time.perf_counter() - t
-        if live and sum(engine.fill_buckets.values()) > fills:
-            beside_live[0] += 1
+        if n:
+            buckets[p_pad] = buckets.get(p_pad, 0) + 1
+            beside_live[0] += live
+        return n
 
     def counted_step(k: int = 1):
         steps[0] += k
-        step_device(k)
+        return step_device(k)
 
     engine._fill_free_slots, engine.step_device = timed_fill, counted_step
     detect = serving_continuous.detect_language
@@ -2691,6 +2694,7 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
 
     engine.warmup()
     fill_s[0], steps[0], beside_live[0] = 0.0, 0, 0
+    buckets.clear()
     for fn in kernels.values():
         fn.launches = 0
     serving_continuous.detect_language = counted_detect
@@ -2701,7 +2705,7 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     finally:
         serving_continuous.detect_language = detect
     launches = {name: fn.launches for name, fn in kernels.items()}
-    fills = sum(engine.fill_buckets.values())
+    fills = sum(buckets.values())
     generated = 0
     for rid, (_, kw) in zip(rids, reqs):
         require(rid in out, f"{label}: request {rid} not delivered")
@@ -2725,13 +2729,13 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
             "wall_s": wall, "engine_steps": steps[0], "fills": fills,
             "detect_language_calls": detects[0],
             "fills_beside_live": beside_live[0],
-            "fill_buckets": dict(engine.fill_buckets), "fill_s": fill_s[0],
+            "fill_buckets": dict(buckets), "fill_s": fill_s[0],
             "generated_tokens": generated, "tokens_per_s": generated / wall,
             "mean_step_ms": 1e3 * (wall - fill_s[0]) / steps[0],
             "queue_stats": engine.queue_stats(), "launches": launches,
             "card": card}
-    require({8, 32, 128} <= set(engine.fill_buckets),
-            f"{label}: fills reached the buckets {dict(engine.fill_buckets)}, "
+    require({8, 32, 128} <= set(buckets),
+            f"{label}: fills reached the buckets {buckets}, "
             f"not 8, 32 and 128")
     require(beside_live[0] == fills - 1,
             f"{label}: {beside_live[0]} of {fills} fills beside a live slot")
@@ -2776,7 +2780,7 @@ def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
     q8_tail = bool(tail and bf16 and cfg.encoder_mlp_quant)
     flash = flash_per_encode * fills + sum(
         count * flash_per_fill(cfg, engine.B, p_pad)
-        for p_pad, count in engine.fill_buckets.items())
+        for p_pad, count in line["fill_buckets"].items())
     B, Sx = engine.B, cfg.n_audio_ctx
     cross8 = bool(cfg.kv_cache_quant or cfg.cross_kv_quant)
     self8 = bool(cfg.kv_cache_quant or (cfg.self_kv_quant and bf16))
@@ -3998,6 +4002,22 @@ def server_entry(card: str) -> None:
           "seconds": time.perf_counter() - t_phase, "card": card})
 
 
+def fill_bucket(b):
+    """The prefill bucket of the engine's next slot fill, as its fill
+    picks it: the smallest of `_P_BUCKETS` that holds the longest prompt
+    among the queued requests the free slots take (the capped last one
+    past it); None when the fill would take none."""
+    from whisper_tpu_torch.tokenizer import build_prompt
+    take = b._queue[:sum(s is None for s in b._slots)]
+    if not take:
+        return None
+    p_max = max(len(build_prompt(b.cfg, "en", req[2][1],
+                                 timestamps=b._timestamps,
+                                 prev_tokens=req[6])) for req in take)
+    return next(pb for pb in b._P_BUCKETS
+                if pb >= min(p_max, b._P_BUCKETS[-1]))
+
+
 def record_fills(b) -> list:
     """Wraps the engine's slot fill: each fill appends (its prompt
     bucket, the audio of every request it took). Returns that list."""
@@ -4007,12 +4027,11 @@ def record_fills(b) -> list:
     def recorded():
         free = sum(s is None for s in b._slots)
         taken = [req[1] for req in b._queue[:free]]
-        before = dict(b.fill_buckets)
-        real()
-        grown = [p for p, n in b.fill_buckets.items()
-                 if n > before.get(p, 0)]
-        if grown:
-            fills.append((grown[0], taken))
+        p_pad = fill_bucket(b)
+        n = real()
+        if n:
+            fills.append((p_pad, taken))
+        return n
 
     b._fill_free_slots = recorded
     return fills
@@ -4074,7 +4093,7 @@ def server_turbo(card: str, kernels: dict) -> dict:
 
     def counted_step(k: int = 1):
         steps[0] += k
-        step_device(k)
+        return step_device(k)
 
     b.step_device = counted_step
     fills = record_fills(b)
@@ -4100,7 +4119,8 @@ def server_turbo(card: str, kernels: dict) -> dict:
                 **latency(replies, wall, sum(secs)),
                 "queue_stats": stats["queue"], "peak_mem_gb": peak,
                 "launches": launches, "fills": len(fills),
-                "fill_buckets": dict(b.fill_buckets),
+                "fill_buckets": {p: sum(q == p for q, _ in fills)
+                                 for p, _ in fills},
                 "engine_steps": steps[0], "detect_language_calls": 0,
                 "card": card}
         counts = check_engine_launches(line, b, cfg, 0)

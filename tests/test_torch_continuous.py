@@ -22,6 +22,7 @@ from whisper_tpu_torch.decode_rules import DecodeOptions
 from whisper_tpu_torch.models import whisper as tm
 from whisper_tpu_torch.serving_continuous import ContinuousBatcher, QueueFull
 from whisper_tpu_torch.tokenizer import build_prompt
+from whisper_tpu_torch.utils import profiling
 from whisper_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(2)
@@ -287,15 +288,20 @@ def test_long_prompt_joins_in_constant_steps(nano):
     prev = [1000 + i for i in range(200)]
     rid = eng.submit(_audio(3), prev_tokens=prev)
     steps = 0
-    while (eng._queue or any(s is not None for s in eng._slots)) \
-            and steps < 50:
-        eng.step()
-        steps += 1
+    profiling.start()
+    try:
+        while (eng._queue or any(s is not None for s in eng._slots)) \
+                and steps < 50:
+            eng.step()
+            steps += 1
+    finally:
+        spans = profiling.stop()["spans"]
     ids = eng._results[rid]
     assert ids[0] == cfg.sot_prev_token
     assert ids[1:6] == prev[:5]
     assert steps <= 10, steps
-    assert eng.fill_buckets == {256: 1}
+    assert [sp["attrs"]["bucket"] for sp in spans
+            if sp["name"] == "engine.fill"] == [256]
 
 
 def test_prefill_matches_teacher_forced_reference(nano):
@@ -372,11 +378,16 @@ def test_warmup_compiles_and_resets(nano):
     r0 = solo.submit(_audio(7))
     ref = solo.run_until_idle()[r0]
     eng = _engine(nano, max_slots=2, max_new=6)
-    eng.warmup()
+    profiling.start()
+    try:
+        eng.warmup()
+    finally:
+        records = profiling.stop()
     assert all(s is None for s in eng._slots) and not eng._queue
     q = eng.queue_stats()
     assert q["served"] == 0 and q["depth"] == 0
-    assert eng.max_new == 6 and not eng.fill_buckets
+    assert eng.max_new == 6
+    assert not records["spans"]
     rid = eng.submit(_audio(7))
     assert eng.run_until_idle()[rid] == ref
 

@@ -36,6 +36,7 @@ from whisper_tpu_torch.ops import _build
 from whisper_tpu_torch.server import ContinuousEngine, TranscriptionServer
 from whisper_tpu_torch.serving import BatchedTranscriber
 from whisper_tpu_torch.serving_continuous import ContinuousBatcher
+from whisper_tpu_torch.utils import profiling
 from whisper_tpu_torch.weights import from_jax_params
 
 torch.set_num_threads(2)
@@ -381,7 +382,8 @@ def test_engine_fault_recovery(nano):
 
 def test_warmup_then_exact_traffic(nano):
     """warmup() drives the smallest and the largest prompt bucket, then
-    leaves the engine empty with zeroed telemetry; served tokens equal a
+    leaves the engine empty with zeroed telemetry and the tracer with no
+    record; served tokens equal a
     fresh engine's."""
     cfg, _, params = nano
     audio = (np.random.RandomState(7).randn(24_000) * 0.1).astype(np.float32)
@@ -392,10 +394,14 @@ def test_warmup_then_exact_traffic(nano):
     b = ContinuousBatcher(params, cfg, max_slots=2, max_new=6, device="cpu")
     eng = ContinuousEngine(b)
     try:
-        eng.warmup()
+        profiling.start()
+        try:
+            eng.warmup()
+        finally:
+            records = profiling.stop()
         assert all(s is None for s in b._slots) and not b._queue
         assert b.queue_stats()["served"] == 0 and b.max_new == 6
-        assert not b.fill_buckets
+        assert not records["spans"]
         assert eng.transcribe(audio).tokens == ref
     finally:
         eng.close()

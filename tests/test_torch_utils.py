@@ -1,10 +1,9 @@
 """The port's utils (whisper_tpu_torch/utils) against the JAX package's:
 the text metrics on seeded strings, the roofline cost model over every
-config and quant flag at the same peaks, and the timers and trace on the
-CPU."""
+config and quant flag at the same peaks, and the trace on the CPU (the
+tracer's tests are in test_torch_tracing.py)."""
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -15,8 +14,7 @@ from whisper_tpu.config import get_config as jax_get_config
 from whisper_tpu.utils import metrics as jax_metrics
 from whisper_tpu.utils import perf_model as jax_pm
 from whisper_tpu_torch.config import CONFIGS, get_config
-from whisper_tpu_torch.utils import PhaseTimer, TimingReport, rtfx, trace
-from whisper_tpu_torch.utils import metrics, perf_model, profiling
+from whisper_tpu_torch.utils import metrics, perf_model, rtfx, trace
 
 torch.set_num_threads(2)
 
@@ -100,54 +98,6 @@ def test_perf_model_h100_peaks():
         assert got.mfu(1.0) == got.flops / 989e12
 
 
-def test_phase_timer_accumulates(monkeypatch):
-    def no_sync(*a):
-        raise AssertionError("a CPU tensor needs no synchronize")
-
-    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
-    t = PhaseTimer()
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("a"):
-        time.sleep(0.01)
-    with t.phase("b", sync={"x": torch.zeros(4), "y": [torch.ones(2)]}):
-        time.sleep(0.005)
-    rep = t.report
-    assert rep.phases["a"] >= 0.02
-    assert rep.phases["b"] >= 0.005
-    assert rep.total_s == sum(rep.phases.values())
-    assert "a=" in str(rep) and "total=" in str(rep)
-    out = t.timed("mul", lambda x: x * 2, torch.ones(8))
-    assert float(out.sum()) == 16.0 and t.report.phases["mul"] > 0
-
-
-def test_phase_sync_finds_every_tensor_of_a_tree():
-    """The sync walks dicts, lists, tuples and dataclasses (DecodeResult)
-    down to the tensors."""
-    from whisper_tpu_torch.decode import DecodeResult
-    meta = torch.empty(2, device="meta")
-    res = DecodeResult(tokens=meta, lengths=meta, sum_logprobs=meta,
-                       no_speech_prob=meta)
-    tree = {"r": res, "l": [torch.zeros(1), (meta,)], "n": 3}
-    assert profiling._cuda_devices(tree, set()) == set()
-    assert profiling.block_until_ready(tree) is tree
-
-
-@pytest.mark.cuda
-def test_phase_syncs_cuda_tensors(monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    calls = []
-    real = torch.cuda.synchronize
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda dev=None: calls.append(dev) or real(dev))
-    t = PhaseTimer()
-    x = torch.ones(4, device="cuda")
-    with t.phase("gpu", sync=[x]):
-        x.mul_(2)
-    assert calls == [x.device]
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path / "tr")) as log_dir:
         torch.ones(64, 64) @ torch.ones(64, 64)
@@ -159,5 +109,3 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 def test_rtfx_and_report():
     assert rtfx(30.0, 0.75) == 40.0
     assert rtfx(30.0, 0.0) > 1e6
-    d = TimingReport(phases={"x": 1.0, "y": 2.0}).as_dict()
-    assert d["total_s"] == 3.0 and d["x"] == 1.0

@@ -50,6 +50,7 @@ from whisper_tpu_torch.ops.decoder_step import (
     fused_decoder_step,
     pack_decoder_weights,
 )
+from whisper_tpu_torch.utils import profiling
 
 POLL_EVERY = 8   # steps between the host's early-exit checks
 
@@ -238,17 +239,21 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
     else:
         step = _layer_step(params, cfg, cross_kv)
     for i in range(max_new):
-        if i % POLL_EVERY == 0 and bool(finished.all()):
-            break
-        last = tokens[:, P + i:P + i + 1]
-        logits, cache = step(last, P + i, cache)
-        picked, lp = _pick(logits, logit_bias, opts, cfg, tokens, P + i + 1,
-                           P, generator)
-        live = ~finished
-        nxt = torch.where(live, picked, torch.full_like(picked, eot))
-        sum_lp = sum_lp + torch.where(live, lp, torch.zeros_like(lp))
-        tokens[:, P + i + 1] = nxt
-        finished = finished | (nxt == eot)
+        if i % POLL_EVERY == 0:
+            with profiling.span("decode.poll"):
+                done = bool(finished.all())
+            if done:
+                break
+        with profiling.span("decode.step"):
+            last = tokens[:, P + i:P + i + 1]
+            logits, cache = step(last, P + i, cache)
+            picked, lp = _pick(logits, logit_bias, opts, cfg, tokens,
+                               P + i + 1, P, generator)
+            live = ~finished
+            nxt = torch.where(live, picked, torch.full_like(picked, eot))
+            sum_lp = sum_lp + torch.where(live, lp, torch.zeros_like(lp))
+            tokens[:, P + i + 1] = nxt
+            finished = finished | (nxt == eot)
     return DecodeResult(tokens=tokens, lengths=_lengths(tokens, P, eot),
                         sum_logprobs=sum_lp, no_speech_prob=no_speech_prob)
 
@@ -280,8 +285,9 @@ def greedy_decode(params, cfg: WhisperConfig, enc_out: torch.Tensor,
         max_new = cfg.max_new_tokens
     total = prompt.shape[1] + 1 + max_new
     with full_fp32(compute_dtype(cfg) == torch.float32):
-        cross_kv, cache, tokens, logits = _greedy_prefill(
-            params, cfg, enc_out, prompt, total)
+        with profiling.span("decode.prefill"):
+            cross_kv, cache, tokens, logits = _greedy_prefill(
+                params, cfg, enc_out, prompt, total)
         return _greedy_loop(params, cfg, cross_kv, cache, tokens, logits,
                             prompt, logit_bias, max_new, opts, generator)
 

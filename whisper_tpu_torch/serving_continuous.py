@@ -41,7 +41,6 @@ per-vector scales included, is filled and copied per joining row.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import time
 from typing import Callable, Optional
@@ -64,6 +63,7 @@ from whisper_tpu_torch.models.whisper import (
 )
 from whisper_tpu_torch.pipeline import resolve_device
 from whisper_tpu_torch.tokenizer import LANGUAGES, Tokenizer, build_prompt
+from whisper_tpu_torch.utils import profiling
 
 
 def _prefill_join(params, cfg: WhisperConfig, cache: dict, cross: dict,
@@ -244,8 +244,6 @@ class ContinuousBatcher:
         self._waits: list[float] = []
         self._max_wait_s = 0.0
         self._served = 0
-        # fills by prefill bucket: {p_pad: count}
-        self.fill_buckets: collections.Counter = collections.Counter()
 
     def _fresh_state(self) -> dict:
         """A zeroed device state (see _engine_step_impl), as JAX builds it
@@ -298,9 +296,10 @@ class ContinuousBatcher:
     def warmup(self, buckets: Optional[tuple] = None) -> None:
         """Drive one throwaway request per prompt bucket through the normal
         fill -> step -> harvest path (:275), then reset all state and
-        telemetry. Default buckets: the smallest and the largest. On the
-        card this builds the kernels and settles cuBLAS's and the caching
-        allocator's first-call work before traffic."""
+        telemetry; the tracer records none of it. Default buckets: the
+        smallest and the largest. On the card this builds the kernels and
+        settles cuBLAS's and the caching allocator's first-call work
+        before traffic."""
         if buckets is None:
             buckets = (self._P_BUCKETS[0], self._P_BUCKETS[-1])
         base = len(build_prompt(self.cfg, "en", "transcribe",
@@ -309,12 +308,13 @@ class ContinuousBatcher:
         saved_max_new = self.max_new
         self.max_new = 1                    # shapes don't depend on it
         try:
-            for pb in sorted(set(buckets)):
-                prev_len = pb - base - 1    # +1 for <|startofprev|>
-                prev = ([self.cfg.eot_token] * prev_len
-                        if prev_len > 0 else None)
-                self.submit(audio, prev_tokens=prev, admitted=True)
-            self.run_until_idle()
+            with profiling.paused():
+                for pb in sorted(set(buckets)):
+                    prev_len = pb - base - 1    # +1 for <|startofprev|>
+                    prev = ([self.cfg.eot_token] * prev_len
+                            if prev_len > 0 else None)
+                    self.submit(audio, prev_tokens=prev, admitted=True)
+                self.run_until_idle()
         finally:
             self.max_new = saved_max_new
             self.reset_state()
@@ -323,7 +323,6 @@ class ContinuousBatcher:
             self._waits.clear()
             self._max_wait_s = 0.0
             self._served = 0
-            self.fill_buckets.clear()
 
     # ---- client API ----
     def submit(self, audio: np.ndarray, language: str = "en",
@@ -355,7 +354,7 @@ class ContinuousBatcher:
         self._queue.append((rid, np.asarray(audio, np.float32),
                             (language, task), callback, on_token,
                             rid if seed is None else int(seed), prev,
-                            time.monotonic()))
+                            time.monotonic(), time.time_ns()))
         return rid
 
     def cancel(self, rid: int) -> str:
@@ -397,15 +396,22 @@ class ContinuousBatcher:
         return t.to(self.device)
 
     @torch.inference_mode()
-    def _fill_free_slots(self) -> None:
+    def _fill_free_slots(self) -> int:
         """Claim free slots for queued requests (:389). All joining
         requests share ONE padded (B, ...) mel + encoder pass and one
         batched prefill (_prefill_join); only the joining rows' state, cross
-        K/V and cache columns are written, by their slot indices."""
-        cfg = self.cfg
+        K/V and cache columns are written, by their slot indices. Returns
+        the number of requests that joined."""
         free = [b for b in range(self.B) if self._slots[b] is None]
         if not free or not self._queue:
-            return
+            return 0
+        with profiling.span("engine.fill") as sp:
+            return self._fill(free, sp)
+
+    def _fill(self, free: list, sp) -> int:
+        """The fill inside its span `sp`: each part in a span of its own,
+        an `admit` event per request taken (its id and submit time)."""
+        cfg = self.cfg
         take = self._queue[:len(free)]
         del self._queue[:len(take)]
         now = time.monotonic()
@@ -415,19 +421,35 @@ class ContinuousBatcher:
             self._max_wait_s = max(self._max_wait_s, w)
         if len(self._waits) > 1024:          # bounded telemetry window
             del self._waits[:-1024]
+        if sp:
+            for req in take:
+                profiling.event("admit", sp.start_ns, rid=req[0],
+                                submit_ns=req[8])
 
         n = len(take)
         slots = free[:n]
-        audio = np.zeros((self.B, cfg.n_samples), np.float32)
-        for i, req in enumerate(take):
-            audio[i] = pad_or_trim(req[1], cfg.n_samples)
+        with profiling.span("fill.audio"):
+            audio = np.zeros((self.B, cfg.n_samples), np.float32)
+            for i, req in enumerate(take):
+                audio[i] = pad_or_trim(req[1], cfg.n_samples)
+            wav = self._to_device(audio)
+        s = self.state
+        idx = self._to_device(np.asarray(slots, np.int64))
         with full_fp32(compute_dtype(cfg) == torch.float32):
-            enc = encode(self.params, cfg,
-                         log_mel_spectrogram(self._to_device(audio), cfg))
+            with profiling.span("fill.mel"):
+                mel = log_mel_spectrogram(wav, cfg)
+            del wav                     # freed before the encoder runs
+            with profiling.span("fill.encode"):
+                enc = encode(self.params, cfg, mel)
+            del mel
             lang_probs = None
             if any(req[2][0] == "auto" for req in take):
                 lang_probs = detect_language(self.params, cfg, enc).cpu()
-            cross = precompute_cross_kv(self.params, cfg, enc)
+            with profiling.span("fill.cross_kv"):
+                cross = precompute_cross_kv(self.params, cfg, enc)
+                for name, leaf in s["cross"].items():
+                    leaf.index_copy_(1, idx,
+                                     cross[name][:, :n].to(leaf.dtype))
 
             prompts = []
             rows_np = np.full((n, self.total), cfg.eot_token, np.int64)
@@ -435,7 +457,7 @@ class ContinuousBatcher:
             cap_v = np.zeros((n,), np.int64)
             seed_v = np.zeros((n,), np.int64)
             for i, (rid, _, (language, task), cb, on_tok, seed, prev,
-                    _t) in enumerate(take):
+                    _t, _t_ns) in enumerate(take):
                 if language == "auto":
                     language = LANGUAGES[int(lang_probs[i].argmax())]
                 prompt = build_prompt(cfg, language, task,
@@ -451,8 +473,6 @@ class ContinuousBatcher:
                 seed_v[i] = seed & _MASK32
                 self._slots[slots[i]] = _Slot(rid, cb, on_tok, emitted=P)
 
-            s = self.state
-            idx = self._to_device(np.asarray(slots, np.int64))
             s["tokens"].index_copy_(0, idx, self._to_device(rows_np))
             pos_t = self._to_device(pos_v)
             s["pos"].index_copy_(0, idx, pos_t)
@@ -461,8 +481,6 @@ class ContinuousBatcher:
             s["seed"].index_copy_(0, idx, self._to_device(seed_v))
             s["active"].index_fill_(0, idx, True)
             s["finished"].index_fill_(0, idx, False)
-            for name, leaf in s["cross"].items():
-                leaf.index_copy_(1, idx, cross[name][:, :n].to(leaf.dtype))
 
             # one batched prefill for every joining row
             p_max = max(len(p) for p in prompts)
@@ -471,15 +489,20 @@ class ContinuousBatcher:
             tok_pad = np.full((self.B, p_pad), cfg.eot_token, np.int64)
             for b, p in zip(slots, prompts):
                 tok_pad[b, :min(len(p), p_pad)] = p[:p_pad]
-            _prefill_join(self.params, cfg, s["cache"], s["cross"],
-                          self._to_device(tok_pad), idx)
-        self.fill_buckets[p_pad] += 1
+            with profiling.span("fill.prefill"):
+                _prefill_join(self.params, cfg, s["cache"], s["cross"],
+                              self._to_device(tok_pad), idx)
+        if sp:
+            sp["bucket"] = p_pad
+        return n
 
     def _snapshot(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(finished, pos, tokens) on the host, in ONE device read."""
         s = self.state
-        packed = torch.cat([s["finished"].long()[:, None], s["pos"][:, None],
-                            s["tokens"]], dim=1).cpu().numpy()
+        with profiling.span("sync.read"):
+            packed = torch.cat([s["finished"].long()[:, None],
+                                s["pos"][:, None], s["tokens"]],
+                               dim=1).cpu().numpy()
         return packed[:, 0].astype(bool), packed[:, 1], packed[:, 2:]
 
     def _stream(self, snap=None) -> None:
@@ -517,29 +540,36 @@ class ContinuousBatcher:
         s["active"] &= ~s["finished"]
         s["finished"].zero_()
 
-    def step_device(self, k: int = 1) -> None:
+    def step_device(self, k: int = 1) -> int:
         """Fill slots and enqueue k lockstep tokens; no host read (the
-        fill reads language probabilities only for language="auto")."""
-        self._fill_free_slots()
+        fill reads language probabilities only for language="auto").
+        Returns the number of requests that joined."""
+        admitted = self._fill_free_slots()
         with torch.inference_mode(), \
                 full_fp32(compute_dtype(self.cfg) == torch.float32):
             for _ in range(k):
-                self.state = _engine_step_impl(self.params, self.cfg,
-                                               self.state, self.opts)
+                with profiling.span("engine.token"):
+                    self.state = _engine_step_impl(self.params, self.cfg,
+                                                   self.state, self.opts)
+        return admitted
 
     def sync(self) -> None:
         """Read back the device state once: stream new tokens, harvest
         finished requests."""
         if all(s is None for s in self._slots):
             return
-        snap = self._snapshot()
-        self._stream(snap)
-        self._harvest(snap)
+        with profiling.span("engine.sync"):
+            snap = self._snapshot()
+            self._stream(snap)
+            self._harvest(snap)
 
     def step(self) -> None:
         """Fill slots, run one lockstep token, stream, harvest."""
-        self.step_device()
-        self.sync()
+        with profiling.span("engine.step") as sp:
+            admitted = self.step_device()
+            if sp:
+                sp["admitted"] = admitted
+            self.sync()
 
     def run_until_idle(self, max_steps: int = 100_000) -> dict[int, list[int]]:
         """Drive until queue and slots are empty; returns {request_id: ids}.
