@@ -19,13 +19,19 @@ b32 bf16 with the serving policy (quant="auto", turbo also with the int8
 self cache), each timed against quant="off" in the same process, and
 tiny b32 fp32 with an int8 cross cache, whose every cross read launches
 the int8 decode kernel and whose tokens equal the CPU's. Then the fused
-decoder step (cfg.fused_step): fused_decoder_step against its plain
-version at tiny and turbo widths and timed beside its bound and the
-unfused step, the tiny b32 bf16 workload with the fused step (one
-fused_decoder_step and one append launch per loop step) timed against
-the unfused path in turns, tiny fp32 with the fused step against the CPU
-and the unfused tokens, and turbo b32 bf16 with the fused step at full
-width and depth. Then the attention backend switch (cfg.attn_backend):
+decoder step (the CUDA default where its kernel takes the decode; the
+phases that measure the unfused step set cfg.fused_step=False):
+fused_decoder_step against its plain version at tiny, turbo and medium
+widths, and at medium b64's full depth layer by layer and whole beside
+its fp64-summed form, timed beside its bound and the unfused step, its
+phases at tiny and turbo b32 and medium b64, the tiny b32 bf16 workload
+with the fused step (one fused_decoder_step and one append launch per
+loop step) timed against the unfused path in turns, tiny fp32 with the
+fused step against the CPU and the unfused tokens, and turbo b32 bf16
+with the fused step at full width and depth, also at B=1 and to the last
+of the 448 self slots (`--only fused_medium`: medium b64 the same way;
+`--only fused_reach`: turbo's B=1 and long rows in bf16 and fp32).
+Then the attention backend switch (cfg.attn_backend):
 the fp32/bf16 decode kernel's three wrappers (decode_attention_bh,
 decode_attention_bg, decode_attention) against their plain versions with
 NaN in the dead rows and timed beside the bound and SDPA, and the reads
@@ -203,6 +209,13 @@ KVQ_LOGITS_ATOL = 1e-2
 # carried into the later layers
 FUSED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.06, 2e-2)}
 FUSED_POS = (0, 4, 48, 447)       # empty self cache .. the last of 448 slots
+# fused_deep: through 24 bf16 layers both fp32 orders drift from the
+# fp64-summed form, near-ties rounded apart compounding with depth (medium
+# b64 pos 48: 0 of h_out outside the bf16 tolerance at 4 layers, 5.5% of
+# the plain version's at 24, the kernel's 4.4%); the kernel's share
+# outside it may be at most this multiple of the plain version's, plus
+# FUSED_DEEP_SLACK
+FUSED_DEEP_ROOM, FUSED_DEEP_SLACK = 1.5, 1e-4
 FUSED_TIME_POS = 48               # mid-bench: prompt 4 + 44 loop steps
 # the fp32/bf16 decode kernel (decode_attention_bh, _bg, decode_attention)
 # against its plain version. fp32: an online against a two-pass softmax,
@@ -299,8 +312,18 @@ Q8_ENGINE_REQUESTS, Q8_ENGINE_MAX_NEW = 16, 24           # 8 slots
 # the largest |logit|, the CPU tests' bound for the int8 encoders against
 # JAX (tests/test_torch_int8_encoder.py)
 INT8_LOGITS_REL = 0.03
-# fused_phases: steps timed per model, and the models (H) at b32 bf16
+# fused_phases: steps timed per row, and the rows (model, H, batch, layers)
+# in bf16: tiny and turbo b32 at 4 layers, medium b64 at its 24 (the
+# batch cell's decode)
 FUSED_PHASE_STEPS = 20
+MEDIUM_BATCH = 64
+FUSED_PHASE_ROWS = (("tiny", 6, BATCH, 4), (TURBO, 20, BATCH, 4),
+                    ("medium", 16, MEDIUM_BATCH, 24))
+# fused_ab beyond the bench workload's shape (batch, loop steps): one
+# window, as transcribe and long-form decode it, and the longest self
+# context (4 prompt tokens + 444 picks fill the 448 slots: the last step
+# reads 446 stale rows)
+REACH_ROWS = ((1, GEN_TOKENS - 1), (1, 443), (BATCH, 443))
 # the pipeline layer: long-form transcription (a clip of LONGFORM_S with
 # timestamps, conditioning and word timestamps, LONGFORM_MAX_NEW tokens a
 # window), speculative decoding (SPEC_K drafts a round, SPEC_MAX_NEW
@@ -372,6 +395,8 @@ ONLY = {"tail": "tail_checks", "tail_gate": "tail_gate",
         "ragged_int8": "ragged_int8_checks",
         "flash_sass": "flash_sass", "fused_checks": "fused_checks",
         "fused_time": "fused_time", "fused_phases": "fused_phases",
+        "fused_deep": "fused_deep", "fused_medium": "fused_medium",
+        "fused_reach": "fused_reach",
         "flash": "flash_checks", "decode_time": "decode_time",
         "pipeline": "pipeline_layer", "serving": "serving_group",
         "train": "train_group", "tail_bwd": "tail_backward_phases",
@@ -573,15 +598,15 @@ def profile_path(model: str, cfg, card: str, run) -> None:
 
 
 def main_path(pipe, kernels: dict, expect: dict, card: str,
-              label: str = "main_path"):
-    """The bench workload through pipe.transcribe_batch: a warm-up, then
-    one run with every kernel's launch count set to 0 just before it and
-    read just after it, and the peak device memory from just before it.
-    Fails unless the counts equal `expect` and the output is sane. Returns
-    (run, audio, bias, the phase line)."""
+              label: str = "main_path", batch: int = BATCH):
+    """The bench workload (`batch` rows) through pipe.transcribe_batch: a
+    warm-up, then one run with every kernel's launch count set to 0 just
+    before it and read just after it, and the peak device memory from
+    just before it. Fails unless the counts equal `expect` and the output
+    is sane. Returns (run, audio, bias, the phase line)."""
     import torch
     cfg = pipe.cfg
-    audio = bench_audio(cfg, BATCH)
+    audio = bench_audio(cfg, batch)
     bias = torch.zeros(cfg.vocab_size, device="cuda")
     bias[cfg.eot_token] = -1e9          # EOT banned: fixed work
     max_new = GEN_TOKENS - 1
@@ -604,9 +629,9 @@ def main_path(pipe, kernels: dict, expect: dict, card: str,
     toks = res.tokens.cpu()
     gen = toks[:, P:]
     line = {"phase": label, "model": cfg.name, "dtype": cfg.compute_dtype,
-            "quant": quant_flags(cfg), "batch": BATCH,
+            "quant": quant_flags(cfg), "batch": batch,
             "gen_tokens": GEN_TOKENS, "wall_s": wall,
-            "audio_s_per_wall_s": BATCH * cfg.chunk_length_s / wall,
+            "audio_s_per_wall_s": batch * cfg.chunk_length_s / wall,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "resident_gb_before": resident, "launches": launches,
             "card": card}
@@ -614,7 +639,7 @@ def main_path(pipe, kernels: dict, expect: dict, card: str,
     for name, n in expect.items():
         require(launches[name] == n,
                 f"{cfg.name}: {name} launches {launches[name]} != {n}")
-    require(tuple(toks.shape) == (BATCH, P + GEN_TOKENS),
+    require(tuple(toks.shape) == (batch, P + GEN_TOKENS),
             f"tokens shape {tuple(toks.shape)}")
     require(bool((gen != cfg.eot_token).all()), "EOT emitted while banned")
     require(bool((gen >= 0).all() and (gen < cfg.vocab_size).all()),
@@ -663,16 +688,18 @@ class EnvPipeline:
             return self.pipe.transcribe_batch(*args, **kw)
 
 
-def ab_walls(pipes: dict, audio, bias, order: tuple) -> dict:
-    """The bench workload's wall through each pipeline in one process, in
-    turns `order` (each pipeline warm first)."""
+def ab_walls(pipes: dict, audio, bias, order: tuple,
+             max_new: int = GEN_TOKENS - 1) -> dict:
+    """The bench workload's wall (`max_new` loop steps) through each
+    pipeline in one process, in turns `order` (each pipeline warm
+    first)."""
     import torch
     walls = {name: [] for name in pipes}
     for pipe in pipes.values():                 # warm-up
-        pipe.transcribe_batch(audio, max_new=GEN_TOKENS - 1, logit_bias=bias)
+        pipe.transcribe_batch(audio, max_new=max_new, logit_bias=bias)
     for name in order:
         t0 = time.perf_counter()
-        pipes[name].transcribe_batch(audio, max_new=GEN_TOKENS - 1,
+        pipes[name].transcribe_batch(audio, max_new=max_new,
                                      logit_bias=bias)
         torch.cuda.synchronize()
         walls[name].append(time.perf_counter() - t0)
@@ -692,15 +719,17 @@ def quant_ab(pipes: dict, audio, bias, card: str) -> None:
           "card": card})
 
 
-def on_off_ab(phase: str, pipes: dict, audio, bias, card: str) -> None:
-    """The bench workload's wall with an option off and on in one process,
-    in turns off, on, on, off (each pipeline warm): the fused step
-    (fused_ab), attn_backend "pallas" with WHISPER_TPU_IP_CROSS=bg8
-    (bg_ab)."""
-    walls = ab_walls(pipes, audio, bias, ("off", "on", "on", "off"))
+def on_off_ab(phase: str, pipes: dict, audio, bias, card: str,
+              max_new: int = GEN_TOKENS - 1) -> None:
+    """The bench workload's wall (`max_new` loop steps) with an option off
+    and on in one process, in turns off, on, on, off (each pipeline warm):
+    the fused step (fused_ab), attn_backend "pallas" with
+    WHISPER_TPU_IP_CROSS=bg8 (bg_ab)."""
+    walls = ab_walls(pipes, audio, bias, ("off", "on", "on", "off"),
+                     max_new)
     cfg = pipes["on"].cfg
     emit({"phase": phase, "model": cfg.name, "dtype": cfg.compute_dtype,
-          "batch": BATCH, "gen_tokens": GEN_TOKENS,
+          "batch": len(audio), "gen_tokens": max_new + 1,
           "off_walls_s": walls["off"], "on_walls_s": walls["on"],
           "on_over_off": sum(walls["on"]) / sum(walls["off"]),
           "card": card})
@@ -713,7 +742,12 @@ def main_path_stages(pipe, audio, bias, card: str) -> None:
     import torch
 
     from whisper_tpu_torch.audio import log_mel_spectrogram
-    from whisper_tpu_torch.decode import _greedy_loop, _greedy_prefill, encode
+    from whisper_tpu_torch.decode import (
+        _fused_step_enabled,
+        _greedy_loop,
+        _greedy_prefill,
+        encode,
+    )
     P, max_new = 4, GEN_TOKENS - 1
     stages, peaks = {}, {}
 
@@ -731,7 +765,7 @@ def main_path_stages(pipe, audio, bias, card: str) -> None:
         torch.from_numpy(audio).cuda(), pipe.cfg))
     enc = stage("encoder", lambda: encode(pipe.params, pipe.cfg, mel))
     with torch.inference_mode():
-        prompt = pipe.prompt(BATCH)
+        prompt = pipe.prompt(len(audio))
         pre = stage("prefill", lambda: _greedy_prefill(
             pipe.params, pipe.cfg, enc, prompt, P + GEN_TOKENS))
         stage("loop", lambda: _greedy_loop(pipe.params, pipe.cfg, *pre,
@@ -739,7 +773,7 @@ def main_path_stages(pipe, audio, bias, card: str) -> None:
     stages["loop_ms_per_step"] = 1e3 * stages["loop_s"] / max_new
     emit({"phase": "main_path_stages", "model": pipe.cfg.name,
           "dtype": pipe.cfg.compute_dtype, "quant": quant_flags(pipe.cfg),
-          "fused_step": bool(pipe.cfg.fused_step),
+          "fused_step": _fused_step_enabled(pipe.cfg, "cuda"),
           **stages, "peak_gb": peaks, "card": card})
 
 
@@ -1538,18 +1572,21 @@ def fused_inputs(B: int, L: int, H: int, dtype, seed: int):
             r(L, B, H, 1500, 64), r(L, B, H, 1500, 64))
 
 
-def fused_layers(args, L: int):
-    """The first L layers of fused_inputs' operands (contiguous views)."""
+def fused_layers(args, L: int, first: int = 0):
+    """Layers first .. first + L - 1 of fused_inputs' operands (contiguous
+    views)."""
     from whisper_tpu_torch.ops.decoder_step import PackedDecoder
     h0, packed, *caches = args
-    return (h0, PackedDecoder(*(t[:L] for t in packed)),
-            *(c[:L] for c in caches))
+    cut = slice(first, first + L)
+    return (h0, PackedDecoder(*(t[cut] for t in packed)),
+            *(c[cut] for c in caches))
 
 
 def fused_checks(card: str) -> float:
     """fused_vs_plain: the kernel against its plain version at tiny b32
-    (4 layers), turbo b32 (one layer and four), tiny B = 1, 3 and 33 and
-    turbo B = 1 (one layer), fp32 and bf16, at pos 0, 4, 48 and 447 of the
+    (4 layers), turbo b32 and medium b64 (one layer and four), tiny B = 1,
+    3 and 33 and turbo B = 1 (one layer), fp32 and bf16, at pos 0, 4, 48
+    and 447 of the
     448-slot cache; the largest error on h_out, k_new and v_new per case,
     and a second call on the same inputs bitwise equal to the first. The
     tolerance is held against the plain version, and against its
@@ -1567,6 +1604,7 @@ def fused_checks(card: str) -> float:
         atol, rtol = FUSED_TOL[str(dtype).split(".")[1]]
         for model, H, B, depths in (("tiny", 6, BATCH, (4,)),
                                     ("turbo", 20, BATCH, (1, 4)),
+                                    ("medium", 16, MEDIUM_BATCH, (1, 4)),
                                     ("tiny", 6, 1, (4,)), ("tiny", 6, 3, (4,)),
                                     ("tiny", 6, 33, (4,)),
                                     ("turbo", 20, 1, (1,))):
@@ -1620,6 +1658,102 @@ def fused_close(got, want, exact, atol: float, rtol: float):
     through the layers), within it of that form."""
     return within(got, want, atol, rtol) | (
         ~within(want, exact, atol, rtol) & within(got, exact, atol, rtol))
+
+
+def fused_deep(card: str) -> None:
+    """The kernel at the batch cell's shape, medium b64 bf16 (16 heads, d
+    1024) with all 24 layers, at pos 0, 4, 48 and 447. fused_deep_layers:
+    each layer alone, fed the plain version's chain of h (the plain
+    24-layer call is that chain), held to fused_close on h_out, k_new and
+    v_new, as fused_checks holds its cases. fused_deep: the 24-layer call
+    against the plain version and its fp64-summed form: for each output,
+    the share outside the tolerance of the plain version, the plain
+    version's own share outside it of the fp64 form, the kernel's share
+    outside it of the fp64 form, the share fused_close leaves, and the
+    root-mean-square distance of each fp32 order from the fp64 form. The
+    kernel's share outside the fp64 form is held to FUSED_DEEP_ROOM times
+    the plain version's (plus FUSED_DEEP_SLACK); a second call bitwise
+    equal to the first and every output finite are required."""
+    import torch
+
+    from whisper_tpu_torch.ops.decoder_step import (
+        fused_decoder_step,
+        fused_decoder_step_plain,
+    )
+    H, L = 16, 24
+    atol, rtol = FUSED_TOL["bfloat16"]
+    names = ("h_out", "k_new", "v_new")
+    args = fused_inputs(MEDIUM_BATCH, L, H, torch.bfloat16, seed=13)
+
+    def three(call):
+        return (call(fused_decoder_step), call(fused_decoder_step_plain),
+                call(lambda *a, **kw: fused_decoder_step_plain(
+                    *a, acc_dtype=torch.float64, **kw)))
+
+    def share(mask) -> float:
+        return float(mask.float().mean())
+
+    for pos in FUSED_POS:
+        n = pos + 1
+        h, worst, flips, ok = args[0], dict.fromkeys(names, 0.0), 0, True
+        for i in range(L):
+            one = (h, *fused_layers(args, 1, i)[1:])
+            got, want, exact = three(lambda f: f(*one, n, n_heads=H))
+            for name, a, b, c in zip(names, got, want, exact):
+                worst[name] = max(worst[name],
+                                  float((a.float() - b.float()).abs().max()))
+                close = fused_close(a, b, c, atol, rtol)
+                ok = ok and bool(close.all())
+                flips += int((close & ~within(a, b, atol, rtol)).sum())
+            h = want[0]
+            del got, want, exact
+        emit({"phase": "fused_deep_layers", "model": "medium",
+              "dtype": "bfloat16", "batch": MEDIUM_BATCH, "layers": L,
+              "heads": H, "pos": pos, "max_abs_err": worst, "atol": atol,
+              "rtol": rtol, "plain_fp32_near_ties": flips, "ok": ok,
+              "card": card})
+        require(ok, f"fused_decoder_step medium b64 bf16 pos={pos}: a "
+                    f"layer disagrees with its plain version ({worst})")
+
+        got, want, exact = three(lambda f: f(*args, n, n_heads=H))
+        again = fused_decoder_step(*args, n, n_heads=H)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+        line = {k: {} for k in ("max_abs_err", "outside_plain",
+                                "plain_outside_fp64", "outside_fp64",
+                                "left_by_fused_close", "rms_vs_fp64",
+                                "plain_rms_vs_fp64")}
+        for name, a, b, c in zip(names, got, want, exact):
+            line["max_abs_err"][name] = float((a.float() - b.float()
+                                               ).abs().max())
+            line["outside_plain"][name] = share(~within(a, b, atol, rtol))
+            line["plain_outside_fp64"][name] = share(~within(b, c, atol,
+                                                             rtol))
+            line["outside_fp64"][name] = share(~within(a, c, atol, rtol))
+            line["left_by_fused_close"][name] = share(
+                ~fused_close(a, b, c, atol, rtol))
+            line["rms_vs_fp64"][name] = float(
+                (a.double() - c.double()).square().mean().sqrt())
+            line["plain_rms_vs_fp64"][name] = float(
+                (b.double() - c.double()).square().mean().sqrt())
+        emit({"phase": "fused_deep", "model": "medium", "dtype": "bfloat16",
+              "batch": MEDIUM_BATCH, "layers": L, "heads": H, "pos": pos,
+              **line, "max_abs_ref": float(want[0].float().abs().max()),
+              "chain_equals_plain": bool(torch.equal(h, want[0])),
+              "atol": atol, "rtol": rtol, "repeat_bitwise_equal": same,
+              "card": card})
+        drift = all(line["outside_fp64"][k] <= FUSED_DEEP_ROOM
+                    * line["plain_outside_fp64"][k] + FUSED_DEEP_SLACK
+                    for k in names)
+        require(same and finite and drift,
+                f"fused_decoder_step medium b64 pos={pos}: bitwise equal to "
+                f"itself {same}, finite {finite}, no further from the fp64 "
+                f"form than the plain version allows {drift} "
+                f"({line['outside_fp64']} against "
+                f"{line['plain_outside_fp64']})")
+        del got, want, exact, again, h
+    del args
+    torch.cuda.empty_cache()
 
 
 def fused_decoder_tree(packed, cfg, dtype, seed: int) -> dict:
@@ -1762,12 +1896,13 @@ def phase_breakdown(timelines: list) -> dict:
 
 
 def fused_phases(card: str) -> None:
-    """fused_phases: where one fused decoder step spends its time, at tiny
-    and turbo b32 bf16 (4 layers), pos 48. Block 0's timeline (the
-    kernel's `stamps` buffer) over FUSED_PHASE_STEPS steps, summed by phase
-    kind per step, the cost of one barrier from back-to-back probes, the
-    barriers' share of the step; beside it the step's CUDA-event time with
-    and without the timeline (what the stamps cost)."""
+    """fused_phases: where one fused decoder step spends its time, bf16 at
+    pos 48, in FUSED_PHASE_ROWS (tiny and turbo b32 at 4 layers, medium b64
+    at 24). Block 0's timeline (the kernel's `stamps` buffer) over
+    FUSED_PHASE_STEPS steps, summed by phase kind per step, the cost of one
+    barrier from back-to-back probes, the barriers' share of the step;
+    beside it the step's CUDA-event time with and without the timeline
+    (what the stamps cost), and its bound."""
     import torch
 
     from whisper_tpu_torch.ops.decoder_step import (
@@ -1775,9 +1910,9 @@ def fused_phases(card: str) -> None:
         stamp_pairs,
     )
     pos = FUSED_TIME_POS
-    for model, H in (("tiny", 6), (TURBO, 20)):
-        args = fused_inputs(BATCH, 4, H, torch.bfloat16, seed=11)
-        stamps = torch.empty(2 * stamp_pairs(4), dtype=torch.int64,
+    for model, H, B, L in FUSED_PHASE_ROWS:
+        args = fused_inputs(B, L, H, torch.bfloat16, seed=11)
+        stamps = torch.empty(2 * stamp_pairs(L), dtype=torch.int64,
                              device="cuda")
         timelines = []
         for _ in range(3 + FUSED_PHASE_STEPS):
@@ -1787,11 +1922,93 @@ def fused_phases(card: str) -> None:
                                                       n_heads=H), 20)
         stamped_ms = cuda_ms(lambda: fused_decoder_step(
             *args, pos + 1, n_heads=H, stamps=stamps), 20)
+        bnd = fused_bound(B, L, H, pos, 2, "bfloat16")
         emit({"phase": "fused_phases", "model": model, "dtype": "bfloat16",
-              "batch": BATCH, "layers": 4, "pos": pos,
+              "batch": B, "layers": L, "pos": pos,
               **phase_breakdown(timelines[3:]), "ms": plain_ms,
-              "ms_with_timeline": stamped_ms, "card": card})
+              "ms_with_timeline": stamped_ms, **bnd,
+              "bound_share": bnd["bound_ms"] / plain_ms, "card": card})
         del args, stamps
+        torch.cuda.empty_cache()
+
+
+def fused_medium(card: str) -> None:
+    """medium b64 bf16 at full width and depth (weights drawn on the
+    card), the bench workload through transcribe_batch on the unfused step
+    (cfg.fused_step=False) and on the fused step the auto policy takes
+    with nothing set: each path's launches (one fused_decoder_step and one
+    append a loop step, or none of the former), its stage times (the
+    loop's ms a step) and peak memory, then the walls in turns (fused_ab).
+    fused_phases gives the kernel's own split at this shape, fused_deep
+    holds it to its plain version there."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    cfg = get_config("medium")
+    kernels = kernel_wrappers()
+    params = card_init_params(cfg, 0)
+    pipes = {"off": WhisperPipeline.from_params(
+                 params, cfg.replace(fused_step=False), dtype="bfloat16",
+                 device="cuda", quant="off"),
+             "on": WhisperPipeline.from_params(
+                 params, "medium", dtype="bfloat16", device="cuda",
+                 quant="off")}
+    del params
+    torch.cuda.empty_cache()
+    for name, pipe in pipes.items():
+        _, audio, bias, _ = main_path(
+            pipe, kernels, {"fused_decoder_step":
+                            GEN_TOKENS - 1 if name == "on" else 0,
+                            "cache_append_rows": GEN_TOKENS - 1,
+                            "encoder_block_tail": cfg.n_audio_layers},
+            card, label=f"medium_{name}_path", batch=MEDIUM_BATCH)
+        main_path_stages(pipe, audio, bias, card)
+    on_off_ab("fused_ab", pipes, audio, bias, card)
+    del pipes
+    torch.cuda.empty_cache()
+
+
+def reach_ab(pipes: dict, card: str) -> None:
+    """fused_ab through the unfused pipeline ("off", cfg.fused_step=False)
+    and the auto policy's ("on") at each of REACH_ROWS, after one fused run
+    whose fused_decoder_step launches must be one a loop step."""
+    import torch
+    cfg = pipes["on"].cfg
+    fused = kernel_wrappers()["fused_decoder_step"]
+    bias = torch.zeros(cfg.vocab_size, device="cuda")
+    bias[cfg.eot_token] = -1e9          # EOT banned: fixed work
+    for batch, max_new in REACH_ROWS:
+        audio = bench_audio(cfg, batch)
+        fused.launches = 0
+        pipes["on"].transcribe_batch(audio, max_new=max_new, logit_bias=bias)
+        require(fused.launches == max_new,
+                f"{cfg.name} {cfg.compute_dtype} B={batch}: "
+                f"fused_decoder_step launches {fused.launches} != {max_new}")
+        on_off_ab("fused_ab", pipes, audio, bias, card, max_new)
+
+
+def fused_reach(card: str) -> None:
+    """reach_ab on full-size turbo (weights drawn on the card), bf16 and
+    fp32."""
+    import torch
+
+    from whisper_tpu_torch import get_config
+    from whisper_tpu_torch.pipeline import WhisperPipeline
+    from whisper_tpu_torch.tokenizer import Tokenizer
+    cfg = get_config(TURBO)
+    params = card_init_params(cfg, 0)
+    for dtype in ("bfloat16", "float32"):
+        with tempfile.TemporaryDirectory() as tmp:
+            vocab = write_v3_vocab(Tokenizer(config=get_config("tiny")).tokens,
+                                   tmp)
+            pipes = {name: WhisperPipeline.from_params(
+                         params, c, dtype=dtype, device="cuda",
+                         vocab_path=vocab, quant="off")
+                     for name, c in (("off", cfg.replace(fused_step=False)),
+                                     ("on", cfg))}
+        reach_ab(pipes, card)
+        del pipes
         torch.cuda.empty_cache()
 
 
@@ -2412,7 +2629,7 @@ def encoder_int8_path(pipe, params, kernels: dict, card: str) -> int:
             ("encoder_int8_all", {"encoder_quant": True},
              {"encoder_block_tail_q8": 0, "encoder_block_tail": 0,
               "flash_attention": L})):
-        qcfg = cfg.replace(**flags)
+        qcfg = cfg.replace(fused_step=False, **flags)
         qpipe = WhisperPipeline.from_params(params, qcfg, dtype="bfloat16",
                                             device="cuda", quant="off")
         _, audio, bias, line = main_path(qpipe, kernels, {**expect, **rest},
@@ -5549,13 +5766,16 @@ def main() -> int:
         decode_split_sweep(card)
     append_int8_checks(card)
     fused_err = fused_checks(card)
+    fused_deep(card)
     fused = fused_time(card)
     fused_phases(card)
 
-    # 4. tiny main path: the bench workload through the pipeline
+    # 4. tiny main path: the bench workload through the pipeline, on the
+    # unfused step (cfg.fused_step=False; 4' runs the CUDA default)
     params = weights.init_params(cfg, seed=0)
-    pipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
-                                       device="cuda", quant="off")
+    pipe = WhisperPipeline.from_params(params, cfg.replace(fused_step=False),
+                                       dtype="bfloat16", device="cuda",
+                                       quant="off")
     run, audio, bias, line = main_path(
         pipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
                         "cache_append_rows": GEN_TOKENS - 1,
@@ -5572,11 +5792,11 @@ def main() -> int:
                    opts.profile)
     sampling(pipe, params, kernels, card)
 
-    # 4'. the same workload with the fused decoder step: one
-    # fused_decoder_step and one append launch per loop step
-    fpipe = WhisperPipeline.from_params(params, cfg.replace(fused_step=True),
-                                        dtype="bfloat16", device="cuda",
-                                        quant="off")
+    # 4'. the same workload with the fused decoder step, which the auto
+    # policy takes on the card with nothing set: one fused_decoder_step and
+    # one append launch per loop step
+    fpipe = WhisperPipeline.from_params(params, "tiny", dtype="bfloat16",
+                                        device="cuda", quant="off")
     frun, _, _, line = main_path(
         fpipe, kernels, {"fused_decoder_step": GEN_TOKENS - 1,
                          "cache_append_rows": GEN_TOKENS - 1,
@@ -5596,8 +5816,8 @@ def main() -> int:
     # WHISPER_TPU_IP_CROSS=bg8: the prefill's T > 1 reads take flash, every
     # layer's bf16 cross read at every loop step decode_attention_bg
     bpipe = EnvPipeline(WhisperPipeline.from_params(
-        params, cfg.replace(attn_backend="pallas"), dtype="bfloat16",
-        device="cuda", quant="off"), IP_CROSS_BG8)
+        params, cfg.replace(attn_backend="pallas", fused_step=False),
+        dtype="bfloat16", device="cuda", quant="off"), IP_CROSS_BG8)
     brun, _, _, line = main_path(
         bpipe, kernels, {"encoder_block_tail": cfg.n_audio_layers,
                          "flash_attention": 2 * cfg.n_text_layers,
@@ -5814,9 +6034,9 @@ def main() -> int:
                           _leaves(tparams))})
     with tempfile.TemporaryDirectory() as tmp:
         vocab = write_v3_vocab(bundled_vocab, tmp)
-        pipe = WhisperPipeline.from_params(tparams, TURBO, dtype="bfloat16",
-                                           device="cuda", vocab_path=vocab,
-                                           quant="off")
+        pipe = WhisperPipeline.from_params(
+            tparams, tcfg.replace(fused_step=False), dtype="bfloat16",
+            device="cuda", vocab_path=vocab, quant="off")
         require(pipe.tokenizer.vocab_size == tcfg.vocab_size,
                 "turbo vocab table size")
         run, audio, bias, line = main_path(
@@ -5847,10 +6067,11 @@ def main() -> int:
                        {"encoder_block_tail": tcfg.n_audio_layers}, card,
                        opts.profile)
 
-        # 7'. turbo with the fused step, on the same device params
+        # 7'. turbo with the fused step (the auto policy's), on the same
+        # device params
         fpipe = WhisperPipeline.from_params(
-            pipe.params, tcfg.replace(fused_step=True), dtype="bfloat16",
-            device="cuda", vocab_path=vocab, quant="off")
+            pipe.params, tcfg, dtype="bfloat16", device="cuda",
+            vocab_path=vocab, quant="off")
         _, _, _, line = main_path(
             fpipe, kernels, {"fused_decoder_step": GEN_TOKENS - 1,
                              "flash_attention": 0,
@@ -5869,13 +6090,14 @@ def main() -> int:
         main_path_stages(fpipe, audio, bias, card)
         on_off_ab("fused_ab", {"off": pipe, "on": fpipe}, audio, bias,
                   card)
+        reach_ab({"off": pipe, "on": fpipe}, card)
         del fpipe
 
         # 7''. turbo under "pallas" with WHISPER_TPU_IP_CROSS=bg8, on the
         # same device params: the encoder's and the prefill's reads take
         # flash, every layer's cross read at every step decode_attention_bg
         bpipe = EnvPipeline(WhisperPipeline.from_params(
-            pipe.params, tcfg.replace(attn_backend="pallas"),
+            pipe.params, tcfg.replace(attn_backend="pallas", fused_step=False),
             dtype="bfloat16", device="cuda", vocab_path=vocab, quant="off"),
             IP_CROSS_BG8)
         main_path(bpipe, kernels,

@@ -2,7 +2,10 @@
 its gate in decode.py) against the JAX package's, on the CPU at the nano
 width (d=64, 2 heads of 32, 2 + 2 layers): the plain version against
 JAX's Pallas kernel in interpret mode (as tests/test_fused_step.py runs
-it), chained steps, greedy tokens, the gate and the packing."""
+it), chained steps, greedy tokens, the gate (JAX's answer on the CPU, the
+auto policy on a CUDA device) and the packing; and a deeper nano decoder
+(6 layers of head_dim 64) teacher-forced through the fused step's plain
+version against the unfused step."""
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +24,7 @@ from whisper_tpu.ops.decoder_step import fused_decoder_step as jax_fused_step
 from whisper_tpu.ops.decoder_step import pack_misc, split_weights
 from whisper_tpu.tokenizer import build_prompt
 from whisper_tpu.weights import to_device as jax_to_device
-from whisper_tpu_torch import decode
+from whisper_tpu_torch import decode, get_config
 from whisper_tpu_torch.decode import greedy_decode
 from whisper_tpu_torch.ops.decoder_step import (
     PHASES,
@@ -43,14 +46,13 @@ DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
-@pytest.fixture(scope="module")
-def nano(small_cfg):
-    """Nano params with non-trivial biases and LayerNorm parameters (a
-    random init's are zeros and ones), as a numpy tree."""
+def _perturbed_tree(cfg, key: int, seed: int) -> dict:
+    """JAX-initialised params as a numpy tree, with non-trivial decoder
+    biases and LayerNorm parameters (a random init's are zeros and
+    ones)."""
     tree = jax.tree.map(np.asarray,
-                        jax_init_params(small_cfg, jax.random.PRNGKey(11)))
-    rng = np.random.RandomState(12)
-    layers = tree["decoder"]["layers"]
+                        jax_init_params(cfg, jax.random.PRNGKey(key)))
+    rng = np.random.RandomState(seed)
 
     def perturb(sub):
         for name, leaf in sub.items():
@@ -61,8 +63,15 @@ def nano(small_cfg):
             elif name == "g":
                 sub[name] = (1 + 0.2 * rng.randn(*leaf.shape)
                              ).astype(np.float32)
-    perturb(layers)
-    return small_cfg, tree
+    perturb(tree["decoder"]["layers"])
+    return tree
+
+
+@pytest.fixture(scope="module")
+def nano(small_cfg):
+    """Nano params with non-trivial biases and LayerNorm parameters, as a
+    numpy tree."""
+    return small_cfg, _perturbed_tree(small_cfg, 11, 12)
 
 
 def _jax_tree(tree, dtype: str):
@@ -250,25 +259,178 @@ _FLAGS = [{}, {"kv_cache_quant": True}, {"cross_kv_quant": True},
           {"weight_quant": True}, {"self_kv_quant": True}]
 
 
+def _set_env(monkeypatch, env) -> None:
+    if env is None:
+        monkeypatch.delenv("WHISPER_TPU_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("WHISPER_TPU_FUSED", env)
+
+
 @pytest.mark.parametrize("flags", _FLAGS, ids=lambda f: "+".join(f) or "none")
 @pytest.mark.parametrize("fused", [None, True, False])
 @pytest.mark.parametrize("env", [None, "0", "1"])
 def test_gate_and_cache_slots_match_jax(small_cfg, monkeypatch, flags, fused,
                                         env):
-    """_fused_step_enabled and _cache_slots answer as JAX's for every quant
-    flag, cfg.fused_step and WHISPER_TPU_FUSED; the default is off."""
-    if env is None:
-        monkeypatch.delenv("WHISPER_TPU_FUSED", raising=False)
-    else:
-        monkeypatch.setenv("WHISPER_TPU_FUSED", env)
+    """The explicit setting (`_fused_setting`, None read as off), the gate
+    on the CPU and _cache_slots answer as JAX's for every quant flag,
+    cfg.fused_step and WHISPER_TPU_FUSED; the default is off there."""
+    _set_env(monkeypatch, env)
     cfg = small_cfg.replace(fused_step=fused, **flags)
-    on = decode._fused_step_enabled(cfg)
+    on = decode._fused_step_enabled(cfg, torch.device("cpu"))
     assert on == jax_decode._fused_step_enabled(cfg)
+    assert bool(decode._fused_setting(cfg)) == on
     if not flags and fused is None and env is None:
-        assert on is False
+        assert on is False and decode._fused_setting(cfg) is None
     for total in (1, 23, 93, 200, 449):
         assert (decode._cache_slots(cfg, total)
                 == jax_decode._cache_slots(cfg, total))
+
+
+_CUDA = torch.device("cuda")     # a device object: no card is needed
+
+
+@pytest.mark.parametrize("model", ["tiny", "base", "small", "medium",
+                                   "large-v3", "large-v3-turbo"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_auto_policy_takes_the_fused_step_on_cuda(monkeypatch, model, dtype):
+    """With neither cfg.fused_step nor WHISPER_TPU_FUSED set and no int8
+    flag, a CUDA device takes the fused step at every Whisper width (head_dim
+    64, d <= 1280) in both compute dtypes; the CPU keeps JAX's off. The auto
+    path keeps the rounded self cache (the kernel reads only the rows below
+    the current position)."""
+    _set_env(monkeypatch, None)
+    cfg = get_config(model).replace(compute_dtype=dtype)
+    assert decode._fused_setting(cfg) is None
+    assert decode._fused_step_enabled(cfg, _CUDA)
+    assert decode._fused_step_enabled(cfg, "cuda:0")
+    assert not decode._fused_step_enabled(cfg, torch.device("cpu"))
+    assert decode._cache_slots(cfg, 101) == 128
+
+
+def _case_id(case: dict) -> str:
+    parts = [f"env{case['env']}"] if "env" in case else []
+    parts += ["tp2"] if case.get("tp") else []
+    return "+".join(parts + [f"{k}={v}" for k, v in
+                             case.get("flags", {}).items()])
+
+
+@pytest.mark.parametrize("case,want,slots", [
+    ({"flags": {"kv_cache_quant": True}}, False, 128),
+    ({"flags": {"cross_kv_quant": True}}, False, 128),
+    ({"flags": {"weight_quant": True}}, False, 128),
+    ({"flags": {"self_kv_quant": True}}, False, 128),
+    ({"tp": True}, False, 128),
+    ({"flags": {"n_heads": 12}}, False, 128),              # head_dim 32
+    ({"flags": {"n_heads": 3}}, False, 128),               # head_dim 128
+    ({"flags": {"d_model": 2560, "n_heads": 40}}, False, 128),  # d > 2048
+    ({"env": "0"}, False, 128),
+    ({"flags": {"fused_step": False}}, False, 128),
+    ({"env": "0", "flags": {"fused_step": True}}, False, 128),
+    ({"env": "1"}, True, 448),
+    ({"flags": {"fused_step": True}}, True, 448),
+    ({"env": "1", "flags": {"weight_quant": True}}, False, 128),
+    ({"flags": {"fused_step": True, "cross_kv_quant": True}}, False, 128),
+], ids=lambda c: _case_id(c) if isinstance(c, dict) else None)
+def test_gate_on_a_cuda_device(monkeypatch, case, want, slots):
+    """The gate on a CUDA device at tiny's widths: the auto policy turns
+    off under each int8 flag, under tp > 1 and beyond the kernel's widths;
+    WHISPER_TPU_FUSED and cfg.fused_step override it both ways, the env
+    first; an int8 flag keeps it off whatever is set. An explicit on
+    allocates JAX's n_text_ctx slots, everything else the rounded 128 of a
+    101-position decode."""
+    _set_env(monkeypatch, case.get("env"))
+    if case.get("tp"):      # inside a models.whisper.sharded block, tp > 1
+        monkeypatch.setattr(decode, "tp_group", lambda: object())
+    cfg = get_config("tiny").replace(compute_dtype="bfloat16",
+                                     **case.get("flags", {}))
+    assert decode._fused_step_enabled(cfg, _CUDA) is want
+    assert decode._cache_slots(cfg, 101) == slots
+
+
+def _forcing_pick(real, record: list, forced=None):
+    """A pick that records each pick's last-position logits (fp32) and
+    calls `real` (decode._pick); given `forced` (B, total) tokens, it
+    returns the token there in place of its own pick: a teacher-forced
+    greedy loop."""
+    def pick(logits, logit_bias, opts, cfg, tokens, pos, prompt_len,
+             generator=None):
+        record.append(logits[:, -1].float().clone())
+        nxt, lp = real(logits, logit_bias, opts, cfg, tokens, pos,
+                       prompt_len, generator)
+        return (nxt if forced is None else forced[:, pos]), lp
+    return pick
+
+
+@pytest.mark.parametrize("route", ["fused_step", "auto"])
+def test_deep_greedy_through_the_plain_twin_matches_unfused(monkeypatch,
+                                                            route):
+    """bf16 greedy_decode at a nano width the kernel takes (d=128, 2 heads
+    of 64) with 6 decoder layers, more than tiny's 4, and B=5, not a
+    multiple of 8: the unfused step's run picks the tokens; the fused
+    step's run (its plain twin on the CPU), teacher-forced on them, gives
+    logits within the fused tests' bf16 tolerance at every pick. "auto"
+    reaches the fused step through the auto policy (decided on the cross
+    cache's device, here stood in for by the CPU) with the rounded
+    128-slot self cache; "fused_step" through cfg.fused_step with JAX's 448
+    slots."""
+    _set_env(monkeypatch, None)
+    cfg = get_config("tiny").replace(name="test-nano-deep", d_model=128,
+                                     n_heads=2, n_audio_layers=1,
+                                     n_text_layers=6, compute_dtype="bfloat16")
+    params = _port_tree(_perturbed_tree(cfg, 21, 22), "bfloat16")
+    B, max_new = 5, 12
+    rng = np.random.RandomState(23)
+    enc = torch.from_numpy(rng.randn(B, cfg.n_audio_ctx, cfg.d_model).astype(
+        np.float32)).to(torch.bfloat16)
+    prompt = torch.tensor([build_prompt(cfg)] * B)
+    bias = torch.zeros(cfg.vocab_size)
+    bias[cfg.eot_token] = -1e9              # EOT banned: every step runs
+
+    slots, fused_calls, asked = [], [], []
+    real_cache, real_step = decode.init_kv_cache, decode.fused_decoder_step
+
+    def recording_cache(cfg, batch, dtype, s_max, device):
+        slots.append(s_max)
+        return real_cache(cfg, batch, dtype, s_max, device)
+
+    def counting_step(*a, **kw):
+        fused_calls.append(a[0].shape)
+        return real_step(*a, **kw)
+    monkeypatch.setattr(decode, "init_kv_cache", recording_cache)
+    monkeypatch.setattr(decode, "fused_decoder_step", counting_step)
+
+    want_logits, real_pick = [], decode._pick
+    monkeypatch.setattr(decode, "_pick", _forcing_pick(real_pick,
+                                                       want_logits))
+    ref = greedy_decode(params, cfg.replace(fused_step=False), enc, prompt,
+                        max_new=max_new, logit_bias=bias)
+    assert not fused_calls and slots == [64]
+
+    if route == "auto":
+        fcfg = cfg
+
+        def auto(c, device):
+            asked.append(device)
+            return True
+        monkeypatch.setattr(decode, "_fused_auto", auto)
+    else:
+        fcfg = cfg.replace(fused_step=True)
+    got_logits = []
+    monkeypatch.setattr(decode, "_pick", _forcing_pick(real_pick, got_logits,
+                                                       ref.tokens))
+    got = greedy_decode(params, fcfg, enc, prompt, max_new=max_new,
+                        logit_bias=bias)
+    assert len(fused_calls) == max_new
+    assert slots[1:] == ([64] if route == "auto" else [448])
+    if route == "auto":   # asked once, by the loop, on the cross cache's
+        assert asked == [torch.device("cpu")]
+
+    torch.testing.assert_close(got.tokens, ref.tokens, atol=0, rtol=0)
+    assert len(got_logits) == len(want_logits) == max_new + 1
+    atol = rtol = TOL["bfloat16"]
+    for i, (g, w) in enumerate(zip(got_logits, want_logits)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=atol,
+                                   rtol=rtol, err_msg=f"pick {i}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1215,18 +1215,21 @@ def test_fused_step_kernel_refuses_what_it_does_not_take(dev):
                            ck, cv, 3, n_heads=2)
 
 
-def test_fused_greedy_on_the_card_matches_the_cpu(dev):
-    """Greedy fp32 at a head_dim-64 nano width with the fused step: one
-    fused_decoder_step and one append launch per loop step, and the card's
-    tokens equal the CPU's plain path."""
+@pytest.mark.parametrize("fused", [True, None], ids=["forced", "auto"])
+def test_fused_greedy_on_the_card_matches_the_cpu(dev, monkeypatch, fused):
+    """Greedy fp32 at a head_dim-64 nano width with the fused step, set on
+    ("forced") or by the auto policy on the card ("auto": the CPU keeps the
+    unfused step): one fused_decoder_step and one append launch per loop
+    step, and the card's tokens equal the CPU's plain path."""
     import numpy as np
 
     from whisper_tpu_torch import get_config, weights
     from whisper_tpu_torch.decode import greedy_decode
     from whisper_tpu_torch.tokenizer import build_prompt
+    monkeypatch.delenv("WHISPER_TPU_FUSED", raising=False)
     cfg = get_config("tiny").replace(name="cuda-fused-nano", d_model=128,
                                      n_heads=2, n_audio_layers=2,
-                                     n_text_layers=2, fused_step=True)
+                                     n_text_layers=2, fused_step=fused)
     params = weights.init_params(cfg, seed=5)
     enc = torch.from_numpy(np.random.RandomState(1).randn(
         2, cfg.n_audio_ctx, cfg.d_model).astype(np.float32))

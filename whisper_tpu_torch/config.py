@@ -17,7 +17,9 @@ Where the tail is off (WHISPER_TPU_FUSED_ENCODER=0, the "reference"
 backend) the two tail flags are no-ops, as in JAX's tail-off branch;
 fp32 ignores the encoder flags. fused_step drives the greedy loop
 as in the JAX package: True (or WHISPER_TPU_FUSED=1) takes the fused
-decoder step (decode._fused_step_enabled), None is the auto policy, off.
+decoder step (decode._fused_step_enabled), False the unfused one; None
+is the auto policy: off on the CPU, as JAX's, and on a CUDA device the
+fused step wherever its kernel takes the decode.
 `apply_serving_quant` is the JAX
 package's serving policy (:244), answer for answer: every gate in it was
 set by TPU measurements, so the port's pipeline applies it only when
@@ -71,7 +73,7 @@ class WhisperConfig:
     encoder_mlp_quant: bool = False
     # int8 fused-QKV projection in front of the fused tail
     encoder_qkv_quant: bool = False
-    # fused whole-step decoder kernel: None = auto (off)
+    # fused whole-step decoder kernel: None = auto (CUDA: on where it fits)
     fused_step: Optional[bool] = None
     # Special-token layout: large-v3 adds a 100th language token, shifting
     # every task token by +1 while eot stays at 50257.

@@ -7,7 +7,8 @@ The JAX package runs each loop on the device inside one jitted
 while_loop. The port drives a Python loop of T==1 steps whose tensors
 never leave the card, with the JAX step choice (:256-284): the fused
 decoder step when `_fused_step_enabled` (cfg.fused_step or
-WHISPER_TPU_FUSED=1, never with int8 weights or caches) — one
+WHISPER_TPU_FUSED=1, or on a CUDA device where neither is set and the
+kernel takes the decode; never with int8 weights or caches) — one
 fused_decoder_step launch for all layers plus one append — else
 decoder_step_ip, or under kv_cache_quant a T==1 decoder_forward. The
 host reads one boolean every POLL_EVERY steps to stop early once every
@@ -80,27 +81,51 @@ def _lengths(tokens: torch.Tensor, P: int, eot: int) -> torch.Tensor:
     return P + gen_len
 
 
-def _fused_step_enabled(cfg: WhisperConfig) -> bool:
-    """Whether greedy decoding takes the fused decoder step (:41), rule
-    for rule: never with int8 weights or caches; WHISPER_TPU_FUSED, when
-    set, decides ("1" on, anything else off); then cfg.fused_step; else
-    off, the JAX auto policy. Read at every call: the port has no trace
-    cache to freeze it."""
+def _fused_setting(cfg: WhisperConfig) -> Optional[bool]:
+    """The JAX gate (:41), rule for rule: False with int8 weights or
+    caches; WHISPER_TPU_FUSED, when set, decides ("1" on, anything else
+    off); then cfg.fused_step; None where neither is set (JAX's auto
+    policy, off). Read at every call: the port has no trace cache to
+    freeze it."""
     if cfg.kv_cache_quant or cfg.cross_kv_quant or cfg.weight_quant:
         return False
     env = os.environ.get("WHISPER_TPU_FUSED")
     if env is not None:
         return env == "1"
-    if cfg.fused_step is not None:
-        return cfg.fused_step
-    return False
+    return cfg.fused_step
+
+
+def _fused_step_enabled(cfg: WhisperConfig, device) -> bool:
+    """Whether greedy decoding on `device` takes the fused decoder step:
+    the explicit setting (`_fused_setting`), else the auto policy
+    (`_fused_auto`), which keeps JAX's off on the CPU."""
+    setting = _fused_setting(cfg)
+    if setting is not None:
+        return setting
+    return _fused_auto(cfg, torch.device(device))
+
+
+def _fused_auto(cfg: WhisperConfig, device: torch.device) -> bool:
+    """The auto policy on a device: the unfused step issues ~95 launches
+    a layer and the host's issue sets its pace at every batch, where the
+    fused step is one launch for all layers, so the fused step is taken
+    wherever its kernel takes the decode: a CUDA device, no int8 self
+    cache, no tp group (every layer's row-parallel sums would fall inside
+    the one launch: `_make_fused_step` refuses it), and the kernel's
+    widths (csrc/decoder_step.cu: head_dim 64, d <= 2048)."""
+    return (device.type == "cuda" and not cfg.self_kv_quant
+            and tp_group() is None and cfg.head_dim == 64
+            and cfg.d_model <= 2048)
 
 
 def _cache_slots(cfg: WhisperConfig, total: int) -> int:
     """Self-cache slots for a decode capped at `total` positions, rounded
-    up to 64 (:180): 128 for the bench's 4 + 89 tokens; n_text_ctx when
-    the fused step is on, as the JAX gate allocates."""
-    if _fused_step_enabled(cfg):
+    up to 64 (:180): 128 for the bench's 4 + 89 tokens. Where the fused
+    step is set on (`_fused_setting`), n_text_ctx, the size the JAX gate
+    allocates, so that the cache's shape matches JAX's; the kernel reads
+    only the rows below the current position, so the auto policy keeps
+    the rounded length."""
+    if _fused_setting(cfg):
         return cfg.n_text_ctx
     return min(cfg.n_text_ctx, -(-total // 64) * 64)
 
@@ -222,9 +247,10 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
                  generator: Optional[torch.Generator] = None
                  ) -> DecodeResult:
     """First pick, no-speech probability, then up to max_new T==1 steps
-    (:216). Each step is the fused step when `_fused_step_enabled` and
-    the self cache is not int8 (:266-268), else `_layer_step`'s. At
-    opts.temperature > 0 every pick is a draw from `generator`."""
+    (:216). Each step is the fused step when `_fused_step_enabled` on
+    the cross cache's device and the self cache is not int8 (:266-268),
+    else `_layer_step`'s. At opts.temperature > 0 every pick is a draw
+    from `generator`."""
     P = prompt.shape[1]
     eot = cfg.eot_token
     first, sum_lp = _pick(prefill_logits, logit_bias, opts, cfg, tokens, P,
@@ -234,7 +260,7 @@ def _greedy_loop(params, cfg: WhisperConfig, cross_kv, cache, tokens,
 
     no_speech_prob = _no_speech_prob(prefill_logits, prompt, cfg)
 
-    if _fused_step_enabled(cfg) and "k_s" not in cache:
+    if _fused_step_enabled(cfg, cross_kv["k"].device) and "k_s" not in cache:
         step = _make_fused_step(params, cfg, cross_kv)
     else:
         step = _layer_step(params, cfg, cross_kv)

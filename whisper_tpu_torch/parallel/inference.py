@@ -34,7 +34,7 @@ import torch
 
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
 from whisper_tpu_torch.config import WhisperConfig, get_config
-from whisper_tpu_torch.decode import _fused_step_enabled, encode, greedy_decode
+from whisper_tpu_torch.decode import _fused_setting, encode, greedy_decode
 from whisper_tpu_torch.decode_rules import DecodeOptions
 from whisper_tpu_torch.models.whisper import compute_dtype, sharded
 from whisper_tpu_torch.ops import collectives
@@ -64,7 +64,7 @@ class ShardedPipeline:
         self.cfg = get_config(cfg) if isinstance(cfg, str) else cfg
         if self.cfg.n_heads % tp:
             raise ValueError(f"tp={tp} must divide n_heads={self.cfg.n_heads}")
-        if tp > 1 and _fused_step_enabled(self.cfg):
+        if tp > 1 and _fused_setting(self.cfg):
             raise ValueError("the fused decoder step does not run under "
                              "tp > 1: turn cfg.fused_step and "
                              "WHISPER_TPU_FUSED off")
