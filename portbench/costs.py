@@ -3,15 +3,18 @@ of Whisper's phases, and the operations and bytes of the encoder tail.
 
 Copied from `whisper_tpu_torch/utils/perf_model.py` (the FLOP counts of
 the encoder, the prefill and the decode step) and from `chip_smoke.py`
-(`bound`, `tail_q8_bound`), so that a later change to the program cannot
-change the yardstick. Counting rules:
+(`bound`, `tail_q8_bound`, `fused_bound`), so that a later change to the
+program cannot change the yardstick. Counting rules:
 
   * one multiply-add is 2 operations; only matmuls and convolutions count;
   * a roofline bound is the larger of operations over the peak rate of
     their type and bytes over HBM's rate, with each input byte read once
     and each output byte written once;
   * model FLOPs count useful rows only: a padded row of a batch is work
-    done, not work wanted.
+    done, not work wanted;
+  * a kernel's bound is reckoned per launch, at the rows and lengths that
+    launch computed: its work is not linear in them (the weights are read
+    once a launch, whatever its rows).
 
 A config here is a dict with the keys of a `configs/<name>.json` file:
 d_model, encoder_attention_heads, encoder_layers, decoder_layers,
@@ -110,6 +113,38 @@ def tail_work(cfg: dict, rows: int, int8: bool) -> dict:
         moved += (2 * d + ff) * 4
         return {"bf16_ops": attn, "int8_ops": mm, "bytes": moved}
     return {"bf16_ops": attn + mm, "int8_ops": 0.0, "bytes": moved}
+
+
+def windows_of(grid_y: int, rows_per_block: int, frames: int):
+    """The 30 s windows a tail call computed, from the grid of one of its
+    row-tiled launches: grid.y is ceil(windows x frames / rows_per_block),
+    so the least window count that gives grid_y; None where none does."""
+    if grid_y < 1:
+        return None
+    r = max(1, (grid_y - 1) * rows_per_block // frames)
+    while -(-r * frames // rows_per_block) < grid_y:
+        r += 1
+    return r if -(-r * frames // rows_per_block) == grid_y else None
+
+
+def fused_step_work(cfg: dict, rows: int, self_len: int) -> dict:
+    """One bf16 fused decoder step (every decoder layer in one launch)
+    over `rows` rows whose self cache holds `self_len` positions: every
+    layer's six matrices (6 d^2 + 2 d ff) and its packed fp32 vectors
+    (13 d + ff), the cross K/V of the audio frames and the live self rows
+    read once, h in and out and the new K/V rows written once; the
+    products and the attention over self_len + 1 self keys and the
+    frames."""
+    elem = 2
+    d, _, _, lt, _, _, t = dims(cfg)
+    ff = cfg.get("decoder_ffn_dim", 4 * d)
+    mats = 6 * d * d + 2 * d * ff
+    moved = (lt * mats * elem + lt * (13 * d + ff) * 4
+             + 2 * lt * rows * (t + self_len) * d * elem
+             + 2 * rows * d * elem + 2 * lt * rows * d * elem)
+    ops = rows * lt * (2.0 * mats + attn_flops(1, self_len + 1, d)
+                       + attn_flops(1, t, d))
+    return {"bf16_ops": ops, "int8_ops": 0.0, "bytes": moved}
 
 
 def bound_s(work: dict) -> float:

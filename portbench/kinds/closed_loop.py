@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from portbench import costs, trace, weights
+from portbench import costs, stats, trace, weights
 from portbench.kinds.open_loop import pipeline, prompt_ids
 
 
@@ -117,7 +117,11 @@ def window(ctx, prog: Program) -> dict:
         te = time.perf_counter()
         if cap is not None:
             cap.stop()
-            bt["trace"] = cap.reduce(spans, {"tail": cell["tail_kernels"]})
+            bt["trace"] = cap.reduce(
+                spans, {"tail": [*cell["tail_kernels"],
+                                 cell["tail_grid"]["kernel"]]},
+                {"fused_step": cell["fused_kernel"]}
+                if "fused_kernel" in cell else None)
         bt["start"], bt["end"] = ts, te
         batches.append(bt)
         k += 1
@@ -140,9 +144,11 @@ def window(ctx, prog: Program) -> dict:
            "counts": {"prompt_mismatch": mismatch}}
     tr = next((bt["trace"] for bt in batches if bt["trace"]), None)
     if tr is not None:
-        tr["tail_bound_s"] = costs.bound_s(costs.tail_work(
-            cfg, b, int8=bool(cell.get("policy", {}).get("enc_bits"))))
+        stats.reckon_tail(tr, cfg, cell)
+        if "fused_kernel" in cell:
+            stats.reckon_fused(tr, cfg, cell, p, steps)
         obs["trace"] = tr
+        ctx.note(stats.kernels_note(tr))
     ctx.note(f"closed loop: {len(batches)} batches of {b} in "
              f"{t_end - t0!r} s; batch walls "
              f"{[round(bt['end'] - bt['start'], 4) for bt in batches]}")

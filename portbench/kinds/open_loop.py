@@ -34,7 +34,7 @@ from typing import Optional
 
 import numpy as np
 
-from portbench import costs, trace, weights
+from portbench import costs, stats, trace, weights
 
 BUCKETS = (8, 16, 32, 64, 128, 256, 448)   # the engine's prefill buckets
 
@@ -294,9 +294,10 @@ def window(ctx, prog: Program, rate: Optional[float] = None,
     obs["untraced"] = [(t0, max(t0, min(close, lo)))]
     obs["useful_flops"] = useful_flops(cfg, reqs, *obs["untraced"][0])
     if cap is not None and cap.done:
-        obs["trace"] = cap.reduce(spans, {"tail": cell["tail_kernels"]})
-        obs["trace"]["tail_bound_s"] = costs.bound_s(costs.tail_work(
-            cfg, eng.B, int8=bool(cell.get("policy", {}).get("enc_bits"))))
+        obs["trace"] = cap.reduce(spans, {"tail": [
+            *cell["tail_kernels"], cell["tail_grid"]["kernel"]]})
+        stats.reckon_tail(obs["trace"], cfg, cell)
+        ctx.note(stats.kernels_note(obs["trace"]))
     return obs
 
 

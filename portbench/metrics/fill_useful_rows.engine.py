@@ -1,5 +1,7 @@
-"""fill_useful_rows.engine: rows admitted over rows encoded: every fill
-encodes all the engine's slots, whatever joins."""
+"""fill_useful_rows.engine: rows admitted by the engine's fills over the
+engine's slots times the fills, in %. It counts slots, not rows encoded:
+it reads as the fills' padding share only while every fill encodes all
+the slots."""
 
 
 def read(obs: dict):

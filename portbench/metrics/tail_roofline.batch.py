@@ -1,7 +1,8 @@
 """tail_roofline.batch: the bf16 encoder tail's least time (its
-operations at 989 TFLOP/s or its bytes at 3.35 TB/s, over the batch's
-rows) over the device time of every kernel its calls launched (the flash
-launch inside it included) in the traced batch."""
+operations at 989 TFLOP/s or its bytes at 3.35 TB/s), each call's at the
+windows that call encoded (read from its `tile_kernel` launch grid),
+summed over the calls of the traced batch, over the device time of every
+kernel those calls launched (the flash launch inside each included)."""
 
 from portbench import stats
 

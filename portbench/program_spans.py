@@ -177,7 +177,7 @@ def clock_check(calls: list, spans: list, names: tuple, lo_ns: int,
 
 
 def program_trace(prof, lo_ns: int, hi_ns: int, host_spans: list,
-                  groups: dict, records: dict) -> dict:
+                  records: dict) -> dict:
     """What the readers take from a capture: the bounds, each span's
     device work (`attribute`), the idle gaps named by the innermost
     program or benchmark span, and the clock checks of both cells' span
@@ -186,8 +186,8 @@ def program_trace(prof, lo_ns: int, hi_ns: int, host_spans: list,
     spans = records["spans"]
     named = [(sp["start_ns"], sp["end_ns"], sp["name"]) for sp in spans
              if sp["end_ns"] > sp["start_ns"]]
-    gaps = trace.reduce(prof, lo_ns, hi_ns, list(host_spans) + named,
-                        groups)["idle_gaps"]
+    gaps = trace.reduce(prof, lo_ns, hi_ns,
+                        list(host_spans) + named)["idle_gaps"]
     return {"lo_ns": lo_ns, "hi_ns": hi_ns,
             "spans": attribute(calls, ops, spans), "idle_gaps": gaps,
             "clock": {"decode": clock_check(
@@ -435,16 +435,16 @@ READERS = {
 @contextlib.contextmanager
 def keep_captures(kept: list):
     """While inside, every `trace.Capture` reduced also leaves (profiler,
-    lo_ns, hi_ns, host spans in ns, groups) in `kept`, for
-    `program_trace` once the window's spans are all closed."""
+    lo_ns, hi_ns, host spans in ns) in `kept`, for `program_trace` once
+    the window's spans are all closed."""
     real = trace.Capture.reduce
 
-    def reduce(self, host_spans=(), groups=None):
+    def reduce(self, host_spans=(), groups=None, launches=None):
         prof = self.prof
-        out = real(self, host_spans, groups)
+        out = real(self, host_spans, groups, launches)
         kept.append((prof, self.lo_ns, self.hi_ns,
                      [(self.to_ns(a), self.to_ns(b), label)
-                      for a, b, label in host_spans], groups or {}))
+                      for a, b, label in host_spans]))
         return out
 
     trace.Capture.reduce = reduce
@@ -471,9 +471,8 @@ def run(ctx) -> dict:
     kind.teardown(prog)
     obs["program"] = records
     if kept and obs.get("trace") is not None:
-        prof, lo, hi, host, groups = kept[0]
-        obs["trace"]["program"] = program_trace(prof, lo, hi, host, groups,
-                                                records)
+        prof, lo, hi, host = kept[0]
+        obs["trace"]["program"] = program_trace(prof, lo, hi, host, records)
     kept.clear()
     return obs
 

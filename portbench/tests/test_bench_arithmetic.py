@@ -4,6 +4,7 @@ from the seed, and the FLOP and byte counts against hand counts."""
 from __future__ import annotations
 
 import json
+import math
 import types
 
 import numpy as np
@@ -137,8 +138,9 @@ def test_the_window_runs_whole_batches():
 # ---- idle share from kernel intervals ---------------------------------------
 
 class Ev:
-    def __init__(self, name, dev, act, s, e, corr=0, link=0):
+    def __init__(self, name, dev, act, s, e, corr=0, link=0, grid=None):
         self._v = (name, dev, act, s, e, corr, link)
+        self.grid = grid
 
     def name(self):
         return self._v[0]
@@ -162,9 +164,26 @@ class Ev:
         return self._v[6]
 
 
-def fake_prof(events):
-    return types.SimpleNamespace(profiler=types.SimpleNamespace(
+def fake_prof(events, chrome: bool = True):
+    """A profiler over `events`; with `chrome`, its chrome trace holds each
+    kernel's grid under its correlation id, as kineto writes CUPTI's
+    kernel record."""
+    def export(path):
+        rows = [{"ph": "X", "cat": "kernel", "name": e.name(),
+                 "ts": e.start_ns() / 1e3, "args": {
+                     "queued": 0, "device": 0, "stream": 7,
+                     "correlation": e.correlation_id(),
+                     "registers per thread": 168, "grid": list(e.grid),
+                     "block": [256, 1, 1]}}
+                for e in events if e.grid is not None]
+        with open(path, "w") as f:
+            json.dump({"schemaVersion": 1, "traceEvents": rows}, f)
+
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=lambda: events)))
+    if chrome:
+        prof.export_chrome_trace = export
+    return prof
 
 
 def test_idle_share_groups_and_gaps_from_kernel_intervals():
@@ -184,8 +203,9 @@ def test_idle_share_groups_and_gaps_from_kernel_intervals():
     assert r["busy_s"] == pytest.approx(400e-9)
     assert stats.idle_pct({"kind": "k", "trace": r}, "k") == \
         pytest.approx(60.0)
-    assert r["groups"]["tail"] == {"device_s": pytest.approx(250e-9),
-                                   "calls": 1}
+    assert r["groups"]["tail"] == {
+        "device_s": pytest.approx(250e-9), "calls": 1,
+        "per_call": [{"device_s": pytest.approx(250e-9), "grid": None}]}
     assert r["idle_gaps"] == [
         ["step.fill > cudaStreamSynchronize", pytest.approx(250e-9)],
         ["wait for arrivals", pytest.approx(200e-9)],
@@ -193,9 +213,161 @@ def test_idle_share_groups_and_gaps_from_kernel_intervals():
         ["step.fill", pytest.approx(50e-9)]]
     assert [n for n, _ in r["device_ops"]] == [
         "tile_kernel<I8, 1>", "flash_kernel", "Memcpy DtoH"]
-    r["tail_bound_s"] = 125e-9
+    r["groups"]["tail"]["per_call"][0]["bound_s"] = 125e-9
     assert stats.tail_roofline_pct({"kind": "k", "trace": r}, "k") == \
         pytest.approx(50.0)
+
+
+# ---- kernel shares reckoned call by call ------------------------------------
+
+TAIL = (["tile_kernel", "ln_kernel", "quant_rows"], ["flash_kernel"],
+        "tile_kernel")
+BM = 128
+
+
+def tail_events(windows, per_window_ns: int) -> list:
+    """One int8 tail call per entry of `windows` (flash, the row
+    quantizer, the o-projection tile, LN2, FC1 and FC2 tiles), each taking
+    per_window_ns a window, with other work between calls; the tile
+    launches' grid.y is ceil(windows x 1500 / 128), the quantizer's grid
+    1-D."""
+    parts = [("flash_kernel<bf16>", 20), ("quant_rows", 5),
+             ("tile_kernel<I8, 0>", 30), ("ln_kernel<bf16, 1>", 5),
+             ("tile_kernel<I8, 1>", 25), ("tile_kernel<I8, 2>", 15)]
+    ev, t = [], 0
+    for w in windows:
+        y = -(-w * 1500 // BM)
+        for name, pct in parts:
+            dur = w * per_window_ns * pct // 100
+            grid = (10, y, 1) if "tile" in name else (y * 16, 1, 1)
+            ev.append(Ev(name, "CUDA", "kernel", t, t + dur, corr=len(ev),
+                         grid=grid))
+            t += dur
+        ev.append(Ev("elementwise_kernel", "CUDA", "kernel", t, t + 1000,
+                     corr=len(ev)))
+        t += 5000
+    return ev
+
+
+def tail_share(cfg, cell, windows, per_window_ns, chrome=True):
+    ev = tail_events(windows, per_window_ns)
+    r = trace.reduce(fake_prof(ev, chrome), 0, ev[-1].end_ns(), (),
+                     {"tail": TAIL})
+    stats.reckon_tail(r, cfg, cell)
+    return r, stats.tail_roofline_pct({"kind": "k", "trace": r}, "k")
+
+
+def test_windows_from_the_tail_grid():
+    """grid.y = ceil(windows x 1500 / BM) gives back the windows, 1 to
+    64; a grid.y that no window count gives reads None."""
+    for w in range(1, 65):
+        assert costs.windows_of(-(-w * 1500 // BM), BM, 1500) == w
+    reached = {-(-w * 1500 // BM) for w in range(1, 80)}
+    for y in set(range(0, 600)) - reached:
+        assert costs.windows_of(y, BM, 1500) is None
+
+
+@pytest.mark.parametrize("workload", ["turbo.engine32", "medium.batch64"])
+def test_tail_share_counts_the_windows_each_call_encoded(workload):
+    """Calls of 1, 2, 8 and 32 windows at one speed a window read the
+    share that 32-window calls read at that speed, under 100%, where the
+    slots' count per call would read ~3x higher, above 100%."""
+    cell = harness.load_json(harness.ROOT / "portbench" / "cells"
+                             / f"{workload}.json")
+    cfg = config(harness.context(workload, 1, 1, False).workload["config"])
+    int8 = bool(cell.get("policy", {}).get("enc_bits"))
+    one = costs.bound_s(costs.tail_work(cfg, 1, int8))
+    per_window = int(one / 0.4 * 1e9) // 100 * 100      # ~40% of its bound
+    r, mixed = tail_share(cfg, cell, [1, 2, 8, 32], per_window)
+    assert [c["windows"] for c in r["groups"]["tail"]["per_call"]] == \
+        [1, 2, 8, 32]
+    _, uniform = tail_share(cfg, cell, [32] * 4, per_window)
+    assert mixed == pytest.approx(uniform, rel=1e-9)
+    assert 39 < mixed < 41 and mixed < 100
+    by_slots = (100.0 * costs.bound_s(costs.tail_work(cfg, 32, int8))
+                * r["groups"]["tail"]["calls"] / r["groups"]["tail"]["device_s"])
+    assert by_slots > 100
+
+
+@pytest.mark.parametrize("workload,calls", [("turbo.engine32", 7),
+                                            ("medium.batch64", 24)])
+def test_uniform_calls_sum_to_the_slots_product(workload, calls):
+    """Where every call encodes the cell's slots (as today's engine and
+    batch do), the per-call sum is the bound of those rows x the calls."""
+    cell = harness.load_json(harness.ROOT / "portbench" / "cells"
+                             / f"{workload}.json")
+    cfg = config(harness.context(workload, 1, 1, False).workload["config"])
+    rows = cell.get("slots", cell.get("batch"))
+    r, share = tail_share(cfg, cell, [rows] * calls, 90_000)
+    int8 = bool(cell.get("policy", {}).get("enc_bits"))
+    g = r["groups"]["tail"]
+    old = costs.bound_s(costs.tail_work(cfg, rows, int8))
+    assert math.fsum(c["bound_s"] for c in g["per_call"]) == old * calls
+    assert share == pytest.approx(100.0 * old * g["calls"] / g["device_s"],
+                                  rel=1e-12)
+
+
+def test_a_tail_without_readable_windows_has_no_share():
+    """No chrome trace (or a grid.y no window count gives): None, never a
+    share from the cell's slots."""
+    cell = harness.load_json(harness.ROOT / "portbench" / "cells"
+                             / "turbo.engine32.json")
+    cfg = config("large-v3-turbo")
+    r, share = tail_share(cfg, cell, [32, 32], 90_000, chrome=False)
+    assert r["groups"]["tail"]["calls"] == 2 and share is None
+    ev = tail_events([4], 90_000)
+    for e in ev:
+        if "tile" in e.name():
+            e.grid = (10, 5, 1)
+    r = trace.reduce(fake_prof(ev), 0, ev[-1].end_ns(), (), {"tail": TAIL})
+    stats.reckon_tail(r, cfg, cell)
+    assert r["groups"]["tail"]["per_call"][0]["windows"] is None
+    assert stats.tail_roofline_pct({"kind": "k", "trace": r}, "k") is None
+
+
+def test_fused_step_bound_at_medium_b64():
+    """PERF.md's kernel table: medium b64 bf16, 24 layers, 48 self rows
+    cached: 3.120 ms, bound by its bytes (9.4 GB of cross K/V)."""
+    cfg = config("medium")
+    w = costs.fused_step_work(cfg, 64, 48)
+    assert costs.bound_s(w) * 1e3 == pytest.approx(3.12, rel=0.005)
+    assert w["bytes"] / costs.HBM_BYTES_PER_S > \
+        w["bf16_ops"] / costs.PEAK_BF16
+    d, L = 1024, 24
+    assert w["bytes"] == (L * 14 * d * d * 2 + L * 17 * d * 4
+                          + 2 * L * 64 * (1500 + 48) * d * 2
+                          + 2 * 64 * d * 2 + 2 * L * 64 * d * 2)
+
+
+def test_fused_step_share_is_reckoned_launch_by_launch():
+    """Launch i of the traced batch at prompt_len + i cached rows; a trace
+    with other than the loop's launches, or a cell not in bf16, has
+    no share."""
+    cfg = config("medium")
+    cell = {"batch": 64, "dtype": "bfloat16"}
+    ev, t = [], 0
+    for i in range(6):
+        ev.append(Ev("fused_step_kernel<bf16>", "CUDA", "kernel", t,
+                     t + 6_300_000))
+        ev.append(Ev("gemm", "CUDA", "kernel", t + 6_300_000,
+                     t + 6_400_000))
+        t += 7_000_000
+    r = trace.reduce(fake_prof(ev), 0, t, (), None,
+                     {"fused_step": "fused_step_kernel"})
+    assert r["launches"]["fused_step"] == [pytest.approx(6.3e-3)] * 6
+    stats.reckon_fused(r, cfg, cell, 4, 6)
+    want = sum(costs.bound_s(costs.fused_step_work(cfg, 64, 4 + i))
+               for i in range(6))
+    obs = {"kind": "closed_loop", "trace": r}
+    assert stats.fused_roofline_pct(obs, "closed_loop") == \
+        pytest.approx(100.0 * want / (6 * 6.3e-3))
+    read = harness.load_module(harness.ROOT / "portbench" / "metrics"
+                               / "fused_step_roofline.batch.py").read
+    assert 45 < read(obs) < 50
+    stats.reckon_fused(r, cfg, cell, 4, 7)
+    assert read(obs) is None
+    stats.reckon_fused(r, cfg, {**cell, "dtype": "float32"}, 4, 6)
+    assert read(obs) is None
 
 
 # ---- operations and bytes against hand counts -------------------------------

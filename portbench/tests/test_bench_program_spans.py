@@ -120,8 +120,7 @@ def test_the_innermost_program_span_names_a_gap_ahead_of_step_fill():
               kernel(0, 3 * MS, 2), kernel(29 * MS, 95 * MS, 1),
               kernel(95 * MS, 100 * MS, 3)]
     out = ps.program_trace(prof_of(events), 0, 100 * MS,
-                           [(0, 100 * MS, "step.fill")], {},
-                           {"spans": spans})
+                           [(0, 100 * MS, "step.fill")], {"spans": spans})
     label, seconds = out["idle_gaps"][0]
     assert label == "fill.audio > cudaMemcpyAsync"
     assert seconds == pytest.approx(26e-3)

@@ -1,7 +1,9 @@
 """Reduction of a `torch.profiler` capture to what the per-layer metrics
 read: the traced window, the seconds in which an operation ran on the
 device, device time by kernel name, the device time of a named group of
-kernels, and the longest idle gaps named by what the host was doing.
+kernels call by call (with the launch grid that says what a call
+computed), each launch's time of a named kernel, and the longest idle gaps
+named by what the host was doing.
 
 The capture records CUDA activity only (kernels, copies, sets and the
 runtime and driver calls that issued them), not the host's torch ops:
@@ -19,6 +21,9 @@ annotation.
 from __future__ import annotations
 
 import collections
+import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -42,6 +47,30 @@ def _bounds(e) -> tuple[int, int]:
     return start, start + int(e.duration_us() * 1000)
 
 
+def _grids(prof, kernels: set) -> dict:
+    """The launch grids (x, y, z) of the kernels whose names hold one of
+    `kernels`, by correlation id. kineto keeps CUPTI's kernel record
+    (grid, block, registers) only in the chrome trace it writes; the
+    events it hands back in process carry none of it. So the capture's
+    trace is written to a temporary file under TMPDIR, read and removed;
+    {} where the profiler writes none."""
+    export = getattr(prof, "export_chrome_trace", None)
+    if not kernels or export is None:
+        return {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        export(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = {}
+    for ev in events:
+        args = ev.get("args") or {}
+        if "grid" in args and "correlation" in args and \
+                any(k in ev.get("name", "") for k in kernels):
+            out[args["correlation"]] = tuple(int(g) for g in args["grid"])
+    return out
+
+
 def _is_device(e) -> bool:
     return e.device_type().name == "CUDA" and \
         "annotation" not in _activity(e)
@@ -63,45 +92,71 @@ def _union(starts: np.ndarray, ends: np.ndarray, lo: int, hi: int
     return [(a, b) for a, b in merged]
 
 
-def group_time(ops: list, own: tuple, lead: tuple) -> dict:
+def group_time(ops: list, own: tuple, lead: tuple,
+               grid_of: str | None = None) -> dict:
     """The device seconds and the calls of one program call that launches
     a fixed sequence of kernels: every op whose name holds one of `own`,
     and each op whose name holds one of `lead` when the op after it on
     the device is one of `own` (the same lead kernel launched elsewhere
-    is followed by other work). ops: (start, end, name) by start."""
-    total, calls = 0.0, 0
-    for i, (s, e, name) in enumerate(ops):
+    is followed by other work); a call runs from its lead to the next.
+    `per_call` lists each call's device seconds and, where `grid_of` names
+    one of its kernels, the launch grid of the call's first op whose name
+    holds it (None where the trace does not carry it). ops: (start, end,
+    name, grid or None) by start."""
+    total, per_call = 0.0, []
+    for i, (s, e, name, grid) in enumerate(ops):
         if any(k in name for k in own):
             total += (e - s) / 1e9
+            if per_call:
+                call = per_call[-1]
+                call["device_s"] += (e - s) / 1e9
+                if grid_of is not None and grid_of in name and \
+                        "grid" not in call:
+                    call["grid"] = grid
         elif any(k in name for k in lead) and i + 1 < len(ops) and \
                 any(k in ops[i + 1][2] for k in own):
             total += (e - s) / 1e9
-            calls += 1
-    return {"device_s": total, "calls": calls}
+            per_call.append({"device_s": (e - s) / 1e9})
+    for call in per_call:
+        call.setdefault("grid", None)
+    return {"device_s": total, "calls": len(per_call), "per_call": per_call}
+
+
+def launch_times(ops: list, name: str) -> list[float]:
+    """The device seconds of each launch of the kernel whose name holds
+    `name`, in launch order."""
+    return [(e - s) / 1e9 for s, e, n, _ in ops if name in n]
 
 
 def reduce(prof, lo_ns: int, hi_ns: int, host_spans: list = (),
-           groups: dict | None = None, top: int = 10) -> dict:
+           groups: dict | None = None, launches: dict | None = None,
+           top: int = 10) -> dict:
     """Summary of the capture over the host window [lo_ns, hi_ns) (epoch
     ns, the profiler's clock): window_s, busy_s, the `top` device ops by
-    time, each of `groups` ({name: (own, lead)}) by `group_time`, and the
-    `top` longest idle gaps as [what the host was doing, seconds], from
-    `host_spans` [(start_ns, end_ns, label)] and the runtime calls."""
+    time, each of `groups` ({name: (own, lead[, grid_of])}) by
+    `group_time`, each of `launches` ({name: kernel}) by `launch_times`,
+    and the `top` longest idle gaps as [what the host was doing, seconds],
+    from `host_spans` [(start_ns, end_ns, label)] and the runtime calls."""
+    want = {spec[2] for spec in (groups or {}).values() if len(spec) > 2}
+    grids = _grids(prof, want)
     ops, calls = [], []
     for e in prof.profiler.kineto_results.events():
         start, end = _bounds(e)
         if _is_device(e):
-            ops.append((start, end, e.name()))
+            name = e.name()
+            grid = (grids.get(e.correlation_id())
+                    if any(k in name for k in want) else None)
+            ops.append((start, end, name, grid))
         elif e.device_type().name == "CPU":
             calls.append((start, end, e.name()))
-    ops.sort()
+    ops.sort(key=lambda o: o[:3])
     ds = np.array([o[0] for o in ops], np.int64)
     de = np.array([o[1] for o in ops], np.int64)
     busy = _union(ds, de, lo_ns, hi_ns)
     busy_ns = sum(b - a for a, b in busy)
 
     by_name: dict[str, float] = collections.defaultdict(float)
-    for s, e, n in ops:
+    for s, e, n, _ in ops:
         by_name[n] += (e - s) / 1e9
 
     gaps = []
@@ -125,8 +180,11 @@ def reduce(prof, lo_ns: int, hi_ns: int, host_spans: list = (),
     return {"window_s": (hi_ns - lo_ns) / 1e9, "busy_s": busy_ns / 1e9,
             "device_ops": [[n[:120], s] for n, s in ops_top],
             "idle_gaps": named, "device_op_count": len(ops),
-            "groups": {g: group_time(ops, tuple(own), tuple(lead))
-                       for g, (own, lead) in (groups or {}).items()}}
+            "groups": {g: group_time(ops, tuple(spec[0]), tuple(spec[1]),
+                                     *spec[2:])
+                       for g, spec in (groups or {}).items()},
+            "launches": {k: launch_times(ops, n)
+                         for k, n in (launches or {}).items()}}
 
 
 class Capture:
@@ -177,13 +235,14 @@ class Capture:
         """A perf_counter time on the profiler's clock."""
         return self.lo_ns + int((t_perf - self.lo_perf) * 1e9)
 
-    def reduce(self, host_spans: list = (), groups: dict | None = None
-               ) -> dict:
+    def reduce(self, host_spans: list = (), groups: dict | None = None,
+               launches: dict | None = None) -> dict:
         """`reduce` over this capture; host_spans in perf_counter s."""
         spans = [(self.to_ns(a), self.to_ns(b), label)
                  for a, b, label in host_spans
                  if b >= self.lo_perf and a <= self.hi_perf]
-        out = reduce(self.prof, self.lo_ns, self.hi_ns, spans, groups)
+        out = reduce(self.prof, self.lo_ns, self.hi_ns, spans, groups,
+                     launches)
         out["perf_lo"], out["perf_hi"] = self.lo_perf, self.hi_perf
         self.prof = None
         return out
