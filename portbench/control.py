@@ -16,6 +16,10 @@ states, in the program's place. A cell names it under "control":
     cell's keys changed, e.g. quant "auto"), run on the same seed and read
     like the program.
 
+The weights and the reference are the configuration's model type's
+(`portbench/models/<model_type>.py`, found by `harness.model_of`), so a
+model of any type reads its control the same way.
+
 One JSON line a seed: {seed, program: numbers, control: numbers}.
 """
 
@@ -25,8 +29,8 @@ import argparse
 import json
 import sys
 
-from portbench import harness, weights
-from portbench.reference import check, model
+from portbench import harness
+from portbench.reference import check
 
 
 def served_run(ctx) -> tuple:
@@ -45,8 +49,9 @@ def readings(workload: str, seed: int, seconds: float, device: str) -> dict:
     import torch
     ctx = harness.context(workload, seed, seconds, False, device=device)
     cfg, cell = ctx.config, ctx.cell
+    model = harness.model_of(ctx)
     obs, smp = served_run(ctx)
-    w = weights.make(cfg, seed, device, getattr(torch, cell["dtype"]))
+    w = model.make(cfg, seed, device, getattr(torch, cell["dtype"]))
     ok = check.allowed_mask(cfg["vocab_size"], smp["banned_ids"],
                             smp["banned_from"], device)
     refs = model.served_logits(w, cfg, smp["audio"], smp["prompts"],
@@ -64,7 +69,7 @@ def readings(workload: str, seed: int, seconds: float, device: str) -> dict:
         ctx2 = harness.context(workload, seed, seconds, False, device=device,
                                overrides={"cell": ctrl["overrides"]})
         _, smp2 = served_run(ctx2)
-        w = weights.make(cfg, seed, device, getattr(torch, cell["dtype"]))
+        w = model.make(cfg, seed, device, getattr(torch, cell["dtype"]))
         refs = model.served_logits(w, cfg, smp2["audio"], smp2["prompts"],
                                    smp2["served"], cell.get("policy", {}),
                                    device)

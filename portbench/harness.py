@@ -7,6 +7,15 @@ module finds by name. It holds no table of them.
                                      sample size and correctness limits
   portbench/configs/<config>.json    the model's published sizes (the
                                      `file` of the configuration entry)
+  portbench/models/<model_type>.py   a model type (the configuration
+                                     file's "model_type"): make(cfg,
+                                     seed, device, dtype) -> the seeded
+                                     weights; served_logits(w, cfg,
+                                     audio, prompts, served, policy,
+                                     device) -> the reference's logits;
+                                     preset_pairs(ctx) -> (key, file
+                                     value, program value) for the
+                                     discovery test
   portbench/traffic/<traffic>.json   the traffic mix: its `kind` and
                                      parameters
   portbench/kinds/<kind>.py          the generator and driver of a kind
@@ -20,8 +29,9 @@ module finds by name. It holds no table of them.
 One run: the kind builds the program from the seed and warms up the
 cell's shapes (set-up), measures `seconds` (traced by `torch.profiler`
 when `trace`), frees the program after reading the memory peak, and the
-reference (`portbench/reference/`) judges a sample of what the timed
-path produced.
+reference (the model type's `served_logits`, computed in
+`portbench/reference/`) judges a sample of what the timed path produced
+on weights that the model type's `make` draws again.
 """
 
 from __future__ import annotations
@@ -107,6 +117,22 @@ def kind_of(ctx: Ctx):
                        / f"{ctx.traffic['kind']}.py")
 
 
+def model_of(ctx: Ctx):
+    """The module of the configuration's model type,
+    `portbench/models/<model_type>.py`; an error that names what is
+    missing where the configuration has no "model_type" or the type no
+    file."""
+    name = ctx.workload["config"]
+    mtype = ctx.config.get("model_type")
+    if mtype is None:
+        raise KeyError(f"configuration {name!r} has no \"model_type\"")
+    path = ctx.root / "portbench" / "models" / f"{mtype}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"model_type {mtype!r} of configuration "
+                                f"{name!r} has no file {path}")
+    return load_module(path)
+
+
 def metrics_for(ctx: Ctx) -> list[dict]:
     """The cell's metrics: end-to-end without trace, per-layer with it,
     each listing this cell (or no cells)."""
@@ -139,11 +165,11 @@ def judge(ctx: Ctx, obs: dict, sample: dict) -> dict:
     kind's own counts (obs["counts"], each held to 0)."""
     import torch
 
-    from portbench import weights
-    from portbench.reference import check, model
+    from portbench.reference import check
     cfg = ctx.config
+    model = model_of(ctx)
     dtype = getattr(torch, ctx.cell["dtype"])
-    w = weights.make(cfg, ctx.seed, ctx.device, dtype)
+    w = model.make(cfg, ctx.seed, ctx.device, dtype)
     refs = model.served_logits(w, cfg, sample["audio"], sample["prompts"],
                                sample["served"], ctx.cell.get("policy", {}),
                                ctx.device)

@@ -83,14 +83,15 @@ def test_tails_take_every_request_and_a_failure_misses():
     obs = engine_obs()
     read = {m: harness.load_module(harness.ROOT / "portbench" / "metrics"
                                    / f"{m}.py").read
-            for m in ("ttft_p95_ms", "gap_p95_ms", "queue_wait_p95_ms.engine",
+            for m in ("ttft_p95_ms", "gap_p95_ms.engine",
+                      "queue_wait_p95_ms.engine",
                       "fill_ms.engine", "token_step_ms.engine",
                       "fill_useful_rows.engine", "rtfx")}
     ttft = [r["ttft"] for r in obs["requests"]]
     assert read["ttft_p95_ms"](obs) == pytest.approx(
         1e3 * np.percentile(ttft, 95))
     assert read["ttft_p95_ms"](obs) > 100       # the refused one reaches p95
-    assert read["gap_p95_ms"](obs) == pytest.approx(10.0)
+    assert read["gap_p95_ms.engine"](obs) == pytest.approx(10.0)
     assert len(stats.gaps(obs)) == 19 * 4
     waits = [0.05] * 19 + [103.0 - 3.0]
     assert read["queue_wait_p95_ms.engine"](obs) == pytest.approx(

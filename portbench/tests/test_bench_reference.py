@@ -140,7 +140,8 @@ def test_no_file_of_the_benchmark_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in (PB / "reference").glob("*.py"):
+    for path in [*(PB / "reference").glob("*.py"),
+                 *(PB / "tests" / "toy_lm" / "reference").glob("*.py")]:
         got = imports_of(path)
         assert not got & {"whisper_tpu_torch", *harness.FORBIDDEN}, path
         assert got <= {"__future__", "math", "typing", "numpy", "torch",
@@ -149,7 +150,8 @@ def test_the_reference_imports_nothing_of_the_program():
 
 def test_a_run_loads_no_jax_module():
     """What a run imports on the chip (the harness, both kinds, every
-    metric reader, the reference, and the port's modules the kinds call),
+    model type's and metric reader's file, the reference, and the port's
+    modules the kinds call),
     loaded in a fresh interpreter: no top-level name is jax, jaxlib, flax
     or whisper_tpu, compared whole."""
     code = (
@@ -157,8 +159,9 @@ def test_a_run_loads_no_jax_module():
         "from portbench import harness, run, sweep, control, trace\n"
         "from portbench.kinds import open_loop, closed_loop\n"
         "from portbench.reference import model, check\n"
-        "for p in (harness.ROOT / 'portbench' / 'metrics').glob('*.py'):\n"
-        "    harness.load_module(p)\n"
+        "for d in ('metrics', 'models'):\n"
+        "    for p in (harness.ROOT / 'portbench' / d).glob('*.py'):\n"
+        "        harness.load_module(p)\n"
         "import whisper_tpu_torch.pipeline, whisper_tpu_torch.decode\n"
         "import whisper_tpu_torch.serving_continuous\n"
         "import whisper_tpu_torch.decode_rules, whisper_tpu_torch.audio\n"
