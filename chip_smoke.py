@@ -2872,18 +2872,21 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     cfg = engine.cfg
     fill_s, steps, beside_live, detects = [0.0], [0], [0], [0]
     buckets: dict = {}
+    prefills: dict = {}                    # bucket -> prefill passes
     fill, step_device = engine._fill_free_slots, engine.step_device
 
     def timed_fill():
         live = any(s is not None for s in engine._slots)
-        p_pad = fill_bucket(engine)
+        rows = row_buckets(engine)
         torch.cuda.synchronize()
         t = time.perf_counter()
         n = fill()
         torch.cuda.synchronize()
         fill_s[0] += time.perf_counter() - t
         if n:
-            buckets[p_pad] = buckets.get(p_pad, 0) + 1
+            buckets[max(rows)] = buckets.get(max(rows), 0) + 1
+            for p in set(rows):
+                prefills[p] = prefills.get(p, 0) + 1
             beside_live[0] += live
         return n
 
@@ -2912,6 +2915,7 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
     engine.warmup()
     fill_s[0], steps[0], beside_live[0] = 0.0, 0, 0
     buckets.clear()
+    prefills.clear()
     for fn in kernels.values():
         fn.launches = 0
     serving_continuous.detect_language = counted_detect
@@ -2946,7 +2950,8 @@ def continuous_run(engine, reqs: list, kernels: dict, label: str, card: str
             "wall_s": wall, "engine_steps": steps[0], "fills": fills,
             "detect_language_calls": detects[0],
             "fills_beside_live": beside_live[0],
-            "fill_buckets": dict(buckets), "fill_s": fill_s[0],
+            "fill_buckets": dict(buckets),
+            "prefill_buckets": dict(prefills), "fill_s": fill_s[0],
             "generated_tokens": generated, "tokens_per_s": generated / wall,
             "mean_step_ms": 1e3 * (wall - fill_s[0]) / steps[0],
             "queue_stats": engine.queue_stats(), "launches": launches,
@@ -2978,8 +2983,9 @@ def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
     under cfg.attn_backend and its caches: one ragged append per engine
     step and no scalar append; per fill, the encoder's tail launches (the
     int8 form under encoder_mlp_quant in bf16), or with `flash_per_encode`
-    its flash launches (the tail off), and the prefill's
-    flash launches by the switch; for every layer's T==1 cross read at
+    its flash launches (the tail off), and the flash launches of each
+    prefill pass (one for each bucket of a fill's rows, `prefill_buckets`)
+    by the switch; for every layer's T==1 cross read at
     each step, and for detect_language's self (one of 64 slots) and cross
     reads, the kernel `read_route` names: decode_attention_bh ("pallas")
     or decode_attention_q8_bh (an fp32 int8 cross cache under
@@ -2997,7 +3003,7 @@ def check_engine_launches(line: dict, engine, cfg, flash_per_encode: int
     q8_tail = bool(tail and bf16 and cfg.encoder_mlp_quant)
     flash = flash_per_encode * fills + sum(
         count * flash_per_fill(cfg, engine.B, p_pad)
-        for p_pad, count in line["fill_buckets"].items())
+        for p_pad, count in line["prefill_buckets"].items())
     B, Sx = engine.B, cfg.n_audio_ctx
     cross8 = bool(cfg.kv_cache_quant or cfg.cross_kv_quant)
     self8 = bool(cfg.kv_cache_quant or (cfg.self_kv_quant and bf16))
@@ -4219,52 +4225,34 @@ def server_entry(card: str) -> None:
           "seconds": time.perf_counter() - t_phase, "card": card})
 
 
-def fill_bucket(b):
-    """The prefill bucket of the engine's next slot fill, as its fill
-    picks it: the smallest of `_P_BUCKETS` that holds the longest prompt
-    among the queued requests the free slots take (the capped last one
-    past it); None when the fill would take none."""
+def row_buckets(b) -> list:
+    """The prefill bucket of each request the engine's next slot fill
+    takes, as the fill picks it: the smallest of `_P_BUCKETS` that holds
+    the request's prompt (the capped last one past it)."""
     from whisper_tpu_torch.tokenizer import build_prompt
     take = b._queue[:sum(s is None for s in b._slots)]
-    if not take:
-        return None
-    p_max = max(len(build_prompt(b.cfg, "en", req[2][1],
-                                 timestamps=b._timestamps,
-                                 prev_tokens=req[6])) for req in take)
-    return next(pb for pb in b._P_BUCKETS
-                if pb >= min(p_max, b._P_BUCKETS[-1]))
+    lens = [len(build_prompt(b.cfg, "en", req[2][1],
+                             timestamps=b._timestamps, prev_tokens=req[6]))
+            for req in take]
+    return [next(pb for pb in b._P_BUCKETS
+                 if pb >= min(p, b._P_BUCKETS[-1])) for p in lens]
 
 
 def record_fills(b) -> list:
-    """Wraps the engine's slot fill: each fill appends (its prompt
-    bucket, the audio of every request it took). Returns that list."""
+    """Wraps the engine's slot fill: each fill appends the prefill bucket
+    of every request it took. Returns that list."""
     fills = []
     real = b._fill_free_slots
 
     def recorded():
-        free = sum(s is None for s in b._slots)
-        taken = [req[1] for req in b._queue[:free]]
-        p_pad = fill_bucket(b)
+        rows = row_buckets(b)
         n = real()
         if n:
-            fills.append((p_pad, taken))
+            fills.append(rows)
         return n
 
     b._fill_free_slots = recorded
     return fills
-
-
-def solo_tokens(eng, audio: np.ndarray, p_pad: int) -> list:
-    """One request alone on the server's engine (the same slot count), its
-    batched prefill in the bucket its crowded fill had: a fill above the
-    8 bucket crosses the 16 MiB gate and reads through flash, which rounds
-    otherwise than the reference read."""
-    b = eng._b
-    b._P_BUCKETS = tuple(p for p in type(b)._P_BUCKETS if p >= p_pad)
-    try:
-        return eng.transcribe(audio).tokens
-    finally:
-        del b._P_BUCKETS
 
 
 def server_turbo(card: str, kernels: dict) -> dict:
@@ -4336,8 +4324,10 @@ def server_turbo(card: str, kernels: dict) -> dict:
                 **latency(replies, wall, sum(secs)),
                 "queue_stats": stats["queue"], "peak_mem_gb": peak,
                 "launches": launches, "fills": len(fills),
-                "fill_buckets": {p: sum(q == p for q, _ in fills)
-                                 for p, _ in fills},
+                "fill_buckets": {p: sum(max(f) == p for f in fills)
+                                 for p in {max(f) for f in fills}},
+                "prefill_buckets": {p: sum(p in f for f in fills)
+                                    for p in {p for f in fills for p in f}},
                 "engine_steps": steps[0], "detect_language_calls": 0,
                 "card": card}
         counts = check_engine_launches(line, b, cfg, 0)
@@ -4350,20 +4340,15 @@ def server_turbo(card: str, kernels: dict) -> dict:
             if s != SERVE_SHORT_S:
                 continue
             audio = _decode_wav_bytes(body, cfg.sample_rate)
-            p_pad = [p for p, taken in fills
-                     if any(len(a) == len(audio) and np.array_equal(a, audio)
-                            for a in taken)]
-            require(len(p_pad) == 1, f"server_turbo: client {i} was in "
-                                     f"{len(p_pad)} fills")
-            solo = solo_tokens(eng, audio, p_pad[0])
+            solo = eng.transcribe(audio).tokens
             solo_same.append(solo == replies[i]["result"]["tokens"])
         emit({"phase": "server_turbo_solo", "identical": solo_same,
-              "fill_buckets_of_fills": [p for p, _ in fills], "card": card})
+              "fill_buckets_of_fills": fills, "card": card})
         require(all(solo_same), "server_turbo: a short request's tokens "
                                 "differ from its solo run")
         # fault recovery on the card
         clip = _decode_wav_bytes(mix[0][0], cfg.sample_rate)
-        want = solo_tokens(eng, clip, 8)
+        want = eng.transcribe(clip).tokens
 
         def poisoned(k: int = 1):
             raise RuntimeError("poisoned step")

@@ -317,6 +317,106 @@ def test_prefill_matches_teacher_forced_reference(nano):
                                build_prompt(cfg, prev_tokens=prev), 6)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_fill_runs_over_its_joining_rows_only(nano, monkeypatch, n):
+    """A fill of n joining requests beside a live slot runs the log-mel,
+    the encoder blocks and the cross K/V over exactly n rows in a 4-slot
+    engine, and the conv stem once a row; the prefill runs over the slot
+    batch once for each prompt bucket, copying the rows of that bucket."""
+    from whisper_tpu_torch import serving_continuous as sc
+    rows = {"mel": [], "stem": [], "blocks": [], "cross_kv": [],
+            "prefill": [], "prefill_cross": []}
+
+    def recorder(key, real, measure):
+        def recorded(*args):
+            rows[key].append(measure(args))
+            return real(*args)
+        return recorded
+
+    for key, name, measure in (
+            ("mel", "log_mel_spectrogram", lambda a: a[0].shape[0]),
+            ("stem", "encoder_input", lambda a: a[2].shape[0]),
+            ("blocks", "encoder_blocks", lambda a: a[2].shape[0]),
+            ("cross_kv", "precompute_cross_kv", lambda a: a[2].shape[0]),
+            ("prefill", "_prefill_join",
+             lambda a: (tuple(a[4].shape), a[5].tolist())),
+            ("prefill_cross", "decoder_hidden",
+             lambda a: {leaf.shape[1] for leaf in a[5].values()})):
+        monkeypatch.setattr(sc, name, recorder(key, getattr(sc, name),
+                                               measure))
+    eng = _engine(nano, max_slots=4, max_new=4)
+    eng.submit(_audio(50))
+    eng.step()                                # one live slot
+    for i in range(n):
+        eng.submit(_audio(51 + i),
+                   prev_tokens=list(range(700, 720)) if i else None)
+    eng.step()
+    passes = [((4, 8), [0]), ((4, 8), [1])]
+    if n > 1:                                 # 25-token prompts
+        passes.append(((4, 32), list(range(2, 1 + n))))
+    assert rows == {"mel": [1, n], "stem": [1] * (1 + n),
+                    "blocks": [1, n], "cross_kv": [1, n], "prefill": passes,
+                    "prefill_cross": [{4}] * len(passes)}
+    eng.run_until_idle()
+
+
+@pytest.mark.parametrize("prevs", [
+    [None] * 6,
+    [20, 120, 20, 120, 120, 20],
+], ids=["plain", "prev_32_128"])
+def test_fills_of_1_2_3_rows_match_a_solo_engine(nano, prevs):
+    """Requests that join in fills of 1, 2 and 3 rows (each fill beside
+    live slots) give a solo engine's tokens for the same audio and
+    prompt: plain prompts, and <|startofprev|> prompts in the 32 and 128
+    prefill buckets."""
+    prev = [None if k is None else list(range(600, 600 + k)) for k in prevs]
+    solo = _engine(nano, max_slots=1, max_new=6)
+    ref = []
+    for i in range(6):
+        rid = solo.submit(_audio(60 + i), prev_tokens=prev[i])
+        ref.append(solo.run_until_idle()[rid])
+
+    eng = _engine(nano, max_slots=6, max_new=6)
+    rids = []
+    profiling.start()
+    try:
+        for group in ((0,), (1, 2), (3, 4, 5)):
+            rids += [eng.submit(_audio(60 + i), prev_tokens=prev[i])
+                     for i in group]
+            eng.step()
+            eng.step()
+        out = eng.run_until_idle()
+    finally:
+        spans = profiling.stop()["spans"]
+    assert [sp["attrs"]["rows"] for sp in spans
+            if sp["name"] == "engine.fill"] == [1, 2, 3]
+    assert [out[rid] for rid in rids] == ref
+
+
+def test_each_joining_row_prefills_in_its_own_bucket(nano, monkeypatch):
+    """A fill of a plain prompt and a 120-token <|startofprev|> prompt
+    prefills them in the 8 and 128 buckets, each in a pass of its own; the
+    plain request gives its solo tokens, as when it fills alone."""
+    from whisper_tpu_torch import serving_continuous as sc
+    widths = []
+    real = sc._prefill_join
+
+    def recorded(*args):
+        widths.append(args[4].shape[1])
+        return real(*args)
+
+    solo = _engine(nano, max_slots=2, max_new=6)
+    rid = solo.submit(_audio(70))
+    ref = solo.run_until_idle()[rid]
+    monkeypatch.setattr(sc, "_prefill_join", recorded)
+    eng = _engine(nano, max_slots=2, max_new=6)
+    plain = eng.submit(_audio(70))
+    eng.submit(_audio(71), prev_tokens=list(range(600, 720)))
+    out = eng.run_until_idle()
+    assert widths == [8, 128]
+    assert out[plain] == ref
+
+
 def test_sync_every_batched_drive_matches_token_granularity(nano):
     ref_eng = _engine(nano, max_slots=2, max_new=6)
     rids = [ref_eng.submit(_audio(s)) for s in (7, 8, 9)]

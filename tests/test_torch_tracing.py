@@ -203,6 +203,10 @@ def test_each_admitted_request_is_in_one_fill_and_one_admit_event(nano):
         assert a["start_ns"] == fill["start_ns"]
         assert a["attrs"]["submit_ns"] <= fill["start_ns"]
     assert {a["parent"] for a in admits} == set(fills)
+    # each fill encodes the windows of the requests it admits, no more
+    rows = {i: sum(a["parent"] == i for a in admits) for i in fills}
+    assert {i: sp["attrs"]["rows"] for i, sp in fills.items()} == rows
+    assert max(rows.values()) == 2
 
 
 @pytest.mark.parametrize("prompts,buckets", [

@@ -493,7 +493,16 @@ def _tail_q8_weights(layers: Params, o_q: bool, dtype) -> Params:
 
 def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
                     ) -> torch.Tensor:
-    """(B, n_mels, n_frames) -> (B, n_audio_ctx, d_model) (:484).
+    """(B, n_mels, n_frames) -> (B, n_audio_ctx, d_model) (:484): the conv
+    stem and positions (`encoder_input`), then `encoder_blocks`."""
+    return encoder_blocks(params, cfg,
+                          encoder_input(params["encoder"], cfg, mel))
+
+
+def encoder_blocks(params: Params, cfg: WhisperConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """The encoder after its input: (B, n_audio_ctx, d_model) ->
+    (B, n_audio_ctx, d_model).
 
     Per block: LN1 and the fused QKV projection in torch, then either the
     fused block tail (attention, o-projection, LN2, MLP; the CUDA kernel
@@ -520,7 +529,6 @@ def encoder_forward(params: Params, cfg: WhisperConfig, mel: torch.Tensor
     branch."""
     enc = params["encoder"]
     dtype = compute_dtype(cfg)
-    x = encoder_input(enc, cfg, mel)
     quant = dtype != torch.float32
     enc_i8 = quant and _encoder_i8(cfg)
     tp, sp = tp_group(), sp_group()

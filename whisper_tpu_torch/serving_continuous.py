@@ -21,10 +21,16 @@ Differences from the JAX engine, all deliberate:
     them); `reset_state` builds them anew.
   * `step_device(k)` runs k single steps; the JAX `lax.scan` form exists
     for XLA.
-  * The batched prefill writes into a scratch cache of p_pad slots for the
-    full slot batch and copies only the joining rows into the state's
-    cache: the port's decoder_forward writes the cache it is given in
-    place, where JAX computes a new cache and merges it.
+  * A fill encodes and projects its n joining rows only, where JAX pads
+    them to the B slots so that its traced shapes stay fixed; the conv
+    stem runs a row at a time (`_encode_rows`), so the tokens are the
+    same. The batched prefill still runs over the full slot batch (its
+    GEMMs round by their row count, and a pass costs the same host time
+    at 1 row as at 32), once for each prompt bucket among the joining
+    rows, so that each row prefills in its own bucket. It writes into a
+    scratch cache of p_pad slots and copies only the joining rows into the
+    state's cache: the port's decoder_forward writes the cache it is given
+    in place, where JAX computes a new cache and merges it.
   * Sampling (opts.temperature > 0) adds Gumbel noise that is a hash of
     (the request's seed, its position, the token id) in integer ops on
     the device (`hashed_gumbel`), where JAX folds the position into a
@@ -51,12 +57,14 @@ import torch
 from whisper_tpu_torch import weights as weights_lib
 from whisper_tpu_torch.audio import log_mel_spectrogram, pad_or_trim
 from whisper_tpu_torch.config import WhisperConfig, get_config
-from whisper_tpu_torch.decode import detect_language, encode, gumbel_noise
+from whisper_tpu_torch.decode import detect_language, gumbel_noise
 from whisper_tpu_torch.decode_rules import DecodeOptions, apply_rules
 from whisper_tpu_torch.models.whisper import (
     compute_dtype,
     decoder_hidden,
     decoder_step_ragged,
+    encoder_blocks,
+    encoder_input,
     full_fp32,
     init_kv_cache,
     precompute_cross_kv,
@@ -64,6 +72,19 @@ from whisper_tpu_torch.models.whisper import (
 from whisper_tpu_torch.pipeline import resolve_device
 from whisper_tpu_torch.tokenizer import LANGUAGES, Tokenizer, build_prompt
 from whisper_tpu_torch.utils import profiling
+
+
+def _encode_rows(params, cfg: WhisperConfig, mel: torch.Tensor
+                 ) -> torch.Tensor:
+    """`encode` over a fill's rows, with the conv stem run one row at a
+    time. cuDNN picks the stem's convolution by the batch, so a row's stem
+    rounds otherwise beside other rows; the blocks after it give a row
+    the same values at any row count (their products are cuBLAS GEMMs of
+    M = rows x n_audio_ctx, the int8 products and the hand-written
+    kernels), so they run over all the rows at once."""
+    x = torch.cat([encoder_input(params["encoder"], cfg, mel[i:i + 1])
+                   for i in range(mel.shape[0])])
+    return encoder_blocks(params, cfg, x)
 
 
 def _prefill_join(params, cfg: WhisperConfig, cache: dict, cross: dict,
@@ -397,11 +418,13 @@ class ContinuousBatcher:
 
     @torch.inference_mode()
     def _fill_free_slots(self) -> int:
-        """Claim free slots for queued requests (:389). All joining
-        requests share ONE padded (B, ...) mel + encoder pass and one
-        batched prefill (_prefill_join); only the joining rows' state, cross
-        K/V and cache columns are written, by their slot indices. Returns
-        the number of requests that joined."""
+        """Claim free slots for queued requests (:389). The n joining
+        requests share ONE (n, ...) mel, encoder and cross K/V pass over
+        their own windows, whatever the slot count (`_encode_rows`), and a
+        batched prefill (_prefill_join) for each of their prompt buckets;
+        only the joining rows' state, cross K/V and cache columns are
+        written, by their slot indices. Returns the number of requests
+        that joined."""
         free = [b for b in range(self.B) if self._slots[b] is None]
         if not free or not self._queue:
             return 0
@@ -410,7 +433,9 @@ class ContinuousBatcher:
 
     def _fill(self, free: list, sp) -> int:
         """The fill inside its span `sp`: each part in a span of its own,
-        an `admit` event per request taken (its id and submit time)."""
+        an `admit` event per request taken (its id and submit time); the
+        span's `bucket` is the largest of its rows' prefill buckets, its
+        `rows` the windows encoded."""
         cfg = self.cfg
         take = self._queue[:len(free)]
         del self._queue[:len(take)]
@@ -429,7 +454,7 @@ class ContinuousBatcher:
         n = len(take)
         slots = free[:n]
         with profiling.span("fill.audio"):
-            audio = np.zeros((self.B, cfg.n_samples), np.float32)
+            audio = np.zeros((n, cfg.n_samples), np.float32)
             for i, req in enumerate(take):
                 audio[i] = pad_or_trim(req[1], cfg.n_samples)
             wav = self._to_device(audio)
@@ -440,16 +465,17 @@ class ContinuousBatcher:
                 mel = log_mel_spectrogram(wav, cfg)
             del wav                     # freed before the encoder runs
             with profiling.span("fill.encode"):
-                enc = encode(self.params, cfg, mel)
+                enc = _encode_rows(self.params, cfg, mel)
             del mel
-            lang_probs = None
-            if any(req[2][0] == "auto" for req in take):
-                lang_probs = detect_language(self.params, cfg, enc).cpu()
+            # a row at a time: a decoder pass rounds by its row count
+            lang = {i: int(detect_language(self.params, cfg,
+                                           enc[i:i + 1])[0].argmax())
+                    for i, req in enumerate(take) if req[2][0] == "auto"}
             with profiling.span("fill.cross_kv"):
                 cross = precompute_cross_kv(self.params, cfg, enc)
                 for name, leaf in s["cross"].items():
-                    leaf.index_copy_(1, idx,
-                                     cross[name][:, :n].to(leaf.dtype))
+                    leaf.index_copy_(1, idx, cross[name].to(leaf.dtype))
+            del enc, cross
 
             prompts = []
             rows_np = np.full((n, self.total), cfg.eot_token, np.int64)
@@ -459,7 +485,7 @@ class ContinuousBatcher:
             for i, (rid, _, (language, task), cb, on_tok, seed, prev,
                     _t, _t_ns) in enumerate(take):
                 if language == "auto":
-                    language = LANGUAGES[int(lang_probs[i].argmax())]
+                    language = LANGUAGES[lang[i]]
                 prompt = build_prompt(cfg, language, task,
                                       timestamps=self._timestamps,
                                       prev_tokens=prev)
@@ -482,18 +508,25 @@ class ContinuousBatcher:
             s["active"].index_fill_(0, idx, True)
             s["finished"].index_fill_(0, idx, False)
 
-            # one batched prefill for every joining row
-            p_max = max(len(p) for p in prompts)
-            p_pad = next(pb for pb in self._P_BUCKETS
-                         if pb >= min(p_max, self._P_BUCKETS[-1]))
-            tok_pad = np.full((self.B, p_pad), cfg.eot_token, np.int64)
-            for b, p in zip(slots, prompts):
-                tok_pad[b, :min(len(p), p_pad)] = p[:p_pad]
+            # one batched prefill for each prompt bucket of the joining rows
+            p_pads = [next(pb for pb in self._P_BUCKETS
+                           if pb >= min(len(p), self._P_BUCKETS[-1]))
+                      for p in prompts]
             with profiling.span("fill.prefill"):
-                _prefill_join(self.params, cfg, s["cache"], s["cross"],
-                              self._to_device(tok_pad), idx)
+                for p_pad in sorted(set(p_pads)):
+                    tok_pad = np.full((self.B, p_pad), cfg.eot_token,
+                                      np.int64)
+                    joining = [(b, p) for b, p, q in zip(slots, prompts,
+                                                         p_pads) if q == p_pad]
+                    for b, p in joining:
+                        tok_pad[b, :min(len(p), p_pad)] = p[:p_pad]
+                    rows = np.asarray([b for b, _ in joining], np.int64)
+                    _prefill_join(self.params, cfg, s["cache"], s["cross"],
+                                  self._to_device(tok_pad),
+                                  self._to_device(rows))
         if sp:
-            sp["bucket"] = p_pad
+            sp["bucket"] = max(p_pads)
+            sp["rows"] = n
         return n
 
     def _snapshot(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
